@@ -1,0 +1,139 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources ``aslr_to_tpu_torch/csrc/*.cu`` have a plain C interface. At
+first use, ``nvcc`` compiles them for ``sm_90a`` into one shared library
+under ``build/aslr_to_tpu_torch/`` beside the package (git-ignored), named
+by a hash of the sources and flags so that an edit rebuilds; ``ctypes``
+loads it. Pointers and the stream pass as ``c_void_p``, integers as
+``c_int``; every entry returns ``cudaGetLastError()`` of its launch, and
+:func:`check` raises when it is not 0.
+
+``LAUNCHES`` holds one plain integer per kernel, raised by the wrapper
+each time it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aslr_to_tpu_torch"
+# -fmad=false: no contraction of a*b+c into one rounding, so the kernels
+# perform the same IEEE operations as their plain versions; an unstable
+# rollout then departs from its plain twin by no more than rounding does.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES = {"linearize": 0, "riccati_box": 0, "rollout2": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # params, nl, xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext,
+    # cost, ok, tLx, tLxx, tcost, tok, stream
+    "aslr_linearize": [_P, _I, _P, _P, _P, _I, _I] + [_P] * 14 + [_P],
+    # ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, ub,
+    # reg, T, B, qp_iters, k, K, dg, dq, stop, ok, retryable, stream
+    "aslr_riccati_box": [_I, _I] + [_P] * 14 + [_I, _I, _I] + [_P] * 7 + [_P],
+    # params, nl, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, T, B,
+    # xs_a, us_a, cost_a, xs_b, us_b, cost_b, stream
+    "aslr_rollout2": [_P, _I] + [_P] * 10 + [_I, _I] + [_P] * 6 + [_P],
+}
+
+_lib = None
+build_log = ""
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cus, cuhs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cus + cuhs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libaslr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile the kernels if the library for these sources is missing;
+    returns its path. The compiler's output (``-Xptxas -v``: registers,
+    spills) is kept in ``build_log``."""
+    global build_log
+    out = library_path()
+    if out.exists() and not force:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for base, argtypes in _SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(handle, base + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def entry(base: str, dtype):
+    """The C entry of ``base`` for a float32 or float64 tensor dtype."""
+    import torch
+
+    if dtype == torch.float32:
+        return getattr(lib(), base + "_f32")
+    if dtype == torch.float64:
+        return getattr(lib(), base + "_f64")
+    raise TypeError(f"{base}: float32 or float64 tensors only, got {dtype}")
+
+
+def check(name: str, code: int):
+    """Raise unless a launch returned cudaSuccess; count it otherwise."""
+    if code == -1:
+        raise NotImplementedError(f"{name}: no kernel instantiated for this shape")
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+    LAUNCHES[name] += 1
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t):
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,224 @@
+"""Batched BoxDDP solver loop in lane layout.
+
+PyTorch counterpart of ``aslr_to_tpu/pallas/lane_solver.py::
+build_lane_solver`` for the BoxDDP family (no gaps, a shared ``[nu]``
+control box). The loop state lives in lane layout (batch innermost:
+xs ``[T+1, ndx, B]``, us ``[T, nu, B]``) and each iteration runs the three
+kernels: the linearization (K1), the Box Riccati backward (K2, relaunched
+by the per-lane regularization retry) and the two-trial rollout (K3, once
+per pair of step lengths).
+
+The three nested ``jax.lax.while_loop``\\ s become one batch-first Python
+loop with explicit per-lane masks. JAX batches a ``while_loop`` by running
+the body while ANY lane's condition holds and masking each lane's update
+with its own condition; the loops below do the same with ``torch.where``
+on ``[B]`` masks, so a lane reproduces ``vmap(solve)`` of the JAX package.
+Each loop condition is a host read (``bool(mask.any())``): that sync is
+the accepted cost of this first version; device-side loop control comes
+later.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings
+from ..solvers.problem import ShootingProblem
+from .riccati import BoxBackwardOut, riccati_box_backward, riccati_box_plain
+from .vsa_kernels import (
+    extract_vsa_spec,
+    linearize,
+    linearize_plain,
+    rollout2,
+    rollout2_plain,
+)
+
+
+def _sel(pred, new, old):
+    """Per-lane select: pred [B] broadcast against [..., B] tensors."""
+    return torch.where(pred, new, old)
+
+
+def build_lane_solver(
+    problem: ShootingProblem,
+    settings: SolverSettings = SolverSettings(),
+    bounds: Optional[Bounds] = None,
+    use_gaps: bool = False,
+    keep_log: bool = False,
+    ls_trials: int = 2,
+    backend: str = "auto",
+):
+    """Build ``solve_batch(x0s[, xs_init, us_init]) -> SolveResult`` for a
+    concrete BoxDDP problem; ``x0s`` is ``[B, nx]``.
+
+    ``backend="auto"`` sends CUDA tensors through the kernels and CPU
+    tensors through their plain versions; ``backend="plain"`` runs the
+    plain versions on any device (the card-side reference of the kernels).
+    """
+    if use_gaps:
+        raise NotImplementedError("use_gaps (FDDP/BoxFDDP) comes with the FDDP/SEA slice")
+    if bounds is None:
+        raise NotImplementedError("the unbounded DDP family comes with the FDDP/SEA slice")
+    if keep_log:
+        raise NotImplementedError("keep_log (SolveLog series) comes with the solver slice")
+    if ls_trials != 2:
+        raise NotImplementedError("the rollout kernel evaluates two trials per launch")
+    if settings.boxqp_alphas != 5:
+        raise NotImplementedError("the BoxQP kernel runs a 5-step Armijo search")
+    if backend not in ("auto", "plain"):
+        raise ValueError(f"backend must be 'auto' or 'plain', got {backend!r}")
+    s = settings
+    spec = extract_vsa_spec(problem, bounds)
+    T, nu, NDX = problem.T, spec.nu, spec.ndx
+    lin_fn = linearize if backend == "auto" else linearize_plain
+    bwd_fn = riccati_box_backward if backend == "auto" else riccati_box_plain
+    roll_fn = rollout2 if backend == "auto" else rollout2_plain
+    warm = s.boxqp_warm_iters > 0
+    qp_iters = s.boxqp_warm_iters if warm else s.boxqp_iters
+
+    def solve_batch(x0s, xs_init=None, us_init=None, wterm_scale=None, box_ub=None):
+        if wterm_scale is not None or box_ub is not None:
+            raise NotImplementedError("wterm_scale / box_ub (homotopy) come with the "
+                                      "homotopy slice")
+        B = x0s.shape[0]
+        dtype, dev = x0s.dtype, x0s.device
+
+        def to_lanes(x):
+            return x.to(dtype).permute(*range(1, x.dim()), 0).contiguous()
+
+        x0_l = to_lanes(x0s)                                        # [ndx, B]
+        xs = (x0_l.expand(T + 1, NDX, B).contiguous() if xs_init is None
+              else to_lanes(xs_init))
+        us = (torch.zeros((T, nu, B), dtype=dtype, device=dev) if us_init is None
+              else to_lanes(us_init))
+        lb = torch.as_tensor(spec.lb, dtype=dtype, device=dev)[:, None].expand(nu, B).contiguous()
+        ub = torch.as_tensor(spec.ub, dtype=dtype, device=dev)[:, None].expand(nu, B).contiguous()
+        # project the warm start into the box (solvers/ddp.py::_solve_impl)
+        us = torch.minimum(torch.maximum(us, lb), ub)
+        wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=dev)
+        alphas = torch.tensor([2.0 ** -i for i in range(s.n_alphas)], dtype=dtype, device=dev)
+
+        cost = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+        stop = cost.clone()
+        reg = torch.full((B,), s.reg_init, dtype=dtype, device=dev)
+        it = torch.zeros((B,), dtype=torch.int32, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        converged = torch.zeros_like(done)
+        diverged = torch.zeros_like(done)
+        kprev = torch.zeros((T, nu, B), dtype=dtype, device=dev)
+        rej_streak = torch.zeros_like(it)
+        nrt_streak = torch.zeros_like(it)
+
+        while bool((~done).any()):
+            active = ~done
+            lin = lin_fn(spec, xs, us, wterm)
+            run, term = lin.run, lin.term
+            # defect gaps fs = diff(xs, [x0; xnext]); without gaps only the
+            # feasibility flag is used
+            fs = torch.cat([(x0_l - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+            gap_norm = fs.abs().amax(dim=(0, 1))
+            feasible = gap_norm < s.th_gaptol
+            lin_ok = torch.isfinite(lin.cost) & lin.ok
+            kp = kprev if warm else None
+
+            def backward(r):
+                return bwd_fn(run["Fx"], run["Fu"], run["Lx"], run["Lu"], run["Lxx"],
+                              run["Lxu"], run["Luu"], term["Lx"], term["Lxx"], us, kp,
+                              lb, ub, r, qp_iters)
+
+            # -- backward pass with per-lane regularization retry ----------
+            reg_bw = reg
+            bw = backward(reg_bw)
+            tries = torch.zeros_like(it)
+            while True:
+                pred = ((~bw.ok) & bw.retryable & (reg_bw < s.reg_max)
+                        & (tries < s.bw_retry_cap) & active & lin_ok)
+                if not bool(pred.any()):
+                    break
+                reg_bw = torch.where(pred, torch.clamp(reg_bw * s.reg_factor, max=s.reg_max),
+                                     reg_bw)
+                bw2 = backward(reg_bw)
+                bw = BoxBackwardOut(*(_sel(pred, n, o) for n, o in zip(bw2, bw)))
+                tries = tries + pred.to(tries.dtype)
+            bw_failed = ~bw.ok
+            dg, dq = bw.dg, bw.dq
+
+            # -- early-exit backtracking line search, two trials a launch ---
+            def ls_accept(alpha, trial):
+                dV = lin.cost - trial.cost
+                finite = torch.isfinite(trial.cost) & torch.isfinite(trial.xs).all(0).all(0)
+                dVexp = alpha * (dg + 0.5 * alpha * dq)
+                return finite & (dVexp >= 0.0) & (
+                    (dg < s.th_grad) | (~feasible) | (dV > s.th_acceptstep * dVexp))
+
+            i = torch.zeros_like(it)
+            accepted = done | bw_failed
+            xs_b, us_b, cost_b = xs, us, lin.cost
+            alpha_b = torch.zeros_like(lin.cost)
+            while True:
+                pred = (~accepted) & (i < s.n_alphas)
+                if not bool(pred.any()):
+                    break
+                a0 = alphas[torch.clamp(i, 0, s.n_alphas - 1).long()]
+                a1 = alphas[torch.clamp(i + 1, 0, s.n_alphas - 1).long()]
+                tr0, tr1 = roll_fn(spec, xs, us, bw.k, bw.K, x0_l, a0, a1, wterm, lb, ub)
+                acc0 = ls_accept(a0, tr0)
+                # trial 1 counts only for a genuinely new alpha (dedupe at the
+                # ladder's end keeps iteration counts equal to one trial a round)
+                acc1 = ls_accept(a1, tr1) & (i + 1 < s.n_alphas)
+                take = (acc0 | acc1) & pred
+                # the first accepting trial wins
+                xs_t = _sel(acc0, tr0.xs, tr1.xs)
+                us_t = _sel(acc0, tr0.us, tr1.us)
+                cost_t = torch.where(acc0, tr0.cost, tr1.cost)
+                alpha_t = torch.where(acc0, a0, a1)
+                i = i + 2 * pred.to(i.dtype)
+                accepted = accepted | take
+                xs_b = _sel(take, xs_t, xs_b)
+                us_b = _sel(take, us_t, us_b)
+                cost_b = torch.where(take, cost_t, cost_b)
+                alpha_b = torch.where(take, alpha_t, alpha_b)
+            any_accept = accepted
+
+            # -- regularization schedule / termination ---------------------
+            eff_step = torch.where(any_accept, alpha_b, alphas[-1])
+            reg_dec = torch.clamp(reg_bw / s.reg_factor, min=s.reg_min)
+            inc_f = torch.where(any_accept, s.reg_factor, s.reg_reject_factor).to(dtype)
+            reg_inc = torch.clamp(reg_bw * inc_f, max=s.reg_max)
+            do_inc = eff_step <= s.th_stepinc
+            do_dec = (~do_inc) & (eff_step > s.th_stepdec)
+            reg_new = torch.where(do_inc, reg_inc, torch.where(do_dec, reg_dec, reg_bw))
+            div_now = ((bw_failed & (reg_bw >= s.reg_max))
+                       | (do_inc & (reg_new >= s.reg_max)) | ~lin_ok)
+            full_reject = (~any_accept) & do_inc
+            rej_new = torch.where(full_reject, rej_streak + 1, torch.zeros_like(rej_streak))
+            nonretry = bw_failed & ~bw.retryable
+            nrt_new = torch.where(nonretry, nrt_streak + 1, torch.zeros_like(nrt_streak))
+            if s.doomed_reject_iters:
+                div_now = div_now | (rej_new >= s.doomed_reject_iters) | (nrt_new >= 2)
+            conv_now = feasible & (bw.stop < s.th_stop)
+            it1 = it + 1
+            done_now = conv_now | div_now | (it1 >= s.maxiter)
+
+            # masked merge: finished lanes keep their state (vmap semantics)
+            xs = _sel(active, xs_b, xs)
+            us = _sel(active, us_b, us)
+            cost = torch.where(active, cost_b, cost)
+            stop = torch.where(active, bw.stop, stop)
+            reg = torch.where(active, reg_new, reg)
+            it = torch.where(active, it1, it)
+            converged = torch.where(active, conv_now, converged)
+            diverged = torch.where(active, div_now, diverged)
+            kprev = _sel(active & bw.ok, bw.k, kprev)
+            rej_streak = torch.where(active, rej_new, rej_streak)
+            nrt_streak = torch.where(active, nrt_new, nrt_streak)
+            done = torch.where(active, done_now, done)
+
+        empty = torch.zeros((B, 0), dtype=dtype, device=dev)
+        return SolveResult(
+            xs=xs.permute(2, 0, 1), us=us.permute(2, 0, 1), cost=cost, stop=stop,
+            iterations=it, converged=converged, diverged=diverged, reg=reg,
+            log=SolveLog(*[empty for _ in SolveLog._fields]))
+
+    return solve_batch

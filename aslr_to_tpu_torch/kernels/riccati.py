@@ -1,0 +1,231 @@
+"""Box-DDP backward Riccati sweep with BoxQP (K2).
+
+PyTorch counterpart of ``aslr_to_tpu/pallas/riccati.py``
+(``prepare_riccati_box_backward_lanes`` and ``_riccati_box_kernel``). The
+wrapper takes lane tensors (batch innermost, unpadded): on a CUDA tensor it
+launches ``csrc/riccati_box.cu`` or raises; on a CPU tensor it runs the
+plain version below, which follows the kernel's order of operations. The
+plain version is elementwise (broadcast products and sums, no
+``torch.matmul``), so no TF32 path can touch it on the card.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import build as _build
+from .vsa_kernels import _check_lane, _route
+
+QP_ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
+
+
+class BoxBackwardOut(NamedTuple):
+    k: torch.Tensor          # [T, nu, B]
+    K: torch.Tensor          # [T, nu, ndx, B]
+    dg: torch.Tensor         # [B] sum Qu.k
+    dq: torch.Tensor         # [B] -sum k'Quu k
+    stop: torch.Tensor       # [B] sum ||Qu||^2
+    ok: torch.Tensor         # [B] bool
+    retryable: torch.Tensor  # [B] bool: a failure with Quu still finite
+
+
+# -- plain version ------------------------------------------------------------
+# Matrices are [n, m, B] tensors and vectors [n, B]. Every product is a
+# sequential sum over its inner index, acc = a_0 b_0, acc = acc + a_r b_r,
+# taken for a whole row or matrix at once: the kernel's order of operations
+# with a few tensor ops per product.
+
+def _matmul(A, Bm):
+    """A @ B per lane: A [n,k,B], B [k,m,B] -> [n,m,B] (sum over k in order)."""
+    acc = A[:, 0, None] * Bm[0, None]
+    for r in range(1, A.shape[1]):
+        acc = acc + A[:, r, None] * Bm[r, None]
+    return acc
+
+
+def _matmul_t_left(A, Bm):
+    """A^T @ B per lane: A [k,n,B], B [k,m,B] -> [n,m,B]."""
+    acc = A[0, :, None] * Bm[0, None]
+    for r in range(1, A.shape[0]):
+        acc = acc + A[r, :, None] * Bm[r, None]
+    return acc
+
+
+def _matvec(A, v):
+    """A @ v per lane: A [n,k,B], v [...,k,B] -> [...,n,B]."""
+    acc = A[:, 0] * v[..., 0, None, :]
+    for r in range(1, A.shape[1]):
+        acc = acc + A[:, r] * v[..., r, None, :]
+    return acc
+
+
+def _matvec_t(A, v):
+    """A^T @ v per lane: A [k,n,B], v [k,B] -> [n,B]."""
+    acc = A[0] * v[0]
+    for r in range(1, A.shape[0]):
+        acc = acc + A[r] * v[r]
+    return acc
+
+
+def _dot(a, b):
+    """sum_i a_i b_i over the vector axis ([..., n, B] -> [..., B]), in order."""
+    acc = a[..., 0, :] * b[..., 0, :]
+    for i in range(1, a.shape[-2]):
+        acc = acc + a[..., i, :] * b[..., i, :]
+    return acc
+
+
+def _add_diag(A, d):
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    return A + eye.reshape(eye.shape + (1,) * (A.dim() - 2)) * d
+
+
+def _quad(H, q, x):
+    """0.5 * sum(x * H x) + sum(q * x); x may carry a leading trial axis."""
+    return 0.5 * _dot(x, _matvec(H, x)) + _dot(q, x)
+
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _free_mask(H, q, x, low, up):
+    g = q + _matvec(H, x)
+    clamped = ((x <= low) & (g >= 0.0)) | ((x >= up) & (g <= 0.0))
+    return g, 1.0 - clamped.to(x.dtype)
+
+
+def _masked_factor(H, free):
+    """Cholesky rows of the masked system (clamped rows/cols -> identity)."""
+    n = free.shape[0]
+    A = _add_diag(H * (free[:, None] * free[None]), 1.0 - free)
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
+    return L
+
+
+def _chol_solve(L, b):
+    """Solve L L^T x = b; b [n, ..., B] (rows broadcast against L's [B])."""
+    n = len(L)
+    y = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x)
+
+
+def boxqp_plain(H, q, low, up, x, iters):
+    """Masked projected-Newton box QP (riccati.py::_boxqp_lanes): H [n,n,B],
+    q/low/up/x [n,B]; returns (x, free). The five Armijo trials are
+    evaluated side by side and accepted in order."""
+    x = _clip(x, low, up)
+    alphas = torch.tensor(QP_ALPHAS, dtype=x.dtype, device=x.device)[:, None, None]
+    for _ in range(iters):
+        g, free = _free_mask(H, q, x, low, up)
+        dx = -_chol_solve(_masked_factor(H, free), g * free)
+        f0 = _quad(H, q, x)
+        gdx = _dot(g, dx)
+        xa = _clip(x + alphas * dx, low, up)                   # [5, n, B]
+        fa = _quad(H, q, xa)                                    # [5, B]
+        best = x
+        accepted = torch.zeros_like(f0, dtype=torch.bool)
+        for s, a in enumerate(QP_ALPHAS):
+            ok_a = (fa[s] - f0 <= (0.1 * a) * gdx) & ~accepted
+            best = torch.where(ok_a, xa[s], best)
+            accepted = accepted | ok_a
+        x = best
+    _, free = _free_mask(H, q, x, low, up)
+    return x, free
+
+
+def _finite(t, nlead):
+    return torch.isfinite(t).flatten(0, nlead - 1).all(0)
+
+
+def riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, ub, reg,
+                      qp_iters) -> BoxBackwardOut:
+    """Plain PyTorch version of K2 (see :func:`riccati_box_backward`)."""
+    T = Fu.shape[0]
+    Vx = tLx
+    Vxx = _add_diag(tLxx, reg)
+    zero = torch.zeros_like(reg)
+    dg, dq, stop = zero, zero, zero
+    indef = torch.zeros_like(reg, dtype=torch.bool)
+    ks, Ks = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        fx, fu = Fx[t], Fu[t]
+        Qx = Lx[t] + _matvec_t(fx, Vx)
+        Qu = Lu[t] + _matvec_t(fu, Vx)
+        FxTVxx = _matmul_t_left(fx, Vxx)
+        Qxu = Lxu[t] + _matmul(FxTVxx, fu)
+        Quu = _add_diag(Luu[t] + _matmul(_matmul_t_left(fu, Vxx), fu), reg)
+        quu_ok = _finite(Quu, 2)
+
+        x0 = -kprev[t] if kprev is not None else torch.zeros_like(us[t])
+        du, free = boxqp_plain(Quu, Qu, lb - us[t], ub - us[t], x0, qp_iters)
+        k = -du
+        # free-subspace gains: columns of Qxu^T through the masked factor
+        K = _chol_solve(_masked_factor(Quu, free), Qxu.transpose(0, 1) * free[:, None])
+
+        Quuk = _matvec(Quu, k)
+        Vx = Qx + _matvec_t(K, Quuk) - 2.0 * _matvec_t(K, Qu)
+        V = (Lxx[t] + _matmul(FxTVxx, fx)) - _matmul(Qxu, K)
+        Vxx = _add_diag(0.5 * (V + V.transpose(0, 1)), reg)
+        out_ok = _finite(k, 1) & _finite(K, 2) & _finite(Vx, 1) & _finite(Vxx, 2)
+        indef = indef | (quu_ok & ~out_ok)
+        ks[t], Ks[t] = k, K
+        dg = dg + _dot(Qu, k)
+        dq = dq - _dot(k, Quuk)
+        stop = stop + _dot(Qu, Qu)
+    ok = torch.isfinite(dg) & torch.isfinite(dq) & torch.isfinite(stop) & _finite(Vx, 1)
+    return BoxBackwardOut(k=torch.stack(ks), K=torch.stack(Ks), dg=dg, dq=dq, stop=stop,
+                          ok=ok, retryable=indef)
+
+
+def riccati_box_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us,
+                         kprev: Optional[torch.Tensor], lb, ub, reg,
+                         qp_iters: int) -> BoxBackwardOut:
+    """K2 on lane tensors: Fx [T,ndx,ndx,B], Fu [T,ndx,nu,B], Lx [T,ndx,B],
+    Lu [T,nu,B], Lxx [T,ndx,ndx,B], Lxu [T,ndx,nu,B], Luu [T,nu,nu,B],
+    tLx [ndx,B], tLxx [ndx,ndx,B], us [T,nu,B], kprev [T,nu,B] or None
+    (cold QPs from 0), lb/ub [nu,B], reg [B]."""
+    if _route(Fx) == "plain":
+        return riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev,
+                                 lb, ub, reg, qp_iters)
+    T, NDX, NU, B = Fu.shape[0], Fu.shape[1], Fu.shape[2], Fu.shape[3]
+    dt, dev = Fx.dtype, Fx.device
+    shapes = (("Fx", Fx, (T, NDX, NDX, B)), ("Fu", Fu, (T, NDX, NU, B)),
+              ("Lx", Lx, (T, NDX, B)), ("Lu", Lu, (T, NU, B)),
+              ("Lxx", Lxx, (T, NDX, NDX, B)), ("Lxu", Lxu, (T, NDX, NU, B)),
+              ("Luu", Luu, (T, NU, NU, B)), ("tLx", tLx, (NDX, B)),
+              ("tLxx", tLxx, (NDX, NDX, B)), ("us", us, (T, NU, B)),
+              ("lb", lb, (NU, B)), ("ub", ub, (NU, B)), ("reg", reg, (B,)))
+    if kprev is not None:
+        shapes += (("kprev", kprev, (T, NU, B)),)
+    for name, t, shape in shapes:
+        _check_lane(name, t, shape, dt, dev)
+    k = torch.empty((T, NU, B), dtype=dt, device=dev)
+    K = torch.empty((T, NU, NDX, B), dtype=dt, device=dev)
+    dg, dq, stop = (torch.empty((B,), dtype=dt, device=dev) for _ in range(3))
+    ok, retry = (torch.empty((B,), dtype=torch.bool, device=dev) for _ in range(2))
+    p = _build.ptr
+    code = _build.entry("aslr_riccati_box", dt)(
+        NDX, NU, p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu), p(tLx), p(tLxx), p(us),
+        p(kprev) if kprev is not None else None, p(lb), p(ub), p(reg), T, B, qp_iters,
+        p(k), p(K), p(dg), p(dq), p(stop), p(ok), p(retry), _build.stream_of(Fx))
+    _build.check("riccati_box", code)
+    return BoxBackwardOut(k=k, K=K, dg=dg, dq=dq, stop=stop, ok=ok, retryable=retry)

@@ -1,0 +1,559 @@
+"""Linearization (K1) and two-trial rollout (K3) of the VSA soft arm.
+
+PyTorch counterpart of ``aslr_to_tpu/pallas/vsa_kernels.py``. Each
+wrapper takes tensors in lane layout (batch innermost: ``[..., B]``,
+contiguous, unpadded). On a CUDA tensor it launches its hand-written
+kernel (``csrc/linearize.cu``, ``csrc/rollout.cu``) or raises; on a CPU
+tensor it runs its plain PyTorch version, which follows the kernel's order
+of operations and is what the CPU tests hold against the JAX package.
+
+Specialization contract (checked by :func:`extract_vsa_spec`): the VSA
+dynamics on a serial revolute chain, the Euler integrator, a frame-placement
+goal plus weighted state and control regularizers (and an optional linear
+stiffness cost), a goal-only terminal cost, one shared model for every
+knot and a shared ``[nu]`` control box.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops import lanes
+from ..ops.lanes import RobotConsts
+from . import build as _build
+
+
+class VSASpec(NamedTuple):
+    """Concrete (numpy, float64) snapshot of the workload the kernels
+    specialize on; the fields of ``aslr_to_tpu``'s ``VSASpec``."""
+
+    rc: RobotConsts
+    dt: float
+    binv: np.ndarray            # [nl, nl] inverse motor inertia
+    frame_id: int
+    target_rot_inv: np.ndarray  # [3, 3] target inverse rotation
+    target_pos: np.ndarray      # [3] target translation
+    w_goal: float
+    w_goal_term: float
+    xw: np.ndarray              # [4 nl] combined state-reg weights
+    uw: np.ndarray              # [nu] combined control-reg weights
+    stiff_w: float              # combined linear stiffness weight
+    stiff_ref: np.ndarray       # [nl] stiffness reference
+    lb: Optional[np.ndarray]    # [nu] (None: unbounded)
+    ub: Optional[np.ndarray]
+    variant: str = "vsa"
+    K: Optional[np.ndarray] = None
+    nu: int = 4
+    nl: int = 2
+    term_target_rot_inv: Optional[np.ndarray] = None   # [3, 3] when it differs
+    term_target_pos: Optional[np.ndarray] = None       # [3]
+
+    @property
+    def ndx(self) -> int:
+        return 4 * self.nl
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().astype(np.float64)
+    return np.asarray(a, dtype=np.float64)
+
+
+def extract_vsa_spec(problem, bounds) -> VSASpec:
+    """Introspect a concrete ShootingProblem built from the VSA preset."""
+    from ..models.costs import (
+        ActivationModelQuad,
+        ActivationModelWeightedQuad,
+        CostModelResidual,
+        CostModelStiffness,
+        ResidualModelControl,
+        ResidualModelFramePlacementASR,
+        ResidualModelState,
+    )
+    from ..models.dynamics import DifferentialVSADynamics
+
+    diff = problem.running.differential
+    if not isinstance(diff, DifferentialVSADynamics):
+        raise NotImplementedError("the port's kernels cover the VSA dynamics; SEA comes "
+                                  "with the FDDP/SEA slice")
+    if bounds is not None and np.ndim(_np(bounds.lb)) != 1:
+        raise NotImplementedError("a per-knot [T, nu] box comes with the per-knot slice")
+    robot = diff.state.robot
+    nl = int(robot.nv)
+    nu = 2 * nl
+
+    def act_weights(cost, nr):
+        if isinstance(cost.activation, ActivationModelQuad):
+            return np.ones(nr)
+        if isinstance(cost.activation, ActivationModelWeightedQuad):
+            return _np(cost.activation.weights)
+        raise TypeError(f"unsupported activation {type(cost.activation)}")
+
+    w_goal = w_goal_term = 0.0
+    xw, uw = np.zeros(4 * nl), np.zeros(nu)
+    stiff_w, stiff_ref = 0.0, np.zeros(nl)
+    frame_id = None
+    target_rot, target_pos = np.eye(3), np.zeros(3)
+    for it in diff.costs.items:
+        c = it.cost
+        w = float(it.weight)
+        if isinstance(c, CostModelStiffness):
+            stiff_w += w * float(c.lamda)
+            if c.Kref is not None:
+                stiff_ref = _np(c.Kref)
+            continue
+        if not isinstance(c, CostModelResidual):
+            raise TypeError(f"unsupported running cost {type(c)}")
+        r = c.residual
+        if isinstance(r, ResidualModelFramePlacementASR):
+            w_goal += w
+            frame_id = int(r.frame_id)
+            target_rot, target_pos = _np(r.placement.rot), _np(r.placement.trans)
+            if not np.allclose(act_weights(c, 6), 1.0):
+                raise TypeError("goal activation must be plain quad")
+        elif isinstance(r, ResidualModelState):
+            if not np.allclose(_np(r.xref), 0.0):
+                raise TypeError("the kernels assume a zero state reference")
+            xw += w * act_weights(c, 4 * nl)
+        elif isinstance(r, ResidualModelControl):
+            uw += w * act_weights(c, nu)
+        else:
+            raise TypeError(f"unsupported residual {type(r)}")
+
+    term_rot = term_pos = None
+    for it in problem.terminal.differential.costs.items:
+        c = it.cost
+        if isinstance(c, CostModelResidual) and isinstance(c.residual, ResidualModelFramePlacementASR):
+            w_goal_term += float(it.weight)
+            term_rot, term_pos = _np(c.residual.placement.rot), _np(c.residual.placement.trans)
+        else:
+            raise TypeError("the kernels assume a goal-only terminal cost")
+    if term_rot is not None and np.array_equal(term_rot, target_rot) \
+            and np.array_equal(term_pos, target_pos):
+        term_rot = term_pos = None
+
+    return VSASpec(
+        rc=RobotConsts(robot),
+        dt=float(problem.running.dt),
+        binv=np.linalg.inv(_np(diff.B)),
+        frame_id=frame_id,
+        target_rot_inv=np.swapaxes(target_rot, -1, -2),
+        target_pos=target_pos,
+        w_goal=w_goal,
+        w_goal_term=w_goal_term,
+        xw=xw,
+        uw=uw,
+        stiff_w=stiff_w,
+        stiff_ref=stiff_ref,
+        lb=None if bounds is None else _np(bounds.lb),
+        ub=None if bounds is None else _np(bounds.ub),
+        variant="vsa",
+        K=None,
+        nu=nu,
+        nl=nl,
+        term_target_rot_inv=None if term_rot is None else term_rot.T,
+        term_target_pos=term_pos,
+    )
+
+
+def _term_target(spec):
+    if spec.term_target_rot_inv is not None:
+        return spec.term_target_rot_inv, spec.term_target_pos
+    return spec.target_rot_inv, spec.target_pos
+
+
+def pack_params(spec: VSASpec) -> np.ndarray:
+    """The kernels' parameter block: a flat float64 array in the field order
+    of ``csrc/common.cuh::unpack_params``."""
+    if spec.variant != "vsa":
+        raise NotImplementedError("the port's kernels cover the VSA dynamics")
+    rc = spec.rc
+    nl = spec.nl
+    if rc.parents != tuple(range(-1, nl - 1)):
+        raise NotImplementedError("the kernels take serial chains (parent of joint i is i-1)")
+    fid = spec.frame_id
+    term_rinv, term_pos = _term_target(spec)
+    parts = [
+        [spec.dt], spec.binv, rc.joint_rot, rc.joint_pos, rc.axis, rc.mass, rc.com,
+        rc.inertia, rc.gravity, [rc.frame_parents[fid]], rc.frame_rot[fid],
+        rc.frame_pos[fid], spec.target_rot_inv, spec.target_pos, term_rinv, term_pos,
+        [spec.w_goal], spec.xw, spec.uw, [spec.stiff_w], spec.stiff_ref,
+    ]
+    return np.ascontiguousarray(np.concatenate(
+        [np.asarray(p, dtype=np.float64).ravel() for p in parts]))
+
+
+def _params_ptr(spec):
+    arr = pack_params(spec)
+    return arr, arr.ctypes.data_as(_build.ctypes.c_void_p)
+
+
+def _check_lane(name, t, shape, dtype, device):
+    if t.shape != shape:
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _route(t):
+    """'kernel' for a CUDA tensor, 'plain' for a CPU tensor; else raise."""
+    if t.is_cuda:
+        return "kernel"
+    if t.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# shared lane pieces (the plain versions' counterparts of csrc/lanes.cuh)
+# ---------------------------------------------------------------------------
+
+def _dot_terms(terms):
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+def _dynamics_lanes(spec, x, u):
+    """VSA accelerations: x list of 4 nl lanes, u list of 2 nl -> 2 nl lanes;
+    also returns M and tau_c."""
+    nl = spec.nl
+    q_l, q_m, v_l = list(x[:nl]), list(x[nl:2 * nl]), list(x[2 * nl:3 * nl])
+    kd = list(u[nl:2 * nl])
+    tau_c = [kd[i] * (q_l[i] - q_m[i]) for i in range(nl)]
+    M, nle = lanes.mass_nle_lanes(spec.rc, q_l, v_l)
+    a_l = lanes.solven(M, [-nle[i] - tau_c[i] for i in range(nl)])
+    binv = spec.binv
+    a_m = [_dot_terms([float(binv[i][j]) * (u[j] + tau_c[j]) for j in range(nl)])
+           for i in range(nl)]
+    return list(a_l) + a_m, M, tau_c
+
+
+def _goal_cost_lanes(spec, q_l, terminal=False):
+    """0.5 * || log6(target^-1 oMf) ||^2 on lanes, and the residual r6."""
+    rots, trans = lanes.fk_lanes(spec.rc, q_l)
+    R, p = lanes.frame_placement_lanes(spec.rc, rots, trans, spec.frame_id)
+    Ri_np, tp_np = _term_target(spec) if terminal else (spec.target_rot_inv, spec.target_pos)
+    Ri = lanes.const(Ri_np, q_l[0])
+    rM = lanes.m_mul(Ri, R)
+    rp = lanes.m_vec(Ri, p - lanes.const(tp_np, q_l[0]))
+    r6 = lanes.log6_lanes(rM, rp)
+    return 0.5 * sum(ri * ri for ri in r6), r6
+
+
+def _reg_cost(spec, x, u, c):
+    for i in range(spec.ndx):
+        if spec.xw[i] != 0.0:
+            c = c + 0.5 * float(spec.xw[i]) * x[i] * x[i]
+    for i in range(spec.nu):
+        if spec.uw[i] != 0.0:
+            c = c + 0.5 * float(spec.uw[i]) * u[i] * u[i]
+    if spec.stiff_w != 0.0:
+        for i in range(spec.nl):
+            c = c + float(spec.stiff_w) * (u[spec.nl + i] - float(spec.stiff_ref[i]))
+    return c
+
+
+def _running_cost_lanes(spec, x, u):
+    c_goal, _ = _goal_cost_lanes(spec, list(x[:spec.nl]))
+    return _reg_cost(spec, x, u, float(spec.w_goal) * c_goal)
+
+
+def _euler(spec, x, a):
+    nv = spec.ndx // 2
+    dt = spec.dt
+    return ([x[i] + x[nv + i] * dt + a[i] * dt * dt for i in range(nv)]
+            + [x[nv + i] + a[i] * dt for i in range(nv)])
+
+
+# ---------------------------------------------------------------------------
+# K1: linearization
+# ---------------------------------------------------------------------------
+
+class Linearization(NamedTuple):
+    cost: torch.Tensor   # [B] summed over the knots, terminal included
+    run: dict            # Fx [T,ndx,ndx,B], Fu [T,ndx,nu,B], Lx, Lu, Lxx, Lxu, Luu
+    term: dict           # Lx [ndx,B], Lxx [ndx,ndx,B]
+    xnext: torch.Tensor  # [T, ndx, B]
+    ok: torch.Tensor     # [B] bool: every derivative tensor finite
+
+
+def _goal_jacobian(spec, q_l, terminal):
+    """(c_goal, r6, J) with J[c][k] = d r6_k / d q_l_c from nl jvp seeds."""
+    c_goal, r6 = _goal_cost_lanes(spec, q_l, terminal)
+
+    J = []
+    for j in range(spec.nl):
+        qd = [lanes.Dual(q, torch.ones_like(q) if i == j else torch.zeros_like(q))
+              for i, q in enumerate(q_l)]
+        J.append([lanes.tangent(r) for r in _goal_cost_lanes(spec, qd, terminal)[1]])
+    return c_goal, r6, J
+
+
+def _cost_derivs(spec, x, u, w_goal, J, r6, terminal):
+    NDX, NU, NL = spec.ndx, spec.nu, spec.nl
+    zero = torch.zeros_like(x[0])
+    Lx = []
+    for i in range(NDX):
+        v = zero
+        if i < NL:
+            for kk in range(6):
+                v = v + w_goal * J[i][kk] * r6[kk]
+        if not terminal and spec.xw[i] != 0.0:
+            v = v + float(spec.xw[i]) * x[i]
+        Lx.append(v)
+    Lxx = []
+    for i in range(NDX):
+        row = []
+        for j in range(NDX):
+            v = zero
+            if i < NL and j < NL:
+                for kk in range(6):
+                    v = v + w_goal * J[i][kk] * J[j][kk]
+            if i == j and not terminal and spec.xw[i] != 0.0:
+                v = v + float(spec.xw[i])
+            row.append(v)
+        Lxx.append(torch.stack(row))
+    if terminal:
+        return torch.stack(Lx), torch.stack(Lxx)
+    Lu = []
+    for j in range(NU):
+        v = zero
+        if spec.uw[j] != 0.0:
+            v = v + float(spec.uw[j]) * u[j]
+        if spec.stiff_w != 0.0 and j >= NL:
+            v = v + float(spec.stiff_w)
+        Lu.append(v)
+    Luu = torch.stack([torch.stack([zero + float(spec.uw[i]) if (i == j and spec.uw[i] != 0.0)
+                                    else zero for j in range(NU)]) for i in range(NU)])
+    Lxu = torch.zeros((NDX, NU) + zero.shape, dtype=zero.dtype, device=zero.device)
+    return torch.stack(Lx), torch.stack(Lxx), torch.stack(Lu), Lxu, Luu
+
+
+def _acc_jacobian_cols(spec, x, u, a, M):
+    """Columns d a / d [q_l, q_m, v_l, v_m, tau, k] (vsa_kernels.py:855-928)."""
+    NL = spec.nl
+    q_l, q_m, v_l = list(x[:NL]), list(x[NL:2 * NL]), list(x[2 * NL:3 * NL])
+    kd = list(u[NL:2 * NL])
+    a_l = list(a[:NL])
+    zero = torch.zeros_like(x[0])
+    one = torch.ones_like(x[0])
+    binv = [[float(b) for b in row] for row in spec.binv]
+
+    if NL == 2:
+        det = M[0][0] * M[1][1] - M[0][1] * M[1][0]
+        idet = 1.0 / det
+        Minv = [[M[1][1] * idet, -M[0][1] * idet], [-M[1][0] * idet, M[0][0] * idet]]
+
+        def msolve(col):
+            return [Minv[0][0] * col[0] + Minv[0][1] * col[1],
+                    Minv[1][0] * col[0] + Minv[1][1] * col[1]]
+
+        def msolve_basis(j, s):
+            return [Minv[0][j] * s, Minv[1][j] * s]
+    else:
+        Lfac = lanes.choln(M)
+
+        def msolve(col):
+            return lanes.choln_solve(Lfac, list(col))
+
+        def msolve_basis(j, s):
+            return msolve([s if i == j else zero for i in range(NL)])
+
+    # RNEA partials at (q_l, v_l, a_l): nl dual seeds each
+    dtau_dq, dtau_dv = [], []
+    for j in range(NL):
+        qd = [lanes.Dual(q_l[i], one if i == j else zero) for i in range(NL)]
+        vd = [lanes.Dual(v_l[i], one if i == j else zero) for i in range(NL)]
+        dtau_dq.append([lanes.tangent(t) for t in lanes.rnea_lanes(spec.rc, qd, v_l, a_l)])
+        dtau_dv.append([lanes.tangent(t) for t in lanes.rnea_lanes(spec.rc, q_l, vd, a_l)])
+
+    dK_col = [[(kd[j] if i == j else zero) for i in range(NL)] for j in range(NL)]
+
+    def binv_apply(col):
+        return [_dot_terms([binv[i][j2] * col[j2] for j2 in range(NL)]) for i in range(NL)]
+
+    cols = []
+    for j in range(NL):
+        cols.append(msolve([-(dtau_dq[j][i]) - dK_col[j][i] for i in range(NL)])
+                    + binv_apply(dK_col[j]))
+    for j in range(NL):
+        cols.append(msolve(list(dK_col[j])) + [-m for m in binv_apply(dK_col[j])])
+    for j in range(NL):
+        cols.append(msolve([-dtau_dv[j][i] for i in range(NL)]) + [zero] * NL)
+    for j in range(NL):
+        cols.append([zero] * (2 * NL))
+    for j in range(NL):
+        cols.append([zero] * NL + [binv[i][j] * one for i in range(NL)])
+    for j in range(NL):
+        d = q_l[j] - q_m[j]
+        cols.append(msolve_basis(j, -d) + [binv[i][j] * d for i in range(NL)])
+    return cols
+
+
+def _all_finite(t, nlead):
+    """Per-lane finiteness over the ``nlead`` leading (matrix) axes."""
+    return torch.isfinite(t).flatten(0, nlead - 1).all(0)
+
+
+def linearize_plain(spec: VSASpec, xs, us, wterm) -> Linearization:
+    """Plain PyTorch version of K1 on lane tensors ``xs [T+1, ndx, B]``,
+    ``us [T, nu, B]``, ``wterm [B]``; the RNEA and goal partials come from
+    dual numbers (``ops/lanes.py::Dual``). Elementwise only (no matrix
+    product)."""
+    NDX, NU, NL = spec.ndx, spec.nu, spec.nl
+    dt = spec.dt
+    # running knots: lanes of shape [T, B]
+    x = [xs[:-1, i] for i in range(NDX)]
+    u = [us[:, j] for j in range(NU)]
+    a, M, _ = _dynamics_lanes(spec, x, u)
+    cols = _acc_jacobian_cols(spec, x, u, a, M)
+    c_goal, r6, J = _goal_jacobian(spec, x[:NL], terminal=False)
+    w_goal = float(spec.w_goal)
+    cost_t = _reg_cost(spec, x, u, w_goal * c_goal)
+    Lx, Lxx, Lu, Lxu, Luu = _cost_derivs(spec, x, u, w_goal, J, r6, terminal=False)
+
+    nv = NDX // 2
+    Fx_rows = []
+    for i in range(NDX):
+        row = []
+        for j in range(NDX):
+            if i < nv:
+                v = cols[j][i] * (dt * dt)
+                if i == j:
+                    v = v + 1.0
+                if j == i + nv:
+                    v = v + dt
+            else:
+                v = cols[j][i - nv] * dt
+                if i == j:
+                    v = v + 1.0
+            row.append(v)
+        Fx_rows.append(torch.stack(row))
+    Fu_rows = [torch.stack([(cols[NDX + j][i] * (dt * dt)) if i < nv else cols[NDX + j][i - nv] * dt
+                            for j in range(NU)]) for i in range(NDX)]
+    Fx_s, Fu_s = torch.stack(Fx_rows), torch.stack(Fu_rows)     # [rows, cols, T, B]
+    ok_t = (_all_finite(Fx_s, 2) & _all_finite(Fu_s, 2) & _all_finite(Lx, 1)
+            & _all_finite(Lu, 1) & _all_finite(Lxx, 2))
+    # lane layout: [T, rows, (cols,) B]
+    run = dict(Fx=Fx_s.permute(2, 0, 1, 3).contiguous(),
+               Fu=Fu_s.permute(2, 0, 1, 3).contiguous(),
+               Lx=Lx.permute(1, 0, 2).contiguous(), Lu=Lu.permute(1, 0, 2).contiguous(),
+               Lxx=Lxx.permute(2, 0, 1, 3).contiguous(),
+               Lxu=Lxu.permute(2, 0, 1, 3).contiguous(),
+               Luu=Luu.permute(2, 0, 1, 3).contiguous())
+    xnext = torch.stack(_euler(spec, x, a)).transpose(0, 1).contiguous()
+
+    # terminal knot: lanes of shape [B]
+    xT = [xs[-1, i] for i in range(NDX)]
+    tc_goal, tr6, tJ = _goal_jacobian(spec, xT[:NL], terminal=True)
+    tLx, tLxx = _cost_derivs(spec, xT, None, wterm, tJ, tr6, terminal=True)
+    tcost = wterm * tc_goal
+    tok = _all_finite(tLx, 1) & _all_finite(tLxx, 2)
+    return Linearization(cost=cost_t.sum(0) + tcost, run=run, term=dict(Lx=tLx, Lxx=tLxx),
+                         xnext=xnext, ok=ok_t.all(0) & tok)
+
+
+def linearize(spec: VSASpec, xs, us, wterm) -> Linearization:
+    """K1 on lane tensors: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if _route(xs) == "plain":
+        return linearize_plain(spec, xs, us, wterm)
+    T, NDX, B = us.shape[0], spec.ndx, xs.shape[-1]
+    NU = spec.nu
+    dt, dev = xs.dtype, xs.device
+    _check_lane("xs", xs, (T + 1, NDX, B), dt, dev)
+    _check_lane("us", us, (T, NU, B), dt, dev)
+    _check_lane("wterm", wterm, (B,), dt, dev)
+
+    def e(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    run = dict(Fx=e(T, NDX, NDX, B), Fu=e(T, NDX, NU, B), Lx=e(T, NDX, B), Lu=e(T, NU, B),
+               Lxx=e(T, NDX, NDX, B), Lxu=e(T, NDX, NU, B), Luu=e(T, NU, NU, B))
+    xnext, cost_t, ok_t = e(T, NDX, B), e(T, B), e(T, B, dtype=torch.bool)
+    term = dict(Lx=e(NDX, B), Lxx=e(NDX, NDX, B))
+    tcost, tok = e(B), e(B, dtype=torch.bool)
+    params, pp = _params_ptr(spec)
+    p = _build.ptr
+    code = _build.entry("aslr_linearize", dt)(
+        pp, spec.nl, p(xs), p(us), p(wterm), T, B,
+        *[p(run[k]) for k in ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")],
+        p(xnext), p(cost_t), p(ok_t), p(term["Lx"]), p(term["Lxx"]), p(tcost), p(tok),
+        _build.stream_of(xs))
+    _build.check("linearize", code)
+    return Linearization(cost=cost_t.sum(0) + tcost, run=run, term=term, xnext=xnext,
+                         ok=ok_t.all(0) & tok)
+
+
+# ---------------------------------------------------------------------------
+# K3: two-trial rollout
+# ---------------------------------------------------------------------------
+
+class Trial(NamedTuple):
+    xs: torch.Tensor     # [T+1, ndx, B]
+    us: torch.Tensor     # [T, nu, B]
+    cost: torch.Tensor   # [B]
+
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub):
+    """Plain PyTorch version of K3: both trials advance together as lanes
+    of shape ``[2, B]``, one knot at a time."""
+    T, NDX, NU = us.shape[0], spec.ndx, spec.nu
+    alpha = torch.stack([alpha_a, alpha_b])
+    x = [torch.stack([x0[i], x0[i]]) for i in range(NDX)]
+    xs_out, us_out = [torch.stack(x)], []
+    cost = torch.zeros_like(alpha)
+    for t in range(T):
+        dx = [x[i] - xs[t, i] for i in range(NDX)]
+        u = []
+        for j in range(NU):
+            fb = k[t, j] * alpha
+            for i in range(NDX):
+                fb = fb + K[t, j, i] * dx[i]
+            u.append(_clip(us[t, j] - fb, lb[j], ub[j]))
+        a, _, _ = _dynamics_lanes(spec, x, u)
+        cost = cost + _running_cost_lanes(spec, x, u)
+        x = _euler(spec, x, a)
+        xs_out.append(torch.stack(x))
+        us_out.append(torch.stack(u))
+    c_goal_T, _ = _goal_cost_lanes(spec, x[:spec.nl], terminal=True)
+    cost = cost + wterm * c_goal_T
+    xs_o = torch.stack(xs_out)          # [T+1, ndx, 2, B]
+    us_o = torch.stack(us_out)          # [T, nu, 2, B]
+    return tuple(Trial(xs_o[:, :, i].contiguous(), us_o[:, :, i].contiguous(), cost[i])
+                 for i in range(2))
+
+
+def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub):
+    """K3 on lane tensors ``xs [T+1, ndx, B]``, ``us``/``k [T, nu, B]``,
+    ``K [T, nu, ndx, B]``, ``x0 [ndx, B]``, ``alpha_a``/``alpha_b``/``wterm
+    [B]``, ``lb``/``ub [nu, B]``; returns the two :class:`Trial`\\ s."""
+    if _route(xs) == "plain":
+        return rollout2_plain(spec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub)
+    T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
+    dt, dev = xs.dtype, xs.device
+    for name, t, shape in (("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
+                           ("k", k, (T, NU, B)), ("K", K, (T, NU, NDX, B)),
+                           ("x0", x0, (NDX, B)), ("alpha_a", alpha_a, (B,)),
+                           ("alpha_b", alpha_b, (B,)), ("wterm", wterm, (B,)),
+                           ("lb", lb, (NU, B)), ("ub", ub, (NU, B))):
+        _check_lane(name, t, shape, dt, dev)
+    outs = [torch.empty(s, dtype=dt, device=dev)
+            for _ in range(2) for s in ((T + 1, NDX, B), (T, NU, B), (B,))]
+    params, pp = _params_ptr(spec)
+    p = _build.ptr
+    code = _build.entry("aslr_rollout2", dt)(
+        pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha_a), p(alpha_b), p(wterm),
+        p(lb), p(ub), T, B, *[p(o) for o in outs], _build.stream_of(xs))
+    _build.check("rollout2", code)
+    return Trial(*outs[:3]), Trial(*outs[3:])

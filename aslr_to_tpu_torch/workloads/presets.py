@@ -1,0 +1,99 @@
+"""The 2-DoF VSA reach workload as a declarative config.
+
+PyTorch counterpart of ``_two_dof_vsa`` and ``two_dof_vsa_boxddp`` in
+``aslr_to_tpu/workloads/presets.py`` (the problem behind the benchmark's
+primary metric): the reference ``examples/two_dof_vsa_boxddp.py`` with
+u in [-100, 100]^2 x [0, 100]^2.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..models import robots
+from ..models.actuation import VSAASRActuation
+from ..models.costs import (
+    ActivationModelQuad,
+    ActivationModelWeightedQuad,
+    CostModelResidual,
+    CostModelStiffness,
+    CostModelSum,
+    ResidualModelControl,
+    ResidualModelFramePlacementASR,
+    ResidualModelState,
+)
+from ..models.dynamics import DifferentialVSADynamics
+from ..models.integrator import IntegratedActionEuler
+from ..models.state import StateASR
+from ..ops.se3 import SE3
+from ..solvers.ddp import Bounds
+from ..solvers.problem import ShootingProblem
+
+
+class Workload(NamedTuple):
+    name: str
+    problem: ShootingProblem
+    bounds: Optional[Bounds]
+    solver: str              # "boxddp"
+    maxiter: int
+    th_stop: float
+    warm_start: bool
+    ee_frame: Optional[int]
+    target: Optional[torch.Tensor]
+
+
+def _two_dof_vsa(T: int, dt: float, stiffness_cost: bool, k_lb: float,
+                 dtype=torch.float64, device=None, x_weights=None,
+                 u_weights=None, xreg_w: float = 1e-1, ureg_w: float = 1e-1,
+                 goal_term_w: float = 4e4, robot=None) -> Workload:
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    model = (robot if robot is not None
+             else robots.asr_twodof(dtype=dtype, device=device)).with_gravity([9.81, 0.0, 0.0])
+    state = StateASR(model)
+    act = VSAASRActuation(state)
+    nu = 2 * act.nu
+    ee = model.frame_id("EE")
+    target = t([0.01, 0.2, 0.18])
+
+    frame_res = ResidualModelFramePlacementASR(
+        state, ee, SE3(torch.eye(3, dtype=dtype, device=device), target), nu)
+    goal = CostModelResidual(state, ActivationModelQuad(), frame_res)
+    xact = ActivationModelWeightedQuad(t(x_weights if x_weights is not None else [1.0] * 8))
+    xreg = CostModelResidual(state, xact, ResidualModelState(state, state.zero(), nu))
+    uact = ActivationModelWeightedQuad(t(u_weights if u_weights is not None else [1.0] * 4))
+    ureg = CostModelResidual(state, uact, ResidualModelControl(state, nu))
+
+    running_costs = (
+        CostModelSum(state, nu)
+        .add_cost("gripperPose", goal, 1e0)
+        .add_cost("xReg", xreg, xreg_w)
+        .add_cost("uReg", ureg, ureg_w)
+    )
+    if stiffness_cost:
+        vsa_cost = CostModelStiffness(state, nu, lamda=t(10.0),
+                                      Kref=k_lb * torch.ones(nu // 2, dtype=dtype, device=device))
+        running_costs = running_costs.add_cost("vsa", vsa_cost, 1e-2)
+    terminal_costs = CostModelSum(state, nu).add_cost("gripperPose", goal, goal_term_w)
+
+    B = 1e-3 * torch.eye(2, dtype=dtype, device=device)
+    running = IntegratedActionEuler(DifferentialVSADynamics(state, act, running_costs, B), dt)
+    terminal = IntegratedActionEuler(DifferentialVSADynamics(state, act, terminal_costs, B), 0.0)
+
+    problem = ShootingProblem(x0=torch.zeros(state.nx, dtype=dtype, device=device),
+                              running=running, terminal=terminal, T=T)
+    bounds = Bounds(lb=t([-100.0, -100.0, k_lb, k_lb]), ub=t([100.0, 100.0, 100.0, 100.0]))
+    return Workload(
+        name="two_dof_vsa", problem=problem, bounds=bounds, solver="boxddp",
+        maxiter=400, th_stop=1e-7, warm_start=False, ee_frame=ee, target=target)
+
+
+def two_dof_vsa_boxddp(T: int = 200, dt: float = 1e-2, dtype=torch.float64,
+                       device=None, robot=None) -> Workload:
+    """VSA reach with BoxDDP bounds (u in [-100,100]^2, K in [0,100]^2,
+    cold start)."""
+    w = _two_dof_vsa(T, dt, stiffness_cost=False, k_lb=0.0, dtype=dtype,
+                     device=device, robot=robot)
+    return w._replace(name="two_dof_vsa_boxddp")

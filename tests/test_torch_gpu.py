@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``gpu`` marker and skips without a CUDA
+device; the decision is taken inside a fixture, so every worker collects
+the same tests. The file imports no JAX, so it also runs on a machine
+without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: float64 outputs agree with the plain version to a normwise
+relative error of 1e-9 per tensor and lane, with flags equal; the kernels
+are built with ``-fmad=false`` and follow the plain versions' order of
+operations, so in practice they agree to the bit. float32 outputs are held
+to 1e-5: the rollout amplifies any rounding difference over the knots.
+"""
+import numpy as np
+import pytest
+import torch
+
+from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_vsa_boxddp
+from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
+
+pytestmark = pytest.mark.gpu
+
+T, B = 12, 200          # B not a multiple of the 128-thread block: ragged edge
+TOL = {torch.float64: 1e-9, torch.float32: 1e-5}
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    """Max over lanes (last axis) of max|got - want| / max|want| in the lane."""
+    got, want = got.double(), want.double()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    d = torch.nan_to_num(got - want).abs().reshape(-1, got.shape[-1]).amax(0)
+    scale = torch.nan_to_num(want).abs().reshape(-1, want.shape[-1]).amax(0)
+    return float(torch.where(d > 0, d / scale.clamp_min(1e-300), 0.0).max())
+
+
+def _assert_same(got, want, dtype):
+    for name, (g, w) in zip(want._fields, zip(got, want)):
+        if isinstance(w, dict):
+            for key in w:
+                assert _rel_err(g[key], w[key]) <= TOL[dtype], f"{name}.{key}"
+        elif w.dtype == torch.bool:
+            assert torch.equal(g, w), name
+        else:
+            assert _rel_err(g, w) <= TOL[dtype], name
+
+
+def _inputs(dtype, device, seed=0):
+    w = two_dof_vsa_boxddp(T=T, dtype=dtype, device=device)
+    spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    xs = t(0.3 * rng.standard_normal((T + 1, 8, B)))
+    us = t(np.concatenate([3.0 * rng.standard_normal((T, 2, B)),
+                           2.0 * np.abs(rng.standard_normal((T, 2, B)))], axis=1))
+    box = [t(np.repeat(b[:, None], B, axis=1)) for b in (spec.lb, spec.ub)]
+    return dict(spec=spec, xs=xs, us=us, lb=box[0], ub=box[1],
+                wterm=torch.full((B,), spec.w_goal_term, dtype=dtype, device=device),
+                kprev=t(0.5 * rng.standard_normal((T, 4, B))),
+                reg=t(np.where(np.arange(B) % 10 == 0, -0.05, 1e-9)),
+                alpha_a=t(np.ones(B)), alpha_b=t(0.5 ** (1 + np.arange(B) % 4)))
+
+
+def _bw_args(inp, lin):
+    r = lin.run
+    return (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+            lin.term["Lx"], lin.term["Lxx"], inp["us"], inp["kprev"], inp["lb"],
+            inp["ub"], inp["reg"], 2)
+
+
+def _roll_args(inp, bw):
+    return (inp["spec"], inp["xs"], inp["us"], bw.k, bw.K, inp["xs"][0].contiguous(),
+            inp["alpha_a"], inp["alpha_b"], inp["wterm"], inp["lb"], inp["ub"])
+
+
+def _calls(name, inp):
+    """(kernel wrapper, plain version, args) of one kernel on ``inp``."""
+    lin = vsa_kernels.linearize_plain(inp["spec"], inp["xs"], inp["us"], inp["wterm"])
+    if name == "linearize":
+        return (vsa_kernels.linearize, vsa_kernels.linearize_plain,
+                (inp["spec"], inp["xs"], inp["us"], inp["wterm"]))
+    bw_args = _bw_args(inp, lin)
+    if name == "riccati_box":
+        return riccati.riccati_box_backward, riccati.riccati_box_plain, bw_args
+    return (vsa_kernels.rollout2, vsa_kernels.rollout2_plain,
+            _roll_args(inp, riccati.riccati_box_plain(*bw_args)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["linearize", "riccati_box", "rollout2"])
+def test_kernel_matches_plain_version(cuda, name, dtype):
+    kernel, plain, args = _calls(name, _inputs(dtype, cuda))
+    before = build.LAUNCHES[name]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    want = plain(*args)
+    if name == "rollout2":
+        for g, w in zip(got, want):
+            _assert_same(g, w, dtype)
+    else:
+        _assert_same(got, want, dtype)
+    if name == "riccati_box":
+        assert not bool(got.ok.all()) and bool(got.ok.any())   # the negative-reg lanes fail
+
+
+def test_lane_solver_kernels_match_plain_on_card(cuda):
+    w = two_dof_vsa_boxddp(T=T, dtype=torch.float64, device=cuda)
+    settings = SolverSettings(maxiter=8, th_stop=1e-5, boxqp_warm_iters=2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x0s = 0.05 * torch.randn(64, 8, generator=g, device=cuda, dtype=torch.float64)
+    res = {}
+    for backend in ("auto", "plain"):
+        solve = make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+                                    use_fast_path="lanes", backend=backend)
+        build.reset_launches()
+        res[backend] = solve(x0s)
+        launched = sum(build.LAUNCHES.values())
+        assert (launched > 0) == (backend == "auto"), backend
+    k, p = res["auto"], res["plain"]
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.converged, p.converged) and torch.equal(k.diverged, p.diverged)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-8, atol=0)
+    torch.testing.assert_close(k.us, p.us, rtol=0, atol=1e-8)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    inp = _inputs(torch.float64, cuda)
+    spec, xs, us, wterm = inp["spec"], inp["xs"], inp["us"], inp["wterm"]
+    with pytest.raises(ValueError, match="contiguous"):
+        vsa_kernels.linearize(spec, xs, us.transpose(0, 1).contiguous().transpose(0, 1),
+                              wterm)
+    with pytest.raises(ValueError, match="shape"):
+        vsa_kernels.linearize(spec, xs, us[:, :, :-1].contiguous(), wterm)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        vsa_kernels.linearize(spec, xs.half(), us.half(), wterm.half())

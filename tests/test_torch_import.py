@@ -1,0 +1,77 @@
+"""The port imports without JAX, and on CPU tensors its kernel wrappers
+take their plain versions without launching (or building) anything."""
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from aslr_to_tpu_torch import two_dof_vsa_boxddp
+from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
+
+T, B = 3, 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, aslr_to_tpu_torch, aslr_to_tpu_torch.convert, "
+            "aslr_to_tpu_torch.kernels.lane_solver; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('aslr_to_tpu.') or m == 'aslr_to_tpu'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cpu_wrappers_take_plain_versions_without_launching():
+    w = two_dof_vsa_boxddp(T=T)
+    spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
+    rng = np.random.default_rng(0)
+    xs = torch.tensor(0.1 * rng.standard_normal((T + 1, 8, B)))
+    us = torch.tensor(np.abs(rng.standard_normal((T, 4, B))))
+    wterm = torch.full((B,), spec.w_goal_term, dtype=torch.float64)
+    lb = torch.tensor(spec.lb)[:, None].expand(4, B).contiguous()
+    ub = torch.tensor(spec.ub)[:, None].expand(4, B).contiguous()
+    reg = torch.full((B,), 1e-6, dtype=torch.float64)
+    ones = torch.ones(B, dtype=torch.float64)
+
+    build.reset_launches()
+    lin = vsa_kernels.linearize(spec, xs, us, wterm)
+    r = lin.run
+    bw = riccati.riccati_box_backward(r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"],
+                                      r["Luu"], lin.term["Lx"], lin.term["Lxx"], us, None,
+                                      lb, ub, reg, 2)
+    trials = vsa_kernels.rollout2(spec, xs, us, bw.k, bw.K, xs[0], ones, 0.5 * ones,
+                                  wterm, lb, ub)
+    assert build.LAUNCHES == {"linearize": 0, "riccati_box": 0, "rollout2": 0}
+    assert build._lib is None                      # nothing was built or loaded
+
+    # each wrapper returned exactly what its plain version computes
+    plain = vsa_kernels.linearize_plain(spec, xs, us, wterm)
+    assert torch.equal(lin.cost, plain.cost) and torch.equal(lin.run["Fx"], plain.run["Fx"])
+    bw_p = riccati.riccati_box_plain(r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"],
+                                     r["Luu"], lin.term["Lx"], lin.term["Lxx"], us, None,
+                                     lb, ub, reg, 2)
+    assert torch.equal(bw.K, bw_p.K) and torch.equal(bw.ok, bw_p.ok)
+    roll_p = vsa_kernels.rollout2_plain(spec, xs, us, bw.k, bw.K, xs[0], ones, 0.5 * ones,
+                                        wterm, lb, ub)
+    for got, want in zip(trials, roll_p):
+        assert torch.equal(got.xs, want.xs) and torch.equal(got.cost, want.cost)
+
+
+def test_wrapper_refuses_a_device_it_has_no_route_for():
+    w = two_dof_vsa_boxddp(T=T)
+    spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
+    xs = torch.zeros((T + 1, 8, B), dtype=torch.float64, device="meta")
+    us = torch.zeros((T, 4, B), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain route"):
+        vsa_kernels.linearize(spec, xs, us, torch.zeros(B, dtype=torch.float64, device="meta"))
