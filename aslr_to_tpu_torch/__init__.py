@@ -1,17 +1,19 @@
 """aslr_to_tpu_torch — the PyTorch and CUDA port of ``aslr_to_tpu``.
 
 Batched trajectory optimization for articulated soft robots on an NVIDIA
-H100: the 2-DoF VSA arm's BoxDDP solve, with its three hot kernels
-(linearization, Box Riccati backward with BoxQP, two-trial rollout)
-written by hand in CUDA C++ for ``sm_90a`` (``csrc/``). The JAX package
-``aslr_to_tpu`` stays the reference that the port is tested against.
+H100: the 2-DoF VSA and SEA arms' DDP, FDDP, BoxDDP and BoxFDDP solves,
+with their hot kernels (linearization, the Box, FDDP and BoxFDDP Riccati
+backwards, two-trial rollout) written by hand in CUDA C++ for ``sm_90a``
+(``csrc/``). The JAX package ``aslr_to_tpu`` stays the reference that the
+port is tested against. Presets and solves run on the card unless the
+caller builds the problem on another device.
 
 Importing the package builds nothing: the kernels compile with ``nvcc`` at
 their first launch on a CUDA tensor (``kernels/build.py``). On CPU tensors
 every kernel wrapper runs its plain PyTorch version.
 """
 
-from .models.actuation import VSAASRActuation
+from .models.actuation import ASRActuation, VSAASRActuation
 from .models.costs import (
     ActivationModelQuad,
     ActivationModelWeightedQuad,
@@ -22,7 +24,7 @@ from .models.costs import (
     ResidualModelFramePlacementASR,
     ResidualModelState,
 )
-from .models.dynamics import DifferentialVSADynamics
+from .models.dynamics import DifferentialSEADynamics, DifferentialVSADynamics
 from .models.integrator import IntegratedActionEuler
 from .models.state import StateASR
 from .models import robots
@@ -30,7 +32,7 @@ from .ops.rigid_body import RobotModel
 from .ops.se3 import SE3
 from .solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings
 from .solvers.problem import ShootingProblem
-from .workloads.presets import two_dof_vsa_boxddp
+from .workloads.presets import two_dof_sea, two_dof_vsa_boxddp
 from .parallel.batch import convergence_summary, make_batched_solver
 
 __all__ = [name for name in dir() if not name.startswith("_")]

@@ -104,8 +104,19 @@ template <class S> __device__ inline bool finite(S x) { return isfinite(x); }
 // ---------------------------------------------------------------------------
 // the workload's constants, passed to every kernel by value (one build
 // serves every preset). Unpacked from a flat float64 array in the order of
-// aslr_to_tpu_torch/kernels/vsa_kernels.py::pack_params.
+// aslr_to_tpu_torch/kernels/vsa_kernels.py::pack_params. The actuation
+// variant rides in the block as a flag that the host-side launchers read to
+// pick the kernel's instantiation; inside a kernel it is the template
+// parameter SEA, never a per-thread branch.
 // ---------------------------------------------------------------------------
+
+// dimensions of an NL-link soft arm: state tangent 4 NL; controls 2 NL for
+// the VSA (u = [tau_m, k]) and NL for the SEA (u = tau_m)
+template <int NL, bool SEA>
+struct Arm {
+  static constexpr int NDX = 4 * NL;
+  static constexpr int NU = SEA ? NL : 2 * NL;
+};
 
 template <int NL>
 struct VSAParams {
@@ -127,9 +138,11 @@ struct VSAParams {
   double term_pos[3];
   double w_goal;
   double xw[4 * NL];       // combined state-reg weights
-  double uw[2 * NL];       // combined control-reg weights
+  double uw[2 * NL];       // combined control-reg weights (first nu used)
   double stiff_w;
   double stiff_ref[NL];
+  int sea;                 // 1: SEA (constant spring K), 0: VSA (K = diag(k))
+  double K[NL][NL];        // SEA spring matrix (zeros for the VSA)
 };
 
 struct Reader {
@@ -163,6 +176,8 @@ __host__ VSAParams<NL> unpack_params(const double* flat) {
   r.fill(P.uw, 2 * NL);
   P.stiff_w = r.next();
   r.fill(P.stiff_ref, NL);
+  P.sea = (int)r.next();
+  r.fill(&P.K[0][0], NL * NL);
   return P;
 }
 

@@ -307,15 +307,27 @@ __device__ inline V goal_cost(const VSAParams<NL>& P, const V* q_l, bool termina
   return cst<V>(0.5) * c;
 }
 
-// soft-arm accelerations a [2 NL] of the VSA (vsa_kernels.py::_dynamics_lanes);
-// also hands back M and tau_c for the linearization
-template <class S, int NL>
-__device__ inline void vsa_dynamics(const VSAParams<NL>& P, const S* x, const S* u, S* a,
+// soft-arm accelerations a [2 NL] (vsa_kernels.py::_dynamics_lanes): the
+// spring torque tau_c = k (q_l - q_m) with the VSA's stiffness controls, or
+// K (q_l - q_m) with the SEA's constant spring matrix; also hands back M
+// and tau_c for the linearization
+template <class S, int NL, bool SEA>
+__device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S* u, S* a,
                                     S (*M)[NL], S* tau_c) {
   const S* q_l = x;
   const S* q_m = x + NL;
   const S* v_l = x + 2 * NL;
-  for (int i = 0; i < NL; ++i) tau_c[i] = u[NL + i] * (q_l[i] - q_m[i]);
+  if constexpr (SEA) {
+    S d[NL];
+    for (int i = 0; i < NL; ++i) d[i] = q_l[i] - q_m[i];
+    for (int i = 0; i < NL; ++i) {
+      S acc = S(P.K[i][0]) * d[0];
+      for (int j = 1; j < NL; ++j) acc = acc + S(P.K[i][j]) * d[j];
+      tau_c[i] = acc;
+    }
+  } else {
+    for (int i = 0; i < NL; ++i) tau_c[i] = u[NL + i] * (q_l[i] - q_m[i]);
+  }
   S nle[NL], rhs[NL];
   mass_nle<S, NL>(P, q_l, v_l, M, nle);
   for (int i = 0; i < NL; ++i) rhs[i] = -nle[i] - tau_c[i];
@@ -328,17 +340,21 @@ __device__ inline void vsa_dynamics(const VSAParams<NL>& P, const S* x, const S*
 }
 
 // running cost: w_goal * goal + state/control regularization + stiffness
-// (vsa_kernels.py::_running_cost_lanes); r6 receives the goal residual
-template <class S, int NL>
+// (vsa_kernels.py::_running_cost_lanes); the stiffness cost only where the
+// controls carry stiffnesses (the VSA, not the SEA)
+template <class S, int NL, bool SEA>
 __device__ inline S running_cost(const VSAParams<NL>& P, const S* x, const S* u) {
+  constexpr int NU = Arm<NL, SEA>::NU;
   S r6[6];
   S c = S(P.w_goal) * goal_cost<S, NL>(P, x, false, r6);
   for (int i = 0; i < 4 * NL; ++i)
     if (P.xw[i] != 0.0) c = c + S(0.5 * P.xw[i]) * x[i] * x[i];
-  for (int i = 0; i < 2 * NL; ++i)
+  for (int i = 0; i < NU; ++i)
     if (P.uw[i] != 0.0) c = c + S(0.5 * P.uw[i]) * u[i] * u[i];
-  if (P.stiff_w != 0.0)
-    for (int i = 0; i < NL; ++i) c = c + S(P.stiff_w) * (u[NL + i] - S(P.stiff_ref[i]));
+  if constexpr (!SEA) {
+    if (P.stiff_w != 0.0)
+      for (int i = 0; i < NL; ++i) c = c + S(P.stiff_w) * (u[NL + i] - S(P.stiff_ref[i]));
+  }
   return c;
 }
 

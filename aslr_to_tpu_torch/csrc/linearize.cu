@@ -1,11 +1,14 @@
-// K1: knot linearization of the VSA soft arm.
+// K1: knot linearization of the soft arm, VSA or SEA.
 //
 // Replaces the Pallas kernel aslr_to_tpu/pallas/vsa_kernels.py::
 // _linearize_kernel (launched twice by build_linearize(lane_io=True): the
 // running knots and the terminal knot). Per knot and scenario it computes
-// the VSA forward dynamics, the acceleration Jacobians from 2*NL
-// forward-mode RNEA seeds (dual numbers instead of jax.jvp) plus the spring
-// and stiffness columns, the Euler chain rule (Fx, Fu, xnext), the goal
+// the forward dynamics, the acceleration Jacobians from 2*NL forward-mode
+// RNEA seeds (dual numbers instead of jax.jvp) plus the spring columns and,
+// for the VSA, the stiffness-control columns (the SEA's constant spring
+// enters Fx through K instead, and its Fu has the NL motor-torque columns
+// only: the is_vsa=False branch of the Pallas kernel, selected here by the
+// template parameter SEA), the Euler chain rule (Fx, Fu, xnext), the goal
 // residual log6 and its Jacobian from NL dual seeds, the Gauss-Newton cost
 // derivatives, and a finiteness flag over the derivative tensors.
 //
@@ -15,10 +18,11 @@
 // which makes this the one kernel of the slice with parallelism well
 // beyond one thread per scenario.
 //
-// What bounds it on the H100: each running knot writes 228 values
+// What bounds it on the H100: each running VSA knot writes 228 values
 // (Fx 64, Fu 32, Lx 8, Lu 4, Lxx 64, Lxu 32, Luu 16, xnext 8) plus cost and
 // flag, 0.92 KB in f32 and 1.8 KB in f64, so the output stream is 377 MB in
-// f32 at the main-path shape: about 0.11 ms at 3.35 TB/s. The arithmetic
+// f32 at the main-path shape: about 0.11 ms at 3.35 TB/s (the SEA knot
+// writes 194 values: nu = 2). The arithmetic
 // is about 7 RNEA sweeps (3 plain, 4 dual) and 3 dual log6 evaluations,
 // a few thousand flops per knot, serial within the thread. The dual-number
 // state in f64 presses on registers. This first version writes the
@@ -30,7 +34,7 @@
 
 namespace aslr {
 
-template <class S, int NL>
+template <class S, int NL, bool SEA>
 __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
                                  const S* __restrict__ us, const S* __restrict__ wterm,
                                  int T, int B, S* __restrict__ Fx, S* __restrict__ Fu,
@@ -40,8 +44,8 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
                                  bool* __restrict__ ok, S* __restrict__ tLx,
                                  S* __restrict__ tLxx, S* __restrict__ tcost,
                                  bool* __restrict__ tok) {
-  constexpr int NDX = 4 * NL;
-  constexpr int NU = 2 * NL;
+  constexpr int NDX = Arm<NL, SEA>::NDX;
+  constexpr int NU = Arm<NL, SEA>::NU;
   constexpr int NV = 2 * NL;
   typedef Dual<S> D;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -57,7 +61,6 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
   const S* q_l = x;
   const S* q_m = x + NL;
   const S* v_l = x + 2 * NL;
-  const S* kd = u + NL;
 
   // goal residual and its Jacobian wrt q_l (NL dual seeds; r6 from the values)
   S r6[6], J[NL][6];
@@ -80,8 +83,10 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
       if (P.xw[i] != 0.0) c = c + S(0.5 * P.xw[i]) * x[i] * x[i];
     for (int i = 0; i < NU; ++i)
       if (P.uw[i] != 0.0) c = c + S(0.5 * P.uw[i]) * u[i] * u[i];
-    if (P.stiff_w != 0.0)
-      for (int i = 0; i < NL; ++i) c = c + S(P.stiff_w) * (u[NL + i] - S(P.stiff_ref[i]));
+    if constexpr (!SEA) {
+      if (P.stiff_w != 0.0)
+        for (int i = 0; i < NL; ++i) c = c + S(P.stiff_w) * (u[NL + i] - S(P.stiff_ref[i]));
+    }
   }
 
   bool fin = true;
@@ -122,7 +127,9 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
   for (int j = 0; j < NU; ++j) {
     S v = S(0);
     if (P.uw[j] != 0.0) v = v + S(P.uw[j]) * u[j];
-    if (P.stiff_w != 0.0 && j >= NL) v = v + S(P.stiff_w);
+    if constexpr (!SEA) {
+      if (P.stiff_w != 0.0 && j >= NL) v = v + S(P.stiff_w);
+    }
     Lu[(kt * NU + j) * TB + b] = v;
     fin = fin && finite(v);
   }
@@ -137,9 +144,10 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
 
   // -- dynamics and the analytic acceleration Jacobians ---------------------
   S M[NL][NL], tau_c[NL], a[NV];
-  vsa_dynamics<S, NL>(P, x, u, a, M, tau_c);
+  arm_dynamics<S, NL, SEA>(P, x, u, a, M, tau_c);
 
-  // cols[c][r]: d a_r / d input_c, inputs [q_l, q_m, v_l, v_m, tau, k]
+  // cols[c][r]: d a_r / d input_c, inputs [q_l, q_m, v_l, v_m, tau] and,
+  // for the VSA, [k]
   S cols[NDX + NU][NV];
   S Minv[NL][NL];
   S Lfac[NL][NL];
@@ -191,8 +199,15 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
   }
 
   for (int j = 0; j < NL; ++j) {
+    // dK[i] = d tau_c_i / d q_l_j: the VSA's k_j on the diagonal, or the
+    // SEA's spring column K[:, j]
     S dK[NL], tmp[NL], link[NL], mot[NL];
-    for (int i = 0; i < NL; ++i) dK[i] = (i == j) ? kd[j] : S(0);
+    for (int i = 0; i < NL; ++i) {
+      if constexpr (SEA)
+        dK[i] = S(P.K[i][j]);
+      else
+        dK[i] = (i == j) ? u[NL + j] : S(0);
+    }
     // d a / d q_l_j
     for (int i = 0; i < NL; ++i) tmp[i] = -(dtau_dq[j][i]) - dK[i];
     msolve(tmp, link);
@@ -221,17 +236,19 @@ __global__ void linearize_kernel(VSAParams<NL> P, const S* __restrict__ xs,
       cols[4 * NL + j][i] = S(0);
       cols[4 * NL + j][NL + i] = S(P.binv[i][j]);
     }
-    // d a / d k_j
-    S d = q_l[j] - q_m[j];
-    if constexpr (NL == 2) {
-      for (int i = 0; i < NL; ++i) link[i] = Minv[i][j] * -d;
-    } else {
-      for (int i = 0; i < NL; ++i) tmp[i] = (i == j) ? -d : S(0);
-      msolve(tmp, link);
-    }
-    for (int i = 0; i < NL; ++i) {
-      cols[5 * NL + j][i] = link[i];
-      cols[5 * NL + j][NL + i] = S(P.binv[i][j]) * d;
+    // d a / d k_j (VSA only)
+    if constexpr (!SEA) {
+      S d = q_l[j] - q_m[j];
+      if constexpr (NL == 2) {
+        for (int i = 0; i < NL; ++i) link[i] = Minv[i][j] * -d;
+      } else {
+        for (int i = 0; i < NL; ++i) tmp[i] = (i == j) ? -d : S(0);
+        msolve(tmp, link);
+      }
+      for (int i = 0; i < NL; ++i) {
+        cols[5 * NL + j][i] = link[i];
+        cols[5 * NL + j][NL + i] = S(P.binv[i][j]) * d;
+      }
     }
   }
 
@@ -274,9 +291,14 @@ static int launch_linearize(const double* params, int nl, const S* xs, const S* 
   if (nl != 2) return -1;
   VSAParams<2> P = unpack_params<2>(params);
   long long n = (long long)(T + 1) * B;
-  linearize_kernel<S, 2><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      P, xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost, ok, tLx, tLxx,
-      tcost, tok);
+  if (P.sea)
+    linearize_kernel<S, 2, true><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
+        P, xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost, ok, tLx, tLxx,
+        tcost, tok);
+  else
+    linearize_kernel<S, 2, false><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
+        P, xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost, ok, tLx, tLxx,
+        tcost, tok);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources ``aslr_to_tpu_torch/csrc/*.cu`` have a plain C interface. At
-first use, ``nvcc`` compiles them for ``sm_90a`` into one shared library
+first use, one ``nvcc`` per source, all started together, compiles them for
+``sm_90a``, and a last ``nvcc`` links the objects into one shared library
 under ``build/aslr_to_tpu_torch/`` beside the package (git-ignored), named
 by a hash of the sources and flags so that an edit rebuilds; ``ctypes``
 loads it. Pointers and the stream pass as ``c_void_p``, integers as
@@ -26,9 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aslr_to_tpu_torch"
 # perform the same IEEE operations as their plain versions; an unstable
 # rollout then departs from its plain twin by no more than rounding does.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"linearize": 0, "riccati_box": 0, "rollout2": 0}
+LAUNCHES = {"linearize": 0, "riccati_box": 0, "rollout2": 0, "riccati_fddp": 0,
+            "riccati_boxfddp": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -38,9 +40,13 @@ _SIGNATURES = {
     # ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, ub,
     # reg, T, B, qp_iters, k, K, dg, dq, stop, ok, retryable, stream
     "aslr_riccati_box": [_I, _I] + [_P] * 14 + [_I, _I, _I] + [_P] * 7 + [_P],
-    # params, nl, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, T, B,
-    # xs_a, us_a, cost_a, xs_b, us_b, cost_b, stream
-    "aslr_rollout2": [_P, _I] + [_P] * 10 + [_I, _I] + [_P] * 6 + [_P],
+    # params, nl, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, fs,
+    # infeas, T, B, xs_a, us_a, cost_a, xs_b, us_b, cost_b, stream
+    "aslr_rollout2": [_P, _I] + [_P] * 12 + [_I, _I] + [_P] * 6 + [_P],
+    # ndx, nu, boxed, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
+    # lb, ub, reg, T, B, qp_iters, k, K, w, dg, dq, stop, dg_gap, dq_gap, ok,
+    # retryable, stream
+    "aslr_riccati_fddp": [_I, _I, _I] + [_P] * 15 + [_I, _I, _I] + [_P] * 10 + [_P],
 }
 
 _lib = None
@@ -77,21 +83,41 @@ def library_path() -> Path:
 
 def build(force: bool = False) -> Path:
     """Compile the kernels if the library for these sources is missing;
-    returns its path. The compiler's output (``-Xptxas -v``: registers,
-    spills) is kept in ``build_log``."""
+    returns its path. Each source compiles in its own ``nvcc`` process, all
+    at once; the compilers' output (``-Xptxas -v``: registers, spills) is
+    kept in ``build_log``."""
     global build_log
     out = library_path()
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cu, obj in zip(cus, objs)]
+        logs, failed = [], []
+        for cu, proc in zip(cus, procs):
+            text, _ = proc.communicate()
+            logs.append(f"== {cu.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{cu.name} ({proc.returncode})")
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -1,12 +1,19 @@
-"""Batched BoxDDP solver loop in lane layout.
+"""Batched DDP / FDDP / BoxDDP / BoxFDDP solver loop in lane layout.
 
 PyTorch counterpart of ``aslr_to_tpu/pallas/lane_solver.py::
-build_lane_solver`` for the BoxDDP family (no gaps, a shared ``[nu]``
-control box). The loop state lives in lane layout (batch innermost:
-xs ``[T+1, ndx, B]``, us ``[T, nu, B]``) and each iteration runs the three
-kernels: the linearization (K1), the Box Riccati backward (K2, relaunched
-by the per-lane regularization retry) and the two-trial rollout (K3, once
-per pair of step lengths).
+build_lane_solver`` on a shared model with a shared ``[nu]`` control box or
+none. The loop state lives in lane layout (batch innermost: xs
+``[T+1, ndx, B]``, us ``[T, nu, B]``) and each iteration runs three kernels:
+the linearization (K1), a backward sweep (relaunched by the per-lane
+regularization retry) and the two-trial rollout (K3, once per pair of step
+lengths). The backward is the family's:
+
+  - BoxDDP (bounds, no gaps): the Box Riccati sweep with BoxQP (K2);
+  - FDDP (gaps, no bounds): the gap-aware sweep with Cholesky gains (K4),
+    the dv-corrected expected improvement and gap-contracting rollouts;
+  - DDP (no gaps, no bounds): K4 with zero gaps;
+  - BoxFDDP (gaps and bounds): K4's recursion with K2's masked BoxQP gains
+    (K5) and clamped gap-contracting rollouts.
 
 The three nested ``jax.lax.while_loop``\\ s become one batch-first Python
 loop with explicit per-lane masks. JAX batches a ``while_loop`` by running
@@ -25,7 +32,14 @@ import torch
 
 from ..solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings
 from ..solvers.problem import ShootingProblem
-from .riccati import BoxBackwardOut, riccati_box_backward, riccati_box_plain
+from .riccati import (
+    riccati_box_backward,
+    riccati_box_plain,
+    riccati_boxfddp_backward,
+    riccati_boxfddp_plain,
+    riccati_fddp_backward,
+    riccati_fddp_plain,
+)
 from .vsa_kernels import (
     extract_vsa_spec,
     linearize,
@@ -40,6 +54,15 @@ def _sel(pred, new, old):
     return torch.where(pred, new, old)
 
 
+def check_device(dev, **tensors):
+    """Raise unless every tensor given (None skipped) lies on ``dev``, the
+    problem's device: a solve never moves its inputs to another device."""
+    for name, x in tensors.items():
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the problem on {dev}: "
+                             "build the problem on the device of the solve")
+
+
 def build_lane_solver(
     problem: ShootingProblem,
     settings: SolverSettings = SolverSettings(),
@@ -50,39 +73,46 @@ def build_lane_solver(
     backend: str = "auto",
 ):
     """Build ``solve_batch(x0s[, xs_init, us_init]) -> SolveResult`` for a
-    concrete BoxDDP problem; ``x0s`` is ``[B, nx]``.
+    concrete problem; ``x0s`` is ``[B, nx]``. ``use_gaps`` selects the FDDP
+    family and ``bounds`` the box variants, as in the JAX package. The
+    solve runs on the device of ``problem.x0``.
 
     ``backend="auto"`` sends CUDA tensors through the kernels and CPU
     tensors through their plain versions; ``backend="plain"`` runs the
     plain versions on any device (the card-side reference of the kernels).
     """
-    if use_gaps:
-        raise NotImplementedError("use_gaps (FDDP/BoxFDDP) comes with the FDDP/SEA slice")
-    if bounds is None:
-        raise NotImplementedError("the unbounded DDP family comes with the FDDP/SEA slice")
     if keep_log:
         raise NotImplementedError("keep_log (SolveLog series) comes with the solver slice")
     if ls_trials != 2:
         raise NotImplementedError("the rollout kernel evaluates two trials per launch")
     if settings.boxqp_alphas != 5:
-        raise NotImplementedError("the BoxQP kernel runs a 5-step Armijo search")
+        raise NotImplementedError("the BoxQP kernels run a 5-step Armijo search")
     if backend not in ("auto", "plain"):
         raise ValueError(f"backend must be 'auto' or 'plain', got {backend!r}")
     s = settings
     spec = extract_vsa_spec(problem, bounds)
     T, nu, NDX = problem.T, spec.nu, spec.ndx
-    lin_fn = linearize if backend == "auto" else linearize_plain
-    bwd_fn = riccati_box_backward if backend == "auto" else riccati_box_plain
-    roll_fn = rollout2 if backend == "auto" else rollout2_plain
-    warm = s.boxqp_warm_iters > 0
+    boxed = bounds is not None
+    auto = backend == "auto"
+    lin_fn = linearize if auto else linearize_plain
+    roll_fn = rollout2 if auto else rollout2_plain
+    if boxed and use_gaps:
+        bwd_fn = riccati_boxfddp_backward if auto else riccati_boxfddp_plain
+    elif boxed:
+        bwd_fn = riccati_box_backward if auto else riccati_box_plain
+    else:
+        bwd_fn = riccati_fddp_backward if auto else riccati_fddp_plain
+    warm = boxed and s.boxqp_warm_iters > 0
     qp_iters = s.boxqp_warm_iters if warm else s.boxqp_iters
+    dev = problem.x0.device
 
     def solve_batch(x0s, xs_init=None, us_init=None, wterm_scale=None, box_ub=None):
         if wterm_scale is not None or box_ub is not None:
             raise NotImplementedError("wterm_scale / box_ub (homotopy) come with the "
                                       "homotopy slice")
+        check_device(dev, x0s=x0s, xs_init=xs_init, us_init=us_init)
         B = x0s.shape[0]
-        dtype, dev = x0s.dtype, x0s.device
+        dtype = x0s.dtype
 
         def to_lanes(x):
             return x.to(dtype).permute(*range(1, x.dim()), 0).contiguous()
@@ -92,10 +122,15 @@ def build_lane_solver(
               else to_lanes(xs_init))
         us = (torch.zeros((T, nu, B), dtype=dtype, device=dev) if us_init is None
               else to_lanes(us_init))
-        lb = torch.as_tensor(spec.lb, dtype=dtype, device=dev)[:, None].expand(nu, B).contiguous()
-        ub = torch.as_tensor(spec.ub, dtype=dtype, device=dev)[:, None].expand(nu, B).contiguous()
-        # project the warm start into the box (solvers/ddp.py::_solve_impl)
-        us = torch.minimum(torch.maximum(us, lb), ub)
+        lb = ub = None
+        if boxed:
+            lb = torch.as_tensor(spec.lb, dtype=dtype, device=dev)[:, None].expand(nu, B)
+            ub = torch.as_tensor(spec.ub, dtype=dtype, device=dev)[:, None].expand(nu, B)
+            lb, ub = lb.contiguous(), ub.contiguous()
+            # project the warm start into the box (solvers/ddp.py::_solve_impl)
+            us = torch.minimum(torch.maximum(us, lb), ub)
+        zeros_fs = (None if use_gaps or boxed
+                    else torch.zeros((T + 1, NDX, B), dtype=dtype, device=dev))
         wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=dev)
         alphas = torch.tensor([2.0 ** -i for i in range(s.n_alphas)], dtype=dtype, device=dev)
 
@@ -114,18 +149,23 @@ def build_lane_solver(
             active = ~done
             lin = lin_fn(spec, xs, us, wterm)
             run, term = lin.run, lin.term
-            # defect gaps fs = diff(xs, [x0; xnext]); without gaps only the
-            # feasibility flag is used
+            # defect gaps fs = diff(xs, [x0; xnext]); the FDDP family uses
+            # them all, the others only the feasibility flag
             fs = torch.cat([(x0_l - xs[0])[None], lin.xnext - xs[1:]], dim=0)
             gap_norm = fs.abs().amax(dim=(0, 1))
             feasible = gap_norm < s.th_gaptol
+            infeas = (~feasible).to(dtype)
             lin_ok = torch.isfinite(lin.cost) & lin.ok
             kp = kprev if warm else None
+            derivs = (run["Fx"], run["Fu"], run["Lx"], run["Lu"], run["Lxx"], run["Lxu"],
+                      run["Luu"], term["Lx"], term["Lxx"])
 
             def backward(r):
-                return bwd_fn(run["Fx"], run["Fu"], run["Lx"], run["Lu"], run["Lxx"],
-                              run["Lxu"], run["Luu"], term["Lx"], term["Lxx"], us, kp,
-                              lb, ub, r, qp_iters)
+                if boxed and use_gaps:
+                    return bwd_fn(*derivs, fs, us, kp, lb, ub, r, qp_iters)
+                if boxed:
+                    return bwd_fn(*derivs, us, kp, lb, ub, r, qp_iters)
+                return bwd_fn(*derivs, fs if use_gaps else zeros_fs, r)
 
             # -- backward pass with per-lane regularization retry ----------
             reg_bw = reg
@@ -139,19 +179,38 @@ def build_lane_solver(
                 reg_bw = torch.where(pred, torch.clamp(reg_bw * s.reg_factor, max=s.reg_max),
                                      reg_bw)
                 bw2 = backward(reg_bw)
-                bw = BoxBackwardOut(*(_sel(pred, n, o) for n, o in zip(bw2, bw)))
+                bw = type(bw)(*(_sel(pred, n, o) for n, o in zip(bw2, bw)))
                 tries = tries + pred.to(tries.dtype)
             bw_failed = ~bw.ok
-            dg, dq = bw.dg, bw.dq
+
+            # -- expected improvement model (gap-aware for FDDP) ------------
+            if use_gaps:
+                dg = bw.dg + infeas * bw.dg_gap
+                dq = bw.dq + infeas * bw.dq_gap
+            else:
+                dg, dq = bw.dg, bw.dq
 
             # -- early-exit backtracking line search, two trials a launch ---
             def ls_accept(alpha, trial):
                 dV = lin.cost - trial.cost
                 finite = torch.isfinite(trial.cost) & torch.isfinite(trial.xs).all(0).all(0)
+                if use_gaps:
+                    # dv correction (Crocoddyl FDDP::expectedImprovement):
+                    # dv = -sum_t w_t . dx_t with dx = xs - xs_try
+                    dx = xs - trial.xs
+                    dv = -(bw.w * dx).sum(dim=(0, 1)) * infeas
+                    d1 = dg + dv
+                    d2 = dq - 2.0 * dv
+                    dVexp = alpha * (d1 + 0.5 * alpha * d2)
+                    accept_pos = (dVexp >= 0.0) & ((d1 < s.th_grad)
+                                                   | (dV > s.th_acceptstep * dVexp))
+                    accept_neg = (dVexp < 0.0) & (dV > s.th_acceptnegstep * dVexp)
+                    return finite & (accept_pos | accept_neg)
                 dVexp = alpha * (dg + 0.5 * alpha * dq)
                 return finite & (dVexp >= 0.0) & (
                     (dg < s.th_grad) | (~feasible) | (dV > s.th_acceptstep * dVexp))
 
+            gap_args = (fs, infeas) if use_gaps else (None, None)
             i = torch.zeros_like(it)
             accepted = done | bw_failed
             xs_b, us_b, cost_b = xs, us, lin.cost
@@ -162,7 +221,8 @@ def build_lane_solver(
                     break
                 a0 = alphas[torch.clamp(i, 0, s.n_alphas - 1).long()]
                 a1 = alphas[torch.clamp(i + 1, 0, s.n_alphas - 1).long()]
-                tr0, tr1 = roll_fn(spec, xs, us, bw.k, bw.K, x0_l, a0, a1, wterm, lb, ub)
+                tr0, tr1 = roll_fn(spec, xs, us, bw.k, bw.K, x0_l, a0, a1, wterm, lb, ub,
+                                   *gap_args)
                 acc0 = ls_accept(a0, tr0)
                 # trial 1 counts only for a genuinely new alpha (dedupe at the
                 # ladder's end keeps iteration counts equal to one trial a round)
@@ -210,7 +270,8 @@ def build_lane_solver(
             it = torch.where(active, it1, it)
             converged = torch.where(active, conv_now, converged)
             diverged = torch.where(active, div_now, diverged)
-            kprev = _sel(active & bw.ok, bw.k, kprev)
+            if warm:
+                kprev = _sel(active & bw.ok, bw.k, kprev)
             rej_streak = torch.where(active, rej_new, rej_streak)
             nrt_streak = torch.where(active, nrt_new, nrt_streak)
             done = torch.where(active, done_now, done)

@@ -1,12 +1,16 @@
-"""Box-DDP backward Riccati sweep with BoxQP (K2).
+"""Backward Riccati sweeps: Box-DDP with BoxQP (K2), FDDP (K4) and BoxFDDP
+(K5).
 
 PyTorch counterpart of ``aslr_to_tpu/pallas/riccati.py``
-(``prepare_riccati_box_backward_lanes`` and ``_riccati_box_kernel``). The
-wrapper takes lane tensors (batch innermost, unpadded): on a CUDA tensor it
-launches ``csrc/riccati_box.cu`` or raises; on a CPU tensor it runs the
-plain version below, which follows the kernel's order of operations. The
-plain version is elementwise (broadcast products and sums, no
-``torch.matmul``), so no TF32 path can touch it on the card.
+(``_riccati_box_kernel`` through ``prepare_riccati_box_backward_lanes``;
+``_riccati_fddp_kernel`` through ``prepare_riccati_fddp_backward_lanes``
+and ``prepare_riccati_boxfddp_backward_lanes``). Each wrapper takes lane
+tensors (batch innermost, unpadded): on a CUDA tensor it launches its
+kernel (``csrc/riccati_box.cu``, ``csrc/riccati_fddp.cu``) or raises; on a
+CPU tensor it runs the plain version below, which follows the kernel's
+order of operations. The plain versions are elementwise (broadcast
+products and sums, no ``torch.matmul``), so no TF32 path can touch them
+on the card.
 """
 from __future__ import annotations
 
@@ -98,8 +102,12 @@ def _free_mask(H, q, x, low, up):
 
 def _masked_factor(H, free):
     """Cholesky rows of the masked system (clamped rows/cols -> identity)."""
-    n = free.shape[0]
-    A = _add_diag(H * (free[:, None] * free[None]), 1.0 - free)
+    return _chol(_add_diag(H * (free[:, None] * free[None]), 1.0 - free))
+
+
+def _chol(A):
+    """Unrolled Cholesky of A [n, n, B]: the rows of L as lists of lanes."""
+    n = A.shape[0]
     L = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
@@ -229,3 +237,144 @@ def riccati_box_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us,
         p(k), p(K), p(dg), p(dq), p(stop), p(ok), p(retry), _build.stream_of(Fx))
     _build.check("riccati_box", code)
     return BoxBackwardOut(k=k, K=K, dg=dg, dq=dq, stop=stop, ok=ok, retryable=retry)
+
+
+# -- K4 / K5: the FDDP family --------------------------------------------------
+
+class FddpBackwardOut(NamedTuple):
+    k: torch.Tensor          # [T, nu, B]
+    K: torch.Tensor          # [T, nu, ndx, B]
+    w: torch.Tensor          # [T+1, ndx, B] deflections Vxx_t fs_t (dv = -sum w.dx)
+    dg: torch.Tensor         # [B] sum Qu.k
+    dq: torch.Tensor         # [B] -sum k'Quu k
+    stop: torch.Tensor       # [B] sum ||Qu||^2
+    dg_gap: torch.Tensor     # [B] -sum Vx.fs over the nodes (terminal included)
+    dq_gap: torch.Tensor     # [B] sum fs.w
+    ok: torch.Tensor         # [B] bool
+    retryable: torch.Tensor  # [B] bool: a failure with Quu still finite
+
+
+def _fddp_family_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, box):
+    """Plain version of the FDDP-family sweep; ``box`` is None (K4: Cholesky
+    gains) or ``(us, kprev, lb, ub, qp_iters)`` (K5: masked BoxQP gains)."""
+    T = Fu.shape[0]
+    Vxx = _add_diag(tLxx, reg)
+    w_T = _matvec(Vxx, fs[T])
+    Vx = tLx + w_T
+    dg_gap = -_dot(Vx, fs[T])
+    dq_gap = _dot(fs[T], w_T)
+    zero = torch.zeros_like(reg)
+    dg, dq, stop = zero, zero, zero
+    indef = torch.zeros_like(reg, dtype=torch.bool)
+    ks, Ks, ws = [None] * T, [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        fx, fu = Fx[t], Fu[t]
+        Qx = Lx[t] + _matvec_t(fx, Vx)
+        Qu = Lu[t] + _matvec_t(fu, Vx)
+        FxTVxx = _matmul_t_left(fx, Vxx)
+        Qxu = Lxu[t] + _matmul(FxTVxx, fu)
+        Quu = _add_diag(Luu[t] + _matmul(_matmul_t_left(fu, Vxx), fu), reg)
+        quu_ok = _finite(Quu, 2)
+
+        if box is None:
+            L = _chol(Quu)
+            k = _chol_solve(L, Qu)
+            K = _chol_solve(L, Qxu.transpose(0, 1))
+        else:
+            us, kprev, lb, ub, qp_iters = box
+            x0 = -kprev[t] if kprev is not None else torch.zeros_like(us[t])
+            du, free = boxqp_plain(Quu, Qu, lb - us[t], ub - us[t], x0, qp_iters)
+            k = -du
+            K = _chol_solve(_masked_factor(Quu, free), Qxu.transpose(0, 1) * free[:, None])
+
+        Quuk = _matvec(Quu, k)
+        Vx = Qx + _matvec_t(K, Quuk) - 2.0 * _matvec_t(K, Qu)
+        V = (Lxx[t] + _matmul(FxTVxx, fx)) - _matmul(Qxu, K)
+        Vxx = _add_diag(0.5 * (V + V.transpose(0, 1)), reg)
+        w = _matvec(Vxx, fs[t])
+        Vx = Vx + w
+        out_ok = _finite(k, 1) & _finite(K, 2) & _finite(Vx, 1) & _finite(Vxx, 2)
+        indef = indef | (quu_ok & ~out_ok)
+        ks[t], Ks[t], ws[t] = k, K, w
+        dg = dg + _dot(Qu, k)
+        dq = dq - _dot(k, Quuk)
+        stop = stop + _dot(Qu, Qu)
+        dg_gap = dg_gap - _dot(Vx, fs[t])
+        dq_gap = dq_gap + _dot(fs[t], w)
+    ok = torch.isfinite(dg) & torch.isfinite(stop) & _finite(Vx, 1)
+    return FddpBackwardOut(k=torch.stack(ks), K=torch.stack(Ks),
+                           w=torch.stack(ws + [w_T]), dg=dg, dq=dq, stop=stop,
+                           dg_gap=dg_gap, dq_gap=dq_gap, ok=ok, retryable=indef)
+
+
+def riccati_fddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg) -> FddpBackwardOut:
+    """Plain PyTorch version of K4 (see :func:`riccati_fddp_backward`)."""
+    return _fddp_family_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, None)
+
+
+def riccati_boxfddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, lb, ub,
+                          reg, qp_iters) -> FddpBackwardOut:
+    """Plain PyTorch version of K5 (see :func:`riccati_boxfddp_backward`)."""
+    return _fddp_family_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg,
+                              (us, kprev, lb, ub, qp_iters))
+
+
+def _fddp_family_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg,
+                        us=None, kprev=None, lb=None, ub=None, qp_iters=0):
+    boxed = us is not None
+    T, NDX, NU, B = Fu.shape[0], Fu.shape[1], Fu.shape[2], Fu.shape[3]
+    dt, dev = Fx.dtype, Fx.device
+    shapes = [("Fx", Fx, (T, NDX, NDX, B)), ("Fu", Fu, (T, NDX, NU, B)),
+              ("Lx", Lx, (T, NDX, B)), ("Lu", Lu, (T, NU, B)),
+              ("Lxx", Lxx, (T, NDX, NDX, B)), ("Lxu", Lxu, (T, NDX, NU, B)),
+              ("Luu", Luu, (T, NU, NU, B)), ("tLx", tLx, (NDX, B)),
+              ("tLxx", tLxx, (NDX, NDX, B)), ("fs", fs, (T + 1, NDX, B)), ("reg", reg, (B,))]
+    if boxed:
+        shapes += [("us", us, (T, NU, B)), ("lb", lb, (NU, B)), ("ub", ub, (NU, B))]
+        if kprev is not None:
+            shapes += [("kprev", kprev, (T, NU, B))]
+    for n, t, shape in shapes:
+        _check_lane(n, t, shape, dt, dev)
+
+    def e(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    k, K, w = e(T, NU, B), e(T, NU, NDX, B), e(T + 1, NDX, B)
+    dg, dq, stop, dg_gap, dq_gap = (e(B) for _ in range(5))
+    ok, retry = e(B, dtype=torch.bool), e(B, dtype=torch.bool)
+    p = _build.ptr
+
+    def opt(t):
+        return None if t is None else p(t)
+
+    code = _build.entry("aslr_riccati_fddp", dt)(
+        NDX, NU, int(boxed), p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu), p(tLx),
+        p(tLxx), p(fs), opt(us), opt(kprev), opt(lb), opt(ub), p(reg), T, B, qp_iters,
+        p(k), p(K), p(w), p(dg), p(dq), p(stop), p(dg_gap), p(dq_gap), p(ok), p(retry),
+        _build.stream_of(Fx))
+    _build.check(name, code)
+    return FddpBackwardOut(k=k, K=K, w=w, dg=dg, dq=dq, stop=stop, dg_gap=dg_gap,
+                           dq_gap=dq_gap, ok=ok, retryable=retry)
+
+
+def riccati_fddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs,
+                          reg) -> FddpBackwardOut:
+    """K4 on lane tensors: the derivatives as for
+    :func:`riccati_box_backward`, the gaps fs [T+1,ndx,B] (zeros for DDP)
+    and reg [B]."""
+    if _route(Fx) == "plain":
+        return riccati_fddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg)
+    return _fddp_family_launch("riccati_fddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx,
+                               fs, reg)
+
+
+def riccati_boxfddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
+                             kprev: Optional[torch.Tensor], lb, ub, reg,
+                             qp_iters: int) -> FddpBackwardOut:
+    """K5 on lane tensors: K4's inputs plus us [T,nu,B], kprev [T,nu,B] or
+    None (cold QPs from 0), lb/ub [nu,B] and the QP iteration count."""
+    if _route(Fx) == "plain":
+        return riccati_boxfddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
+                                     lb, ub, reg, qp_iters)
+    return _fddp_family_launch("riccati_boxfddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx,
+                               fs, reg, us, kprev, lb, ub, qp_iters)

@@ -1,4 +1,4 @@
-"""Linearization (K1) and two-trial rollout (K3) of the VSA soft arm.
+"""Linearization (K1) and two-trial rollout (K3) of the soft arm (VSA or SEA).
 
 PyTorch counterpart of ``aslr_to_tpu/pallas/vsa_kernels.py``. Each
 wrapper takes tensors in lane layout (batch innermost: ``[..., B]``,
@@ -8,10 +8,12 @@ tensor it runs its plain PyTorch version, which follows the kernel's order
 of operations and is what the CPU tests hold against the JAX package.
 
 Specialization contract (checked by :func:`extract_vsa_spec`): the VSA
-dynamics on a serial revolute chain, the Euler integrator, a frame-placement
-goal plus weighted state and control regularizers (and an optional linear
-stiffness cost), a goal-only terminal cost, one shared model for every
-knot and a shared ``[nu]`` control box.
+dynamics (u = [tau_m, k]) or the SEA dynamics with the ASR actuation (u =
+tau_m, a constant spring matrix K) on a serial revolute chain, the Euler
+integrator, a frame-placement goal plus weighted state and control
+regularizers (and an optional linear stiffness cost), a goal-only terminal
+cost, one shared model for every knot and a shared ``[nu]`` control box or
+none.
 """
 from __future__ import annotations
 
@@ -72,17 +74,22 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
         ResidualModelFramePlacementASR,
         ResidualModelState,
     )
-    from ..models.dynamics import DifferentialVSADynamics
+    from ..models.actuation import ASRActuation
+    from ..models.dynamics import DifferentialSEADynamics, DifferentialVSADynamics
 
     diff = problem.running.differential
-    if not isinstance(diff, DifferentialVSADynamics):
-        raise NotImplementedError("the port's kernels cover the VSA dynamics; SEA comes "
-                                  "with the FDDP/SEA slice")
     if bounds is not None and np.ndim(_np(bounds.lb)) != 1:
         raise NotImplementedError("a per-knot [T, nu] box comes with the per-knot slice")
     robot = diff.state.robot
     nl = int(robot.nv)
-    nu = 2 * nl
+    if isinstance(diff, DifferentialVSADynamics):
+        variant, nu, K = "vsa", 2 * nl, None
+    elif isinstance(diff, DifferentialSEADynamics):
+        if not isinstance(diff.actuation, ASRActuation):
+            raise TypeError("the SEA kernels take the ASR actuation")
+        variant, nu, K = "sea", nl, _np(diff.K)
+    else:
+        raise TypeError("the kernels take the VSA or the SEA dynamics")
 
     def act_weights(cost, nr):
         if isinstance(cost.activation, ActivationModelQuad):
@@ -149,8 +156,8 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
         stiff_ref=stiff_ref,
         lb=None if bounds is None else _np(bounds.lb),
         ub=None if bounds is None else _np(bounds.ub),
-        variant="vsa",
-        K=None,
+        variant=variant,
+        K=K,
         nu=nu,
         nl=nl,
         term_target_rot_inv=None if term_rot is None else term_rot.T,
@@ -166,9 +173,12 @@ def _term_target(spec):
 
 def pack_params(spec: VSASpec) -> np.ndarray:
     """The kernels' parameter block: a flat float64 array in the field order
-    of ``csrc/common.cuh::unpack_params``."""
-    if spec.variant != "vsa":
-        raise NotImplementedError("the port's kernels cover the VSA dynamics")
+    of ``csrc/common.cuh::unpack_params``. The control weights are padded to
+    2 nl; the SEA's flag and spring matrix close the block (zeros for the
+    VSA)."""
+    if spec.variant not in ("vsa", "sea"):
+        raise ValueError(f"unknown actuation variant {spec.variant!r}")
+    sea = spec.variant == "sea"
     rc = spec.rc
     nl = spec.nl
     if rc.parents != tuple(range(-1, nl - 1)):
@@ -179,7 +189,8 @@ def pack_params(spec: VSASpec) -> np.ndarray:
         [spec.dt], spec.binv, rc.joint_rot, rc.joint_pos, rc.axis, rc.mass, rc.com,
         rc.inertia, rc.gravity, [rc.frame_parents[fid]], rc.frame_rot[fid],
         rc.frame_pos[fid], spec.target_rot_inv, spec.target_pos, term_rinv, term_pos,
-        [spec.w_goal], spec.xw, spec.uw, [spec.stiff_w], spec.stiff_ref,
+        [spec.w_goal], spec.xw, np.pad(spec.uw, (0, 2 * nl - spec.nu)), [spec.stiff_w],
+        spec.stiff_ref, [1.0 if sea else 0.0], spec.K if sea else np.zeros((nl, nl)),
     ]
     return np.ascontiguousarray(np.concatenate(
         [np.asarray(p, dtype=np.float64).ravel() for p in parts]))
@@ -220,12 +231,18 @@ def _dot_terms(terms):
 
 
 def _dynamics_lanes(spec, x, u):
-    """VSA accelerations: x list of 4 nl lanes, u list of 2 nl -> 2 nl lanes;
-    also returns M and tau_c."""
+    """Soft-arm accelerations: x list of 4 nl lanes, u list of nu lanes ->
+    2 nl lanes; also returns M and tau_c. VSA: tau_c = k (q_l - q_m); SEA:
+    tau_c = K (q_l - q_m)."""
     nl = spec.nl
     q_l, q_m, v_l = list(x[:nl]), list(x[nl:2 * nl]), list(x[2 * nl:3 * nl])
-    kd = list(u[nl:2 * nl])
-    tau_c = [kd[i] * (q_l[i] - q_m[i]) for i in range(nl)]
+    if spec.variant == "sea":
+        d = [q_l[i] - q_m[i] for i in range(nl)]
+        tau_c = [_dot_terms([float(spec.K[i][j]) * d[j] for j in range(nl)])
+                 for i in range(nl)]
+    else:
+        kd = list(u[nl:2 * nl])
+        tau_c = [kd[i] * (q_l[i] - q_m[i]) for i in range(nl)]
     M, nle = lanes.mass_nle_lanes(spec.rc, q_l, v_l)
     a_l = lanes.solven(M, [-nle[i] - tau_c[i] for i in range(nl)])
     binv = spec.binv
@@ -336,10 +353,11 @@ def _cost_derivs(spec, x, u, w_goal, J, r6, terminal):
 
 
 def _acc_jacobian_cols(spec, x, u, a, M):
-    """Columns d a / d [q_l, q_m, v_l, v_m, tau, k] (vsa_kernels.py:855-928)."""
+    """Columns d a / d [q_l, q_m, v_l, v_m, tau] and, for the VSA, [k]
+    (vsa_kernels.py:855-928)."""
     NL = spec.nl
+    sea = spec.variant == "sea"
     q_l, q_m, v_l = list(x[:NL]), list(x[NL:2 * NL]), list(x[2 * NL:3 * NL])
-    kd = list(u[NL:2 * NL])
     a_l = list(a[:NL])
     zero = torch.zeros_like(x[0])
     one = torch.ones_like(x[0])
@@ -373,7 +391,12 @@ def _acc_jacobian_cols(spec, x, u, a, M):
         dtau_dq.append([lanes.tangent(t) for t in lanes.rnea_lanes(spec.rc, qd, v_l, a_l)])
         dtau_dv.append([lanes.tangent(t) for t in lanes.rnea_lanes(spec.rc, q_l, vd, a_l)])
 
-    dK_col = [[(kd[j] if i == j else zero) for i in range(NL)] for j in range(NL)]
+    # dK_col[j][i] = d tau_c_i / d q_l_j
+    if sea:
+        dK_col = [[float(spec.K[i][j]) * one for i in range(NL)] for j in range(NL)]
+    else:
+        kd = list(u[NL:2 * NL])
+        dK_col = [[(kd[j] if i == j else zero) for i in range(NL)] for j in range(NL)]
 
     def binv_apply(col):
         return [_dot_terms([binv[i][j2] * col[j2] for j2 in range(NL)]) for i in range(NL)]
@@ -390,9 +413,10 @@ def _acc_jacobian_cols(spec, x, u, a, M):
         cols.append([zero] * (2 * NL))
     for j in range(NL):
         cols.append([zero] * NL + [binv[i][j] * one for i in range(NL)])
-    for j in range(NL):
-        d = q_l[j] - q_m[j]
-        cols.append(msolve_basis(j, -d) + [binv[i][j] * d for i in range(NL)])
+    if not sea:
+        for j in range(NL):
+            d = q_l[j] - q_m[j]
+            cols.append(msolve_basis(j, -d) + [binv[i][j] * d for i in range(NL)])
     return cols
 
 
@@ -505,12 +529,19 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub):
+def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
+                   fs=None, infeas=None):
     """Plain PyTorch version of K3: both trials advance together as lanes
-    of shape ``[2, B]``, one knot at a time."""
+    of shape ``[2, B]``, one knot at a time. ``lb``/``ub`` None: no clip;
+    ``fs``/``infeas`` given: the gap contraction."""
     T, NDX, NU = us.shape[0], spec.ndx, spec.nu
     alpha = torch.stack([alpha_a, alpha_b])
-    x = [torch.stack([x0[i], x0[i]]) for i in range(NDX)]
+    gaps = fs is not None
+    if gaps:
+        gscale = (alpha - 1.0) * infeas
+        x = [x0[i] + fs[0, i] * gscale for i in range(NDX)]
+    else:
+        x = [torch.stack([x0[i], x0[i]]) for i in range(NDX)]
     xs_out, us_out = [torch.stack(x)], []
     cost = torch.zeros_like(alpha)
     for t in range(T):
@@ -520,10 +551,13 @@ def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb,
             fb = k[t, j] * alpha
             for i in range(NDX):
                 fb = fb + K[t, j, i] * dx[i]
-            u.append(_clip(us[t, j] - fb, lb[j], ub[j]))
+            u_j = us[t, j] - fb
+            u.append(u_j if lb is None else _clip(u_j, lb[j], ub[j]))
         a, _, _ = _dynamics_lanes(spec, x, u)
         cost = cost + _running_cost_lanes(spec, x, u)
         x = _euler(spec, x, a)
+        if gaps:
+            x = [x[i] + fs[t + 1, i] * gscale for i in range(NDX)]
         xs_out.append(torch.stack(x))
         us_out.append(torch.stack(u))
     c_goal_T, _ = _goal_cost_lanes(spec, x[:spec.nl], terminal=True)
@@ -534,26 +568,41 @@ def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb,
                  for i in range(2))
 
 
-def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub):
+def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
+             fs=None, infeas=None):
     """K3 on lane tensors ``xs [T+1, ndx, B]``, ``us``/``k [T, nu, B]``,
     ``K [T, nu, ndx, B]``, ``x0 [ndx, B]``, ``alpha_a``/``alpha_b``/``wterm
-    [B]``, ``lb``/``ub [nu, B]``; returns the two :class:`Trial`\\ s."""
+    [B]``, ``lb``/``ub [nu, B]`` or None (no box), and for the FDDP gap
+    contraction ``fs [T+1, ndx, B]`` and ``infeas [B]`` (1 on an infeasible
+    lane, 0 on a feasible one); returns the two :class:`Trial`\\ s."""
+    if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
+        raise ValueError("lb and ub, and fs and infeas, come in pairs")
     if _route(xs) == "plain":
-        return rollout2_plain(spec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub)
+        return rollout2_plain(spec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
+                              fs, infeas)
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     dt, dev = xs.dtype, xs.device
-    for name, t, shape in (("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
-                           ("k", k, (T, NU, B)), ("K", K, (T, NU, NDX, B)),
-                           ("x0", x0, (NDX, B)), ("alpha_a", alpha_a, (B,)),
-                           ("alpha_b", alpha_b, (B,)), ("wterm", wterm, (B,)),
-                           ("lb", lb, (NU, B)), ("ub", ub, (NU, B))):
+    checks = [("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
+              ("k", k, (T, NU, B)), ("K", K, (T, NU, NDX, B)),
+              ("x0", x0, (NDX, B)), ("alpha_a", alpha_a, (B,)),
+              ("alpha_b", alpha_b, (B,)), ("wterm", wterm, (B,))]
+    if lb is not None:
+        checks += [("lb", lb, (NU, B)), ("ub", ub, (NU, B))]
+    if fs is not None:
+        checks += [("fs", fs, (T + 1, NDX, B)), ("infeas", infeas, (B,))]
+    for name, t, shape in checks:
         _check_lane(name, t, shape, dt, dev)
     outs = [torch.empty(s, dtype=dt, device=dev)
             for _ in range(2) for s in ((T + 1, NDX, B), (T, NU, B), (B,))]
     params, pp = _params_ptr(spec)
     p = _build.ptr
+
+    def opt(t):
+        return None if t is None else p(t)
+
     code = _build.entry("aslr_rollout2", dt)(
         pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha_a), p(alpha_b), p(wterm),
-        p(lb), p(ub), T, B, *[p(o) for o in outs], _build.stream_of(xs))
+        opt(lb), opt(ub), opt(fs), opt(infeas), T, B, *[p(o) for o in outs],
+        _build.stream_of(xs))
     _build.check("rollout2", code)
     return Trial(*outs[:3]), Trial(*outs[3:])

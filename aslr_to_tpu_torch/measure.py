@@ -1,0 +1,198 @@
+"""The port's solver paths on the card, defined once: ``chip_smoke.py``
+drives them, and this module's command line measures them (solves/s over
+batch sizes and a ``torch.profiler`` breakdown of one solve).
+
+    python -m aslr_to_tpu_torch.measure --path sea_warm --batch 1024 4096 16384
+    python -m aslr_to_tpu_torch.measure --path boxddp boxfddp --batch 4096 --profile
+
+Paths (T=100, float32, x0s = 0.05 randn from a CUDA generator seeded per
+path, ``SEEDS``):
+
+  boxddp    BoxDDP on two_dof_vsa_boxddp, cold, maxiter=20, th_stop=1e-5,
+            boxqp_warm_iters=2 (the benchmark's primary metric);
+  sea_warm  FDDP on two_dof_sea: a cold solve (maxiter=60, th_stop=1e-5,
+            untimed set-up), then timed warm re-solves from its (xs, us),
+            the i-th at x0s + 1e-4 (i + 1) (the benchmark's converged
+            headline, bench.py:180-200);
+  boxfddp   BoxFDDP on two_dof_vsa_boxddp with the preset's box, cold,
+            maxiter=20, th_stop=1e-5, boxqp_warm_iters=2.
+
+The kernels are built before anything is timed. For each batch size the
+path's set-up runs, then ``--reps`` timed solves, each ending in
+``torch.cuda.synchronize()``; solves/s is B over the host wall time. The
+convergence line adds the largest iteration count, which is the number of
+loop passes the whole batch ran, and the count of lanes at each iteration
+count. ``--profile`` traces the last timed solve once more (same inputs)
+and prints each kernel's device time and launches, the device time of
+everything else, the host syncs, and the device's idle share of the wall
+time. ``--save-lanes FILE`` writes, for
+the sea_warm path at the first batch size, the inputs and results of the
+first re-solve's lanes that ran to maxiter unconverged, with as many
+converged lanes, to an ``.npz``. Output lines are plain text; the last line
+is one JSON record of every run. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+PATHS = ("boxddp", "sea_warm", "boxfddp")
+SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2)
+T_PATH, B_PATH = 100, 4096
+WARM_OFFSET = 1e-4
+KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_fddp_kernel",
+                "rollout2_kernel")
+
+
+class Path(NamedTuple):
+    """A solver path: ``setup()`` runs its untimed set-up and returns what
+    ``args(i, setup_result)`` needs to give the arguments of the i-th timed
+    ``solve``."""
+    solve: Callable
+    setup: Callable
+    args: Callable
+    maxiter: int
+
+
+def x0_batch(B, dtype, seed):
+    """x0s = 0.05 randn [B, 8] from a seeded CUDA generator, drawn in
+    float64 so that both dtypes see the same states."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (0.05 * torch.randn(B, 8, generator=g, device="cuda", dtype=torch.float64)).to(dtype)
+
+
+def build_path(name, B=B_PATH, T=T_PATH, dtype=torch.float32):
+    from . import SolverSettings, make_batched_solver, two_dof_sea, two_dof_vsa_boxddp
+
+    x0s = x0_batch(B, dtype, SEEDS[name])
+    if name == "sea_warm":
+        w = two_dof_sea(T=T, dtype=dtype)
+        solve = make_batched_solver(w.problem, SolverSettings(maxiter=60, th_stop=1e-5),
+                                    use_gaps=True, bounds=None, use_fast_path="lanes")
+        return Path(solve, lambda: solve(x0s),
+                    lambda i, cold: (x0s + WARM_OFFSET * (i + 1), cold.xs, cold.us), 60)
+    w = two_dof_vsa_boxddp(T=T, dtype=dtype)
+    settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
+    solve = make_batched_solver(w.problem, settings, use_gaps=name == "boxfddp",
+                                bounds=w.bounds, use_fast_path="lanes")
+    return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
+
+
+def summary(res):
+    from . import convergence_summary
+
+    summ = convergence_summary(res)
+    summ["max_iterations"] = int(res.iterations.max())
+    hist = torch.bincount(res.iterations.long()).tolist()
+    summ["lanes_by_iterations"] = {i: n for i, n in enumerate(hist) if n}
+    return summ
+
+
+def save_lanes(fname, args, res, maxiter):
+    """The inputs and results of the lanes that ran to ``maxiter``
+    unconverged, and of as many converged lanes, to an ``.npz``."""
+    stuck = torch.nonzero((res.iterations == maxiter) & ~res.converged).flatten()
+    conv = torch.nonzero(res.converged).flatten()[:max(len(stuck), 1)]
+    lanes = torch.cat([stuck, conv])
+    x0s, xs, us = args
+
+    def pick(t):
+        return t[lanes].cpu().numpy()
+
+    np.savez(fname, lanes=lanes.cpu().numpy(), n_stuck=len(stuck), x0s=pick(x0s),
+             xs_init=pick(xs), us_init=pick(us), iterations=pick(res.iterations),
+             converged=pick(res.converged), diverged=pick(res.diverged), cost=pick(res.cost),
+             stop=pick(res.stop))
+    print(f"  saved {len(stuck)} lanes at maxiter and {len(conv)} converged lanes to {fname}",
+          flush=True)
+
+
+def _device_us(evt):
+    t = getattr(evt, "self_device_time_total", None)
+    return t if t is not None else evt.self_cuda_time_total
+
+
+def profile_solve(solve, inputs):
+    """Device time by kernel, host syncs and idle share of one solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {k: dict(ms=0.0, launches=0) for k in KERNEL_NAMES}
+    other = dict(ms=0.0, launches=0)
+    syncs = 0
+    for evt in prof.key_averages():
+        if evt.key == "cudaStreamSynchronize":
+            syncs += evt.count
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        row = next((kernels[k] for k in KERNEL_NAMES if k in evt.key), other)
+        row["ms"] += _device_us(evt) / 1e3
+        row["launches"] += evt.count
+    busy = sum(r["ms"] for r in kernels.values()) + other["ms"]
+    return dict(wall_ms=wall_ms, device_ms=busy, idle_share=1.0 - busy / wall_ms,
+                host_syncs=syncs, kernels=kernels, other_device=other)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=PATHS, nargs="+", required=True)
+    ap.add_argument("--batch", type=int, nargs="+", default=[B_PATH])
+    ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--save-lanes", metavar="FILE")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the measurements are of the card")
+    from .kernels import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    build.build()
+    build.lib()
+    record = dict(card=card, runs=[])
+    for path, B in ((p, b) for p in args.path for b in args.batch):
+        p = build_path(path, B)
+        prep = p.setup()
+        times = []
+        for i in range(args.reps):
+            inputs = p.args(i, prep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = p.solve(*inputs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0 and args.save_lanes and path == "sea_warm" and B == args.batch[0]:
+                save_lanes(args.save_lanes, inputs, res, p.maxiter)
+        summ = summary(res)
+        run = dict(path=path, B=B, seconds=times, solves_per_s=[B / t for t in times], **summ)
+        print(f"{path} B={B}: " + ", ".join(f"{t:.4f} s ({B / t:.2f} solves/s)"
+                                                 for t in times), flush=True)
+        print(f"  convergence of the last solve: {summ}", flush=True)
+        if args.profile:
+            prof = profile_solve(p.solve, inputs)
+            run["profile"] = prof
+            print(f"  profile: wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, "
+                  f"idle share {prof['idle_share']:.4f}, host syncs {prof['host_syncs']}",
+                  flush=True)
+            for k, r in list(prof["kernels"].items()) + [("other", prof["other_device"])]:
+                if r["launches"]:
+                    print(f"    {k}: {r['ms']:.3f} ms in {r['launches']} launches", flush=True)
+        record["runs"].append(run)
+    print(json.dumps(record))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,7 @@
 """Semi-implicit Euler integrator: differential model -> action model.
 
 PyTorch counterpart of ``aslr_to_tpu/models/integrator.py``
-(``IntegratedActionEuler``, ``calc`` only):
+(``IntegratedActionEuler``, ``calc`` and ``quasi_static``):
 ``dx = [v dt + a dt^2, a dt]``, ``xnext = x + dx``. ``dt = 0`` is the
 terminal model. The cost is the differential cost, not scaled by dt.
 """
@@ -40,3 +40,6 @@ class IntegratedActionEuler:
         acc = data.xout
         dx = torch.cat([x[..., nq:] * dt + acc * dt * dt, acc * dt], dim=-1)
         return ActionData(xnext=self.state.integrate(x, dx), cost=data.cost)
+
+    def quasi_static(self, x):
+        return self.differential.quasi_static(x)

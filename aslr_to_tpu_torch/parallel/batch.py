@@ -26,19 +26,29 @@ def make_batched_solver(
     backend: str = "auto",
 ):
     """Build ``solve_batch(x0s) -> SolveResult`` over initial states
-    ``x0s [B, nx]``; every other problem leaf is shared. Only the lane
-    solver (``use_fast_path="lanes"``) exists in the port so far."""
+    ``x0s [B, nx]``; every other problem leaf is shared, and the solve runs
+    on the problem's device. Only the lane solver (``use_fast_path="lanes"``)
+    exists in the port so far. ``warm_start`` starts each scenario from the
+    problem's quasi-static controls at its x0 (the reference's
+    ``problem.quasiStatic``)."""
     if use_fast_path != "lanes":
         raise NotImplementedError("the port runs the lane solver only "
                                   "(use_fast_path='lanes'); the generic path comes later")
-    if warm_start:
-        raise NotImplementedError("the quasi-static warm start comes with the FDDP/SEA slice")
     if globalization is not None:
         raise NotImplementedError("globalization='homotopy' comes with the homotopy slice")
-    from ..kernels.lane_solver import build_lane_solver
+    from ..kernels.lane_solver import build_lane_solver, check_device
 
-    return build_lane_solver(problem, settings, bounds, use_gaps=use_gaps,
+    lane = build_lane_solver(problem, settings, bounds, use_gaps=use_gaps,
                              keep_log=keep_log, backend=backend)
+    if not warm_start:
+        return lane
+
+    def solve_warm(x0s):
+        check_device(problem.x0.device, x0s=x0s)
+        xs0 = x0s[:, None, :].expand(x0s.shape[0], problem.T + 1, x0s.shape[1])
+        return lane(x0s, xs0, problem.quasi_static(xs0[:, :-1]))
+
+    return solve_warm
 
 
 def convergence_summary(result: SolveResult):

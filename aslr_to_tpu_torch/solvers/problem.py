@@ -26,6 +26,11 @@ class ShootingProblem:
     def nu(self) -> int:
         return self.running.nu
 
+    def quasi_static(self, xs):
+        """Warm-start controls ``[..., T, nu]`` for states ``[..., T, nx]``
+        (the reference's ``problem.quasiStatic([x0] * T)``)."""
+        return self.running.quasi_static(xs)
+
     def rollout(self, us, x0=None):
         """Nonlinear rollout of controls ``[..., T, nu]`` -> xs ``[..., T+1, nx]``."""
         x = self.x0 if x0 is None else x0

@@ -1,9 +1,13 @@
-"""The 2-DoF VSA reach workload as a declarative config.
+"""The 2-DoF soft-arm reach workloads as declarative configs.
 
-PyTorch counterpart of ``_two_dof_vsa`` and ``two_dof_vsa_boxddp`` in
-``aslr_to_tpu/workloads/presets.py`` (the problem behind the benchmark's
-primary metric): the reference ``examples/two_dof_vsa_boxddp.py`` with
-u in [-100, 100]^2 x [0, 100]^2.
+PyTorch counterpart of ``two_dof_sea``, ``_two_dof_vsa`` and
+``two_dof_vsa_boxddp`` in ``aslr_to_tpu/workloads/presets.py``: the
+reference ``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the
+benchmark's warm re-solve headline) and ``examples/two_dof_vsa_boxddp.py``
+(u in [-100, 100]^2 x [0, 100]^2; the benchmark's primary metric).
+
+The presets build on the card (``device="cuda"``) unless the caller names
+another device; without a CUDA device that default raises, as torch does.
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models import robots
-from ..models.actuation import VSAASRActuation
+from ..models.actuation import ASRActuation, VSAASRActuation
 from ..models.costs import (
     ActivationModelQuad,
     ActivationModelWeightedQuad,
@@ -23,7 +27,7 @@ from ..models.costs import (
     ResidualModelFramePlacementASR,
     ResidualModelState,
 )
-from ..models.dynamics import DifferentialVSADynamics
+from ..models.dynamics import DifferentialSEADynamics, DifferentialVSADynamics
 from ..models.integrator import IntegratedActionEuler
 from ..models.state import StateASR
 from ..ops.se3 import SE3
@@ -35,16 +39,59 @@ class Workload(NamedTuple):
     name: str
     problem: ShootingProblem
     bounds: Optional[Bounds]
-    solver: str              # "boxddp"
+    solver: str              # "fddp" | "boxddp"
     maxiter: int
     th_stop: float
-    warm_start: bool
+    warm_start: bool         # quasi-static warm start (two_dof_sea.py:78)
     ee_frame: Optional[int]
     target: Optional[torch.Tensor]
 
 
+def two_dof_sea(T: int = 100, dt: float = 1e-2, dtype=torch.float64, device="cuda",
+                robot=None) -> Workload:
+    """2-DoF SEA arm reach (reference ``examples/two_dof_sea.py``): FDDP,
+    no box, quasi-static warm start."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    model = (robot if robot is not None
+             else robots.asr_twodof(dtype=dtype, device=device)).with_gravity([9.81, 0.0, 0.0])
+    state = StateASR(model)
+    act = ASRActuation(state)
+    nu = act.nu
+    ee = model.frame_id("EE")
+    target = t([0.01, 2.03063311e-01, 1.80000000e-01])
+
+    frame_res = ResidualModelFramePlacementASR(
+        state, ee, SE3(torch.eye(3, dtype=dtype, device=device), target), nu)
+    goal = CostModelResidual(state, ActivationModelQuad(), frame_res)
+    xact = ActivationModelWeightedQuad(t([1.0] * 2 + [0.0] * 2 + [1.0] * 2 + [0.0] * 2))
+    xreg = CostModelResidual(state, xact, ResidualModelState(state, state.zero(), nu))
+    ureg = CostModelResidual(state, ActivationModelQuad(), ResidualModelControl(state, nu))
+
+    running_costs = (
+        CostModelSum(state, nu)
+        .add_cost("gripperPose", goal, 1e-1)
+        .add_cost("xReg", xreg, 1e-3)
+        .add_cost("uReg", ureg, 1e-2)
+    )
+    terminal_costs = CostModelSum(state, nu).add_cost("gripperPose", goal, 1e4)
+
+    K = 1.0 * torch.eye(2, dtype=dtype, device=device)
+    B = 0.01 * torch.eye(2, dtype=dtype, device=device)
+    running = IntegratedActionEuler(DifferentialSEADynamics(state, act, running_costs, K, B), dt)
+    terminal = IntegratedActionEuler(
+        DifferentialSEADynamics(state, act, terminal_costs, K, B), 0.0)
+
+    problem = ShootingProblem(x0=torch.zeros(state.nx, dtype=dtype, device=device),
+                              running=running, terminal=terminal, T=T)
+    return Workload(
+        name="two_dof_sea", problem=problem, bounds=None, solver="fddp",
+        maxiter=100, th_stop=1e-7, warm_start=True, ee_frame=ee, target=target)
+
+
 def _two_dof_vsa(T: int, dt: float, stiffness_cost: bool, k_lb: float,
-                 dtype=torch.float64, device=None, x_weights=None,
+                 dtype=torch.float64, device="cuda", x_weights=None,
                  u_weights=None, xreg_w: float = 1e-1, ureg_w: float = 1e-1,
                  goal_term_w: float = 4e4, robot=None) -> Workload:
     def t(a):
@@ -91,7 +138,7 @@ def _two_dof_vsa(T: int, dt: float, stiffness_cost: bool, k_lb: float,
 
 
 def two_dof_vsa_boxddp(T: int = 200, dt: float = 1e-2, dtype=torch.float64,
-                       device=None, robot=None) -> Workload:
+                       device="cuda", robot=None) -> Workload:
     """VSA reach with BoxDDP bounds (u in [-100,100]^2, K in [0,100]^2,
     cold start)."""
     w = _two_dof_vsa(T, dt, stiffness_cost=False, k_lb=0.0, dtype=dtype,

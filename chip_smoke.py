@@ -1,24 +1,41 @@
-"""Drive the PyTorch port's BoxDDP main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's solver paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printed with its result and time:
   1. device: a CUDA card must be present (else exit 2); its name and power
      limit as nvidia-smi reports them;
-  2. build: nvcc compiles aslr_to_tpu_torch/csrc/*.cu for sm_90a (-Xptxas -v);
-  3. kernels: each of the three kernels against its plain PyTorch version on
-     the card, at the main path's shapes (two_dof_vsa_boxddp, T=100,
-     B=4096): float64 to a relative error of 1e-9 with equal flags, float32
-     reported; kernel and plain times from CUDA events after a warm-up;
-  4. main path: make_batched_solver(..., use_fast_path="lanes") on T=100,
-     B=4096, float32, with the launch counters reset before and read after;
-     convergence summary and solves/s;
-  5. parity: the same solve at B=256 in float64, kernel backend against the
-     plain backend, lane by lane;
-  6. golden: the single-scenario T=30 solve against tests/golden/vsa_boxddp_T30.npz.
+  2. build: one nvcc per aslr_to_tpu_torch/csrc/*.cu for sm_90a, all at
+     once (-Xptxas -v), then the link;
+  3. kernels: each kernel against its plain PyTorch version on the card at
+     its path's shapes (T=100, B=4096): float64 to a relative error of 1e-9
+     with equal flags, float32 reported; kernel and plain times from CUDA
+     events after a warm-up; the least time the card could take for the
+     same work (bytes over 3.35 TB/s against arithmetic operations over
+     67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3 its BoxDDP and
+     FDDP-gap variants, K4 the SEA shape with gaps, K5 the VSA shape;
+  4. main path: BoxDDP, make_batched_solver(..., use_fast_path="lanes") on
+     two_dof_vsa_boxddp, T=100, B=4096, float32, maxiter=20;
+  5. SEA warm: FDDP on two_dof_sea, T=100, B=4096, float32, maxiter=60,
+     th_stop=1e-5: one cold solve, then two timed warm re-solves from its
+     (xs, us) with x0s + 1e-4 (i + 1) (bench.py:180-200);
+  6. BoxFDDP: two_dof_vsa_boxddp with gaps and the preset's box, T=100,
+     B=4096, float32, maxiter=20;
+     (phases 4-6 take their paths, inputs and seeds from
+     aslr_to_tpu_torch/measure.py; each solve, the cold one included, is
+     driven with the launch counters reset just before it and read just
+     after, and every kernel of the path must have launched in it; a
+     kernel row's launches are those of one timed solve);
+  7. parity, float64, kernel backend against the plain backend lane by
+     lane: BoxDDP (B=256, T=100), SEA FDDP (B=256, T=100), BoxFDDP in a
+     tight box (B=128, T=40);
+  8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
+     and the quasi-static-warm T=100 SEA FDDP solve against
+     tests/golden/sea_T100.npz, both float64 through the kernels.
 
 Any failed check raises, so the script exits non-zero. The line before the
-last is the kernel table as JSON; the last line is the device record.
+card's line is the kernel table as JSON; the last line is the device
+record.
 """
 from __future__ import annotations
 
@@ -30,10 +47,12 @@ import time
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
-# the TPU's f32 statistics on this configuration (the JAX package's
-# benchmark record BENCH_r05.json), printed beside the card's for reference
-TPU_REFERENCE = dict(converged_frac=0.0, diverged_frac=0.211, mean_iterations=18.4)
+# the TPU's f32 statistics (the JAX package's benchmark record
+# BENCH_r05.json), printed beside the card's for reference only
+TPU_REFERENCE = dict(boxddp=dict(converged_frac=0.0, diverged_frac=0.211, mean_iterations=18.4),
+                     sea_warm=dict(converged_frac=0.9998))
 KERNELS = {
     "linearize": dict(source="aslr_to_tpu_torch/csrc/linearize.cu",
                       replaces="aslr_to_tpu/pallas/vsa_kernels.py:797"),
@@ -41,8 +60,23 @@ KERNELS = {
                         replaces="aslr_to_tpu/pallas/riccati.py:200"),
     "rollout2": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
                      replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
+    "riccati_fddp": dict(source="aslr_to_tpu_torch/csrc/riccati_fddp.cu",
+                         replaces="aslr_to_tpu/pallas/riccati.py:294"),
+    "riccati_boxfddp": dict(source="aslr_to_tpu_torch/csrc/riccati_fddp.cu",
+                            replaces="aslr_to_tpu/pallas/riccati.py:294"),
 }
-T_MAIN, B_MAIN, B_PARITY = 100, 4096, 256
+# the case each kernel's row is timed on, and the path its launches come
+# from; the other cases of a kernel are reported as its variants
+ROW_CASE = ("linearize[vsa]", "riccati_box[vsa]", "rollout2[vsa box]", "riccati_fddp[sea]",
+            "riccati_boxfddp[vsa]")
+ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp",
+            "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp"}
+NO_LIBRARY = ("no single PyTorch call computes this function (a serial per-scenario "
+              "recursion); no stand-in timed")
+B_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 128, 40
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+REG = 1e-9
 
 
 def log(msg):
@@ -90,6 +124,66 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+_ARITH = {"add", "sub", "mul", "div", "neg", "sqrt", "sin", "cos", "atan2", "abs",
+          "maximum", "minimum", "__add__", "__radd__", "__iadd__", "__sub__", "__rsub__",
+          "__mul__", "__rmul__", "__truediv__", "__rtruediv__", "__neg__"}
+
+
+class _OpCount(TorchFunctionMode):
+    """Counts the elementwise arithmetic operations (add, sub, mul, div,
+    neg, abs, min, max, sqrt, sin, cos, atan2: one each per element) that a
+    plain version performs. The plain versions follow their kernels'
+    operations lane for lane, so this is the kernel's operation count on
+    these inputs."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if getattr(func, "__name__", "") in _ARITH and isinstance(out, torch.Tensor):
+            self.ops += out.numel()
+        return out
+
+
+def count_ops(fn):
+    with _OpCount() as counter:
+        fn()
+    return counter.ops
+
+
+def io_values(name, T, ndx, nu, boxed=False, warm=False, gaps=False):
+    """Values per scenario that a kernel must read (each input once) and
+    write (each output once), from its shapes; flags count one byte each
+    and are returned apart."""
+    derivs = T * (2 * ndx * ndx + 2 * ndx * nu + nu * nu + ndx + nu) + ndx + ndx * ndx
+    if name == "linearize":
+        return ((T + 1) * ndx + T * nu + 1,
+                T * (2 * ndx * ndx + 2 * ndx * nu + nu * nu + 2 * ndx + nu + 1)
+                + ndx + ndx * ndx + 1, T + 1)
+    if name == "riccati_box":
+        return (derivs + T * nu * (2 if warm else 1) + 2 * nu + 1, T * (nu + nu * ndx) + 3, 2)
+    if name in ("riccati_fddp", "riccati_boxfddp"):
+        extra = (T * nu * (2 if warm else 1) + 2 * nu) if boxed else 0
+        return (derivs + (T + 1) * ndx + extra + 1,
+                T * (nu + nu * ndx) + (T + 1) * ndx + 5, 2)
+    if name == "rollout2":
+        inputs = T * ndx + 2 * T * nu + T * nu * ndx + ndx + 3
+        inputs += (2 * nu if boxed else 0) + ((T + 1) * ndx + 1 if gaps else 0)
+        return inputs, 2 * ((T + 1) * ndx + T * nu + 1), 0
+    raise KeyError(name)
+
+
+def bound(ops, n_in, n_out, n_flags, B, itemsize):
+    """(bound_ms, bound_by, bytes): the least time for the work."""
+    nbytes = (n_in + n_out) * B * itemsize + n_flags * B
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes)
+
+
 @phase("device")
 def device_phase():
     if not torch.cuda.is_available():
@@ -101,7 +195,7 @@ def device_phase():
                          check=True).stdout.strip().splitlines()[0]
     log(f"device: {name}; count {torch.cuda.device_count()}; nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    # plain versions use no matmul, but state the precision anyway
+    # the plain versions use no matmul, but state the precision anyway
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return name, smi
@@ -116,158 +210,250 @@ def build_phase():
     build.lib()
     log(f"built {path.name} in {time.perf_counter() - t0:.3f} s")
     for line in build.build_log.splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry")):
+        if any(k in line for k in ("registers", "spill", "Compiling entry", "== ")):
             log(f"  ptxas: {line.strip()}")
 
 
-def main_inputs(dtype, B, T, seed=0):
-    from aslr_to_tpu_torch import two_dof_vsa_boxddp
+def tight_box(dtype):
+    from aslr_to_tpu_torch import Bounds
 
-    w = two_dof_vsa_boxddp(T=T, dtype=dtype, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x0s = 0.05 * torch.randn(B, 8, generator=g, device="cuda", dtype=torch.float64)
-    return w, x0s.to(dtype)
+    def t(v):
+        return torch.tensor(v, dtype=dtype, device="cuda")
+
+    return Bounds(t([-2.0, -2.0, 0.0, 0.0]), t([2.0, 2.0, 3.0, 3.0]))
+
+
+def kernel_cases(dtype):
+    """{row: (kernel call, plain call, io_values kwargs, ndx, nu)} at the
+    paths' shapes (T=100, B=4096)."""
+    from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
+    from aslr_to_tpu_torch.measure import B_PATH as B
+    from aslr_to_tpu_torch.measure import T_PATH as T
+    from aslr_to_tpu_torch.measure import x0_batch
+
+    cases = {}
+    for arm in ("vsa", "sea"):
+        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T, dtype=dtype)
+        spec = vk.extract_vsa_spec(w.problem, w.bounds)
+        nu = spec.nu
+        x0 = x0_batch(B, dtype, seed=0).T.contiguous()
+        xs = x0.expand(T + 1, 8, B).contiguous()
+        if arm == "sea":        # the warm start's quasi-static controls
+            us = w.problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+        else:
+            us = torch.zeros(T, nu, B, dtype=dtype, device="cuda")
+        wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device="cuda")
+        lin = vk.linearize_plain(spec, xs, us, wterm)
+        r = lin.run
+        derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+                  lin.term["Lx"], lin.term["Lxx"])
+        fs = torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+        # f64: a few lanes at a negative reg, so the flags go both ways; the
+        # f32 pass, which is timed, keeps every lane at the solver's reg
+        reg = torch.full((B,), REG, dtype=dtype, device="cuda")
+        if dtype == torch.float64:
+            reg[::512] = -5.0
+        ones = torch.ones(B, dtype=dtype, device="cuda")
+        lin_args = (spec, xs, us, wterm)
+        cases[f"linearize[{arm}]"] = (lambda a=lin_args: vk.linearize(*a),
+                                      lambda a=lin_args: vk.linearize_plain(*a),
+                                      dict(), "linearize", 8, nu)
+        if arm == "vsa":
+            lb = torch.as_tensor(spec.lb, dtype=dtype, device="cuda")[:, None].expand(nu, B)
+            ub = torch.as_tensor(spec.ub, dtype=dtype, device="cuda")[:, None].expand(nu, B)
+            lb, ub = lb.contiguous(), ub.contiguous()
+            kprev = torch.zeros(T, nu, B, dtype=dtype, device="cuda")
+            box_args = derivs + (us, kprev, lb, ub, reg, 2)
+            cases["riccati_box[vsa]"] = (lambda a=box_args: rk.riccati_box_backward(*a),
+                                         lambda a=box_args: rk.riccati_box_plain(*a),
+                                         dict(warm=True), "riccati_box", 8, nu)
+            bf_args = derivs + (fs, us, kprev, lb, ub, reg, 2)
+            cases["riccati_boxfddp[vsa]"] = (
+                lambda a=bf_args: rk.riccati_boxfddp_backward(*a),
+                lambda a=bf_args: rk.riccati_boxfddp_plain(*a),
+                dict(boxed=True, warm=True), "riccati_boxfddp", 8, nu)
+            bw = rk.riccati_box_plain(*box_args)
+            roll_args = (spec, xs, us, bw.k, bw.K, x0, ones, 0.5 * ones, wterm, lb, ub)
+            cases["rollout2[vsa box]"] = (lambda a=roll_args: vk.rollout2(*a),
+                                          lambda a=roll_args: vk.rollout2_plain(*a),
+                                          dict(boxed=True), "rollout2", 8, nu)
+        else:
+            fd_args = derivs + (fs, reg)
+            cases["riccati_fddp[sea]"] = (lambda a=fd_args: rk.riccati_fddp_backward(*a),
+                                          lambda a=fd_args: rk.riccati_fddp_plain(*a),
+                                          dict(), "riccati_fddp", 8, nu)
+            bw = rk.riccati_fddp_plain(*fd_args)
+            k = torch.where(bw.ok, bw.k, 0.0)
+            K = torch.where(bw.ok, bw.K, 0.0)
+            # feasible and infeasible lanes: a feasible lane contracts nothing
+            infeas = (torch.arange(B, device="cuda") % 2).to(dtype)
+            roll_args = (spec, xs, us, k, K, x0, ones, 0.5 * ones, wterm, None, None,
+                         fs, infeas)
+            cases["rollout2[sea gaps]"] = (lambda a=roll_args: vk.rollout2(*a),
+                                           lambda a=roll_args: vk.rollout2_plain(*a),
+                                           dict(gaps=True), "rollout2", 8, nu)
+    return cases
+
+
+def flat(out):
+    if hasattr(out, "run"):
+        return ({f"run.{k}": v for k, v in out.run.items()}
+                | {f"term.{k}": v for k, v in out.term.items()}
+                | dict(cost=out.cost, xnext=out.xnext, ok=out.ok))
+    if hasattr(out, "retryable"):
+        return out._asdict()
+    return {f"trial{i}.{f}": getattr(t, f) for i, t in enumerate(out)
+            for f in ("xs", "us", "cost")}
+
+
+def compare(name, got, want, tol):
+    worst_rel, worst_abs = 0.0, 0.0
+    got_f = flat(got)
+    for key, w in flat(want).items():
+        g = got_f[key]
+        if w.dtype == torch.bool:
+            n_diff = int((g != w).sum())
+            if tol is not None and n_diff:
+                raise AssertionError(f"{name}.{key}: flags differ in {n_diff} lanes")
+            continue
+        r, d = rel_err(g, w)
+        worst_rel, worst_abs = max(worst_rel, r), max(worst_abs, d)
+        if tol is not None and not r <= tol:
+            raise AssertionError(f"{name}.{key}: relative error {r:.3e} > {tol:g}")
+    return worst_rel, worst_abs
 
 
 @phase("kernels")
 def kernels_phase(report):
-    from aslr_to_tpu_torch.kernels import riccati as rk
-    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
-
-    def setup(dtype):
-        w, x0s = main_inputs(dtype, B_MAIN, T_MAIN)
-        spec = vk.extract_vsa_spec(w.problem, w.bounds)
-        x0 = x0s.T.contiguous()
-        xs = x0.expand(T_MAIN + 1, 8, B_MAIN).contiguous()
-        us = torch.zeros(T_MAIN, 4, B_MAIN, dtype=dtype, device="cuda")
-        wterm = torch.full((B_MAIN,), spec.w_goal_term, dtype=dtype, device="cuda")
-        lb = torch.tensor(spec.lb, dtype=dtype, device="cuda")[:, None].expand(4, B_MAIN).contiguous()
-        ub = torch.tensor(spec.ub, dtype=dtype, device="cuda")[:, None].expand(4, B_MAIN).contiguous()
-        reg = torch.full((B_MAIN,), 1e-9, dtype=dtype, device="cuda")
-        kprev = torch.zeros(T_MAIN, 4, B_MAIN, dtype=dtype, device="cuda")
-        a = torch.ones(B_MAIN, dtype=dtype, device="cuda")
-        return spec, x0, xs, us, wterm, lb, ub, reg, kprev, a, 0.5 * a
-
-    def calls(dtype):
-        spec, x0, xs, us, wterm, lb, ub, reg, kprev, aa, ab = setup(dtype)
-        lin_p = vk.linearize_plain(spec, xs, us, wterm)
-        r = lin_p.run
-        bw_args = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
-                   lin_p.term["Lx"], lin_p.term["Lxx"], us, kprev, lb, ub, reg, 2)
-        bw_p = rk.riccati_box_plain(*bw_args)
-        roll_args = (spec, xs, us, bw_p.k, bw_p.K, x0, aa, ab, wterm, lb, ub)
-        return {
-            "linearize": (lambda: vk.linearize(spec, xs, us, wterm), lambda: lin_p,
-                          lambda: vk.linearize_plain(spec, xs, us, wterm)),
-            "riccati_box": (lambda: rk.riccati_box_backward(*bw_args), lambda: bw_p,
-                            lambda: rk.riccati_box_plain(*bw_args)),
-            "rollout2": (lambda: vk.rollout2(*roll_args), None,
-                         lambda: vk.rollout2_plain(*roll_args)),
-        }
-
-    def flat(out):
-        if hasattr(out, "run"):
-            return ({f"run.{k}": v for k, v in out.run.items()}
-                    | {f"term.{k}": v for k, v in out.term.items()}
-                    | dict(cost=out.cost, xnext=out.xnext, ok=out.ok))
-        if hasattr(out, "retryable"):
-            return out._asdict()
-        return {f"trial{i}.{f}": getattr(t, f) for i, t in enumerate(out)
-                for f in ("xs", "us", "cost")}
-
-    def compare(name, got, want, tol):
-        worst_rel, worst_abs = 0.0, 0.0
-        for key, w in flat(want).items():
-            g = flat(got)[key]
-            if w.dtype == torch.bool:
-                n_diff = int((g != w).sum())
-                if tol is not None and n_diff:
-                    raise AssertionError(f"{name}.{key}: flags differ in {n_diff} lanes")
-                continue
-            r, d = rel_err(g, w)
-            worst_rel, worst_abs = max(worst_rel, r), max(worst_abs, d)
-            if tol is not None and not r <= tol:
-                raise AssertionError(f"{name}.{key}: relative error {r:.3e} > {tol:g}")
-        return worst_rel, worst_abs
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import B_PATH, T_PATH
 
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, None)):
         tag = "f64" if dtype == torch.float64 else "f32"
-        for name, (kern, plain_out, plain) in calls(dtype).items():
+        for label, (kern, plain, io_kw, name, ndx, nu) in kernel_cases(dtype).items():
+            before = build.LAUNCHES[name]
             got = kern()
             torch.cuda.synchronize()
-            want = plain_out() if plain_out is not None else plain()
-            rel, err = compare(name, got, want, tol)
-            log(f"  {name} {tag}: kernel vs plain max rel err {rel:.3e}, max abs err {err:.3e}"
-                + (f" (limit {tol:g}, flags equal)" if tol else ""))
-            report[name][f"rel_err_{tag}"] = rel
-            report[name]["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+            if build.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{label}: the wrapper did not launch its kernel")
+            rel, err = compare(label, got, plain(), tol)
+            log(f"  {label} {tag}: kernel vs plain max rel err {rel:.3e}, max abs err "
+                f"{err:.3e}" + (f" (limit {tol:g}, flags equal)" if tol else ""))
+            target = (report[name] if label in ROW_CASE else
+                      report[name].setdefault("variants", {}).setdefault(label, {}))
+            target[f"rel_err_{tag}"] = rel
+            target["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
             if tag == "f32":
-                report[name]["ms"] = cuda_ms(kern, 20)
-                report[name]["plain_ms"] = cuda_ms(plain, 2)
-                log(f"  {name} f32 time: kernel {report[name]['ms']:.4f} ms, "
-                    f"plain {report[name]['plain_ms']:.4f} ms")
+                target["ms"] = cuda_ms(kern, 20)
+                target["plain_ms"] = cuda_ms(plain, 2)
+                ops = count_ops(plain)
+                n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
+                target["bound_ms"], target["bound_by"], nbytes = bound(
+                    ops, n_in, n_out, n_flags, B_PATH, 4)
+                target["ops"], target["bytes"] = ops, nbytes
+                log(f"  {label} f32 time: kernel {target['ms']:.4f} ms, plain "
+                    f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
+                    f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
+
+
+def drive(path, report, fn, expect):
+    """Run ``fn`` with the launch counters reset just before and read just
+    after; every kernel in ``expect`` must have launched. Returns the
+    result and the seconds from the reset to the card's end."""
+    from aslr_to_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    log(f"  launches in the {path} path: {launches}")
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the {path} path")
+    for name, n in launches.items():
+        report[name].setdefault("launches_by_path", {})[path] = n
+        if ROW_PATH[name] == path:
+            report[name]["launches"] = n
+    return out, seconds
+
+
+def summarize(res, B, T, nu, label, tpu=None):
+    from aslr_to_tpu_torch.measure import summary
+
+    assert res.xs.shape == (B, T + 1, 8) and res.us.shape == (B, T, nu)
+    live = ~res.diverged
+    if not bool(torch.isfinite(res.cost[live]).all()):
+        raise AssertionError(f"{label}: non-finite cost in a lane that did not diverge")
+    summ = summary(res)
+    log(f"  convergence ({label}): converged_frac {summ['converged_frac']}, "
+        f"diverged_frac {summ['diverged_frac']}, mean_iterations {summ['mean_iterations']}, "
+        f"max_iterations {summ['max_iterations']}, median_cost {summ['median_cost']}, "
+        f"lanes_by_iterations {summ['lanes_by_iterations']}")
+    if tpu is not None:
+        log(f"  for reference only, the TPU's f32 statistics on this config (BENCH_r05): {tpu}")
+    return summ
+
+
+def solve_path(name, report, card, expect, nu, n_timed, tpu=None):
+    """Drive the path ``name`` of measure.py at T=100, B=4096, f32: its
+    set-up (the SEA cold solve) where it has one, then ``n_timed`` solves."""
+    from aslr_to_tpu_torch.measure import B_PATH, T_PATH, build_path
+
+    p = build_path(name)
+    prep = None
+    if name == "sea_warm":
+        prep, t = drive("sea_cold", report, p.setup, expect)
+        log(f"  cold solve: {t:.4f} s")
+        summarize(prep, B_PATH, T_PATH, nu, "SEA cold, f32")
+    for i in range(n_timed):
+        inputs = p.args(i, prep)
+        res, t = drive(name, report, lambda: p.solve(*inputs), expect)
+        log(f"  solve {i}: {t:.4f} s, {B_PATH / t:.2f} solves/s on {card} "
+            f"(T={T_PATH}, B={B_PATH}, f32, maxiter={p.maxiter})")
+    summarize(res, B_PATH, T_PATH, nu, f"{name}, last solve, f32", tpu)
 
 
 @phase("main path")
 def main_path_phase(report, card):
-    from aslr_to_tpu_torch import SolverSettings, convergence_summary, make_batched_solver
-    from aslr_to_tpu_torch.kernels import build
-
-    w, x0s = main_inputs(torch.float32, B_MAIN, T_MAIN)
-    settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
-    solve = make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
-                                use_fast_path="lanes")
-    times = []
-    for rep in range(2):
-        if rep == 0:
-            build.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = solve(x0s)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if rep == 0:
-            launches = dict(build.LAUNCHES)
-    log(f"  launches in the first main-path solve: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-        report[name]["launches"] = n
-    assert res.xs.shape == (B_MAIN, T_MAIN + 1, 8) and res.us.shape == (B_MAIN, T_MAIN, 4)
-    live = ~res.diverged
-    if not bool(torch.isfinite(res.cost[live]).all()):
-        raise AssertionError("non-finite cost in a lane that did not diverge")
-    summ = convergence_summary(res)
-    log(f"  convergence (card, f32): converged_frac {summ['converged_frac']}, "
-        f"diverged_frac {summ['diverged_frac']}, mean_iterations {summ['mean_iterations']}, "
-        f"median_cost {summ['median_cost']}")
-    log(f"  for reference only, the TPU's f32 statistics on this config (BENCH_r05): "
-        f"{TPU_REFERENCE}")
-    for i, t in enumerate(times):
-        log(f"  solve {i}: {t:.4f} s, {B_MAIN / t:.2f} solves/s on {card} "
-            f"(T={T_MAIN}, B={B_MAIN}, f32, maxiter=20)")
+    solve_path("boxddp", report, card, ("linearize", "riccati_box", "rollout2"), 4, 2,
+               TPU_REFERENCE["boxddp"])
 
 
-@phase("parity")
-def parity_phase():
-    from aslr_to_tpu_torch import SolverSettings, make_batched_solver
+@phase("SEA warm")
+def sea_warm_phase(report, card):
+    solve_path("sea_warm", report, card, ("linearize", "riccati_fddp", "rollout2"), 2, 2,
+               TPU_REFERENCE["sea_warm"])
 
-    w, x0s = main_inputs(torch.float64, B_PARITY, T_MAIN, seed=1)
-    settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
+
+@phase("BoxFDDP")
+def boxfddp_phase(report, card):
+    solve_path("boxfddp", report, card, ("linearize", "riccati_boxfddp", "rollout2"), 4, 1)
+
+
+def parity(label, w, bounds, use_gaps, B, settings, seed):
+    from aslr_to_tpu_torch import make_batched_solver
+    from aslr_to_tpu_torch.measure import x0_batch
+
+    x0s = x0_batch(B, torch.float64, seed)
     res = {}
     for backend in ("auto", "plain"):
-        solve = make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+        solve = make_batched_solver(w.problem, settings, use_gaps=use_gaps, bounds=bounds,
                                     use_fast_path="lanes", backend=backend)
         t0 = time.perf_counter()
         res[backend] = solve(x0s)
         torch.cuda.synchronize()
-        log(f"  {backend} backend: {time.perf_counter() - t0:.3f} s")
+        log(f"  {label} {backend} backend: {time.perf_counter() - t0:.3f} s")
     k, p = res["auto"], res["plain"]
     same = ((k.iterations == p.iterations) & (k.converged == p.converged)
             & (k.diverged == p.diverged))
     n_same = int(same.sum())
     for lane in torch.nonzero(~same).flatten().tolist():
-        log(f"  lane {lane} differs: kernel it={int(k.iterations[lane])} "
+        log(f"  {label} lane {lane} differs: kernel it={int(k.iterations[lane])} "
             f"conv={bool(k.converged[lane])} div={bool(k.diverged[lane])} "
             f"cost={float(k.cost[lane])}; plain it={int(p.iterations[lane])} "
             f"conv={bool(p.converged[lane])} div={bool(p.diverged[lane])} "
@@ -275,41 +461,73 @@ def parity_phase():
     c_rel = ((k.cost - p.cost).abs() / p.cost.abs())[same]
     finite = torch.isfinite(c_rel)
     worst = float(c_rel[finite].max()) if bool(finite.any()) else 0.0
-    log(f"  lanes equal in iterations and flags: {n_same}/{B_PARITY}; "
+    log(f"  {label}: lanes equal in iterations and flags {n_same}/{B}; "
         f"max cost rel err in those lanes {worst:.3e}")
-    if n_same < B_PARITY - 1:
-        raise AssertionError(f"only {n_same} of {B_PARITY} lanes agree")
+    if n_same < B - 1:
+        raise AssertionError(f"{label}: only {n_same} of {B} lanes agree")
     if not worst <= 1e-8:
-        raise AssertionError(f"cost rel err {worst:.3e} > 1e-8")
+        raise AssertionError(f"{label}: cost rel err {worst:.3e} > 1e-8")
+
+
+@phase("parity")
+def parity_phase():
+    from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
+
+    f64 = torch.float64
+    w = two_dof_vsa_boxddp(T=100, dtype=f64)
+    parity("BoxDDP", w, w.bounds, False, B_PARITY,
+           SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2), seed=1)
+    parity("SEA FDDP", two_dof_sea(T=100, dtype=f64), None, True, B_PARITY,
+           SolverSettings(maxiter=20, th_stop=1e-5), seed=3)
+    parity("BoxFDDP", two_dof_vsa_boxddp(T=T_PARITY_BOX, dtype=f64), tight_box(f64), True,
+           B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)
+
+
+def golden(label, fname, w, settings, use_gaps, bounds, warm_start):
+    from aslr_to_tpu_torch import make_batched_solver
+
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "golden", fname))
+    res = make_batched_solver(w.problem, settings, use_gaps=use_gaps, bounds=bounds,
+                              warm_start=warm_start)(
+        torch.zeros(1, 8, dtype=torch.float64, device="cuda"))
+    cost, iters = float(res.cost[0]), int(res.iterations[0])
+    us_err = float(np.abs(res.us[0].cpu().numpy() - ref["us"]).max())
+    log(f"  {label}: cost {cost} (golden {float(ref['cost'])}), iterations {iters} "
+        f"(golden {int(ref['iters'])}), us max abs err {us_err:.3e}")
+    if not (abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"]))
+            and iters == int(ref["iters"]) and us_err <= 1e-6):
+        raise AssertionError(f"the {label} solve does not reproduce {fname}")
 
 
 @phase("golden")
 def golden_phase():
-    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
 
-    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "tests", "golden", "vsa_boxddp_T30.npz"))
-    w = two_dof_vsa_boxddp(T=30, dtype=torch.float64, device="cuda")
-    res = make_batched_solver(w.problem, SolverSettings(maxiter=25, th_stop=1e-7),
-                              use_gaps=False, bounds=w.bounds)(
-        torch.zeros(1, 8, dtype=torch.float64, device="cuda"))
-    cost, iters = float(res.cost[0]), int(res.iterations[0])
-    us_err = float(np.abs(res.us[0].cpu().numpy() - ref["us"]).max())
-    log(f"  cost {cost} (golden {float(ref['cost'])}), iterations {iters} "
-        f"(golden {int(ref['iters'])}), us max abs err {us_err:.3e}")
-    if not (abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"]))
-            and iters == int(ref["iters"]) and us_err <= 1e-6):
-        raise AssertionError("the T=30 solve does not reproduce the golden fixture")
+    w = two_dof_vsa_boxddp(T=30, dtype=torch.float64)
+    golden("BoxDDP T=30", "vsa_boxddp_T30.npz", w, SolverSettings(maxiter=25, th_stop=1e-7),
+           False, w.bounds, False)
+    golden("SEA FDDP T=100, quasi-static warm", "sea_T100.npz",
+           two_dof_sea(T=100, dtype=torch.float64), SolverSettings(maxiter=100, th_stop=1e-7),
+           True, None, True)
 
 
 def main():
     card, smi = device_phase()
     build_phase()
-    report = {name: dict(name=name, route="cuda", **meta) for name, meta in KERNELS.items()}
+    report = {name: dict(name=name, route="cuda", **meta, library_ms=None,
+                         library_note=NO_LIBRARY) for name, meta in KERNELS.items()}
     kernels_phase(report)
     main_path_phase(report, smi)
+    sea_warm_phase(report, smi)
+    boxfddp_phase(report, smi)
     parity_phase()
     golden_phase()
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for row in report.values():
+        missing = [k for k in keys if k not in row]
+        if missing:
+            raise AssertionError(f"kernel row {row['name']} lacks {missing}")
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

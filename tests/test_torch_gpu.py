@@ -3,7 +3,8 @@
 Every test here carries the ``gpu`` marker and skips without a CUDA
 device; the decision is taken inside a fixture, so every worker collects
 the same tests. The file imports no JAX, so it also runs on a machine
-without it:
+without it. K1-K3 run on the VSA arm and again in their SEA and gap
+variants; K4 on the SEA arm with gaps, K5 on the VSA arm:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_vsa_boxddp
+from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea, two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
 
 pytestmark = pytest.mark.gpu
@@ -94,8 +95,48 @@ def _calls(name, inp):
     bw_args = _bw_args(inp, lin)
     if name == "riccati_box":
         return riccati.riccati_box_backward, riccati.riccati_box_plain, bw_args
+    if name == "riccati_boxfddp":
+        fs = _gaps(inp, lin)
+        return (riccati.riccati_boxfddp_backward, riccati.riccati_boxfddp_plain,
+                bw_args[:9] + (fs,) + bw_args[9:])
     return (vsa_kernels.rollout2, vsa_kernels.rollout2_plain,
             _roll_args(inp, riccati.riccati_box_plain(*bw_args)))
+
+
+def _gaps(inp, lin):
+    xs = inp["xs"]
+    x0 = xs[0] + 0.01 * torch.ones_like(xs[0])
+    return torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+
+
+def _sea_calls(name, dtype, device):
+    """K1's SEA variant, K4 with gaps and K3's gap variant on the SEA arm."""
+    w = two_dof_sea(T=T, dtype=dtype, device=device)
+    spec = vsa_kernels.extract_vsa_spec(w.problem, None)
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    xs, us = t(0.3 * rng.standard_normal((T + 1, 8, B))), t(3.0 * rng.standard_normal((T, 2, B)))
+    wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=device)
+    if name == "linearize":
+        return vsa_kernels.linearize, vsa_kernels.linearize_plain, (spec, xs, us, wterm)
+    lin = vsa_kernels.linearize_plain(spec, xs, us, wterm)
+    r = lin.run
+    fs = _gaps(dict(xs=xs), lin)
+    reg = t(np.where(np.arange(B) % 10 == 0, -5.0, 1e-9))
+    bw_args = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+               lin.term["Lx"], lin.term["Lxx"], fs, reg)
+    if name == "riccati_fddp":
+        return riccati.riccati_fddp_backward, riccati.riccati_fddp_plain, bw_args
+    bw = riccati.riccati_fddp_plain(*bw_args)
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    infeas = (torch.arange(B, device=device) % 2).to(dtype)
+    ones = torch.ones(B, dtype=dtype, device=device)
+    return (vsa_kernels.rollout2, vsa_kernels.rollout2_plain,
+            (spec, xs, us, k, K, xs[0].contiguous(), ones, 0.5 * ones, wterm, None, None,
+             fs, infeas))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -114,6 +155,57 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
         _assert_same(got, want, dtype)
     if name == "riccati_box":
         assert not bool(got.ok.all()) and bool(got.ok.any())   # the negative-reg lanes fail
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["linearize", "riccati_fddp", "rollout2"])
+def test_sea_kernel_matches_plain_version(cuda, name, dtype):
+    """K1's SEA variant, K4 on the SEA shape with gaps, K3 with gaps."""
+    kernel, plain, args = _sea_calls(name, dtype, cuda)
+    launched = "riccati_fddp" if name == "riccati_fddp" else name
+    before = build.LAUNCHES[launched]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[launched] == before + 1
+    want = plain(*args)
+    if name == "rollout2":
+        for g, w in zip(got, want):
+            _assert_same(g, w, dtype)
+    else:
+        _assert_same(got, want, dtype)
+    if name == "riccati_fddp":
+        assert not bool(got.ok.all()) and bool(got.ok.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_boxfddp_kernel_matches_plain_version(cuda, dtype):
+    """K5 on the VSA shape, warm from kprev, with gaps."""
+    kernel, plain, args = _calls("riccati_boxfddp", _inputs(dtype, cuda))
+    before = build.LAUNCHES["riccati_boxfddp"]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["riccati_boxfddp"] == before + 1
+    _assert_same(got, plain(*args), dtype)
+    assert not bool(got.ok.all()) and bool(got.ok.any())
+
+
+def test_fddp_lane_solver_kernels_match_plain_on_card(cuda):
+    w = two_dof_sea(T=T, dtype=torch.float64, device=cuda)
+    settings = SolverSettings(maxiter=8, th_stop=1e-5)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x0s = 0.05 * torch.randn(64, 8, generator=g, device=cuda, dtype=torch.float64)
+    res = {}
+    for backend in ("auto", "plain"):
+        solve = make_batched_solver(w.problem, settings, use_gaps=True, bounds=None,
+                                    warm_start=True, use_fast_path="lanes", backend=backend)
+        build.reset_launches()
+        res[backend] = solve(x0s)
+        assert (build.LAUNCHES["riccati_fddp"] > 0) == (backend == "auto"), backend
+    k, p = res["auto"], res["plain"]
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.converged, p.converged) and torch.equal(k.diverged, p.diverged)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-8, atol=0)
+    torch.testing.assert_close(k.us, p.us, rtol=0, atol=1e-8)
 
 
 def test_lane_solver_kernels_match_plain_on_card(cuda):

@@ -33,7 +33,7 @@ def test_import_leaves_jax_out():
 
 
 def test_cpu_wrappers_take_plain_versions_without_launching():
-    w = two_dof_vsa_boxddp(T=T)
+    w = two_dof_vsa_boxddp(T=T, device="cpu")
     spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
     rng = np.random.default_rng(0)
     xs = torch.tensor(0.1 * rng.standard_normal((T + 1, 8, B)))
@@ -52,7 +52,14 @@ def test_cpu_wrappers_take_plain_versions_without_launching():
                                       lb, ub, reg, 2)
     trials = vsa_kernels.rollout2(spec, xs, us, bw.k, bw.K, xs[0], ones, 0.5 * ones,
                                   wterm, lb, ub)
-    assert build.LAUNCHES == {"linearize": 0, "riccati_box": 0, "rollout2": 0}
+    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+              lin.term["Lx"], lin.term["Lxx"])
+    fs = torch.zeros((T + 1, 8, B), dtype=torch.float64)
+    fddp = riccati.riccati_fddp_backward(*derivs, fs, reg)
+    boxfddp = riccati.riccati_boxfddp_backward(*derivs, fs, us, None, lb, ub, reg, 2)
+    assert set(build.LAUNCHES) == {"linearize", "riccati_box", "rollout2", "riccati_fddp",
+                                   "riccati_boxfddp"}
+    assert set(build.LAUNCHES.values()) == {0}
     assert build._lib is None                      # nothing was built or loaded
 
     # each wrapper returned exactly what its plain version computes
@@ -66,10 +73,35 @@ def test_cpu_wrappers_take_plain_versions_without_launching():
                                         wterm, lb, ub)
     for got, want in zip(trials, roll_p):
         assert torch.equal(got.xs, want.xs) and torch.equal(got.cost, want.cost)
+    assert torch.equal(fddp.K, riccati.riccati_fddp_plain(*derivs, fs, reg).K)
+    assert torch.equal(boxfddp.K, riccati.riccati_boxfddp_plain(*derivs, fs, us, None, lb, ub,
+                                                                reg, 2).K)
+
+
+@pytest.mark.parametrize("on_meta", ["x0s", "xs_init", "us_init", "warm_x0s"])
+def test_solve_refuses_inputs_off_the_problems_device(on_meta):
+    """A solve never moves its inputs: a tensor on another device than the
+    problem's raises before any work, for the lane solve and the warm start."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver
+
+    w = two_dof_vsa_boxddp(T=T, device="cpu")
+    solve = make_batched_solver(w.problem, SolverSettings(maxiter=2), use_gaps=False,
+                                bounds=w.bounds, warm_start=on_meta == "warm_x0s")
+    args = dict(x0s=torch.zeros(B, 8, dtype=torch.float64),
+                xs_init=torch.zeros(B, T + 1, 8, dtype=torch.float64),
+                us_init=torch.zeros(B, T, 4, dtype=torch.float64))
+    if on_meta == "warm_x0s":
+        args = dict(x0s=args["x0s"])
+    key = "x0s" if on_meta == "warm_x0s" else on_meta
+    args[key] = args[key].to("meta")
+    build.reset_launches()
+    with pytest.raises(ValueError, match=f"{key} is on meta, the problem on cpu"):
+        solve(*args.values())
+    assert set(build.LAUNCHES.values()) == {0}
 
 
 def test_wrapper_refuses_a_device_it_has_no_route_for():
-    w = two_dof_vsa_boxddp(T=T)
+    w = two_dof_vsa_boxddp(T=T, device="cpu")
     spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
     xs = torch.zeros((T + 1, 8, B), dtype=torch.float64, device="meta")
     us = torch.zeros((T, 4, B), dtype=torch.float64, device="meta")

@@ -51,7 +51,7 @@ CASES = {
 
 
 def _solve_port(T, x0s, settings):
-    w = two_dof_vsa_boxddp(T=T)
+    w = two_dof_vsa_boxddp(T=T, device="cpu")
     solve = make_batched_solver(w.problem, SolverSettings(**settings), use_gaps=False,
                                 bounds=w.bounds, use_fast_path="lanes")
     build.reset_launches()

@@ -1,5 +1,6 @@
 """The linearization (K1) plain version against the JAX package's
-``solvers/ddp.py::_linearize_core`` under ``vmap``.
+``solvers/ddp.py::_linearize_core`` under ``vmap``, on the VSA arm and on
+the SEA arm (constant spring, nu = 2).
 
 The JAX side is ``calc_with_diff`` of the generic models (RNEA partials by
 ``jacfwd``, ``jlog6`` by ``jacfwd`` of ``log6``, explicit inverses); the
@@ -14,10 +15,11 @@ import pytest
 import torch
 
 from aslr_to_tpu.solvers.ddp import _linearize_core
+from aslr_to_tpu.workloads.presets import two_dof_sea as jax_sea
 from aslr_to_tpu.workloads.presets import two_dof_vsa_boxddp as jax_preset
 from aslr_to_tpu_torch.kernels import build
 from aslr_to_tpu_torch.kernels.vsa_kernels import extract_vsa_spec, linearize
-from aslr_to_tpu_torch.workloads.presets import two_dof_vsa_boxddp
+from aslr_to_tpu_torch.workloads.presets import two_dof_sea, two_dof_vsa_boxddp
 
 T, B = 6, 8
 RTOL = 1e-10
@@ -56,7 +58,7 @@ def _trajectory(seed):
 
 
 def test_linearize_plain_matches_jax():
-    jw, tw = jax_preset(T=T), two_dof_vsa_boxddp(T=T)
+    jw, tw = jax_preset(T=T), two_dof_vsa_boxddp(T=T, device="cpu")
     xs, us = _trajectory(0)
     cost, run, term, xnext = jax.jit(jax.vmap(
         lambda x, u: _linearize_core(jw.problem, x, u)))(jnp.asarray(xs), jnp.asarray(us))
@@ -76,10 +78,34 @@ def test_linearize_plain_matches_jax():
     assert bool(lin.ok.all())
 
 
+def test_linearize_plain_matches_jax_sea():
+    jw, tw = jax_sea(T=T), two_dof_sea(T=T, device="cpu")
+    rng = np.random.default_rng(2)
+    xs = 0.3 * rng.standard_normal((B, T + 1, 8))
+    us = 3.0 * rng.standard_normal((B, T, 2))
+    cost, run, term, xnext = jax.jit(jax.vmap(
+        lambda x, u: _linearize_core(jw.problem, x, u)))(jnp.asarray(xs), jnp.asarray(us))
+
+    spec = extract_vsa_spec(tw.problem, tw.bounds)
+    assert (spec.variant, spec.nu) == ("sea", 2)
+    wterm = torch.full((B,), spec.w_goal_term, dtype=torch.float64)
+    build.reset_launches()
+    lin = linearize(spec, _lanes(xs), _lanes(us), wterm)
+    assert build.LAUNCHES["linearize"] == 0
+
+    _close(lin.cost.numpy(), cost)
+    _close(_batch(lin.xnext), xnext)
+    for name in ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu"):
+        _close(_batch(lin.run[name]), getattr(run, name))
+    _close(_batch(lin.term["Lx"]), term.Lx)
+    _close(_batch(lin.term["Lxx"]), term.Lxx)
+    assert bool(lin.ok.all())
+
+
 def test_linearize_flags_non_finite_lanes():
     """A lane whose state overflows is flagged not-ok; the others stay ok,
     and their values are unaffected by the bad lane."""
-    _, tw = jax_preset(T=T), two_dof_vsa_boxddp(T=T)
+    _, tw = jax_preset(T=T), two_dof_vsa_boxddp(T=T, device="cpu")
     xs, us = _trajectory(1)
     xs_bad = xs.copy()
     xs_bad[3, 2, 4] = np.inf

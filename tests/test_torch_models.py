@@ -1,5 +1,5 @@
-"""The port's VSA models, preset and carried-across constants against the
-JAX package's.
+"""The port's VSA and SEA models, presets and carried-across constants
+against the JAX package's.
 
 A random trajectory from a seeded numpy generator (float64) goes through
 the JAX models' ``calc`` and the port's; tolerance 1e-12 relative to each
@@ -14,11 +14,12 @@ import pytest
 import torch
 
 from aslr_to_tpu.pallas.vsa_kernels import extract_vsa_spec as jax_extract_vsa_spec
+from aslr_to_tpu.workloads.presets import two_dof_sea as jax_sea
 from aslr_to_tpu.workloads.presets import two_dof_vsa_boxddp as jax_preset
 from aslr_to_tpu_torch import convert
 from aslr_to_tpu_torch.kernels.vsa_kernels import extract_vsa_spec, pack_params
 from aslr_to_tpu_torch.ops import rigid_body as trbd
-from aslr_to_tpu_torch.workloads.presets import two_dof_vsa_boxddp
+from aslr_to_tpu_torch.workloads.presets import two_dof_sea, two_dof_vsa_boxddp
 
 TOL = 1e-12
 T = 6
@@ -34,7 +35,7 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def workloads():
-    return jax_preset(T=T), two_dof_vsa_boxddp(T=T)
+    return jax_preset(T=T), two_dof_vsa_boxddp(T=T, device="cpu")
 
 
 def _close(got, want):
@@ -113,3 +114,44 @@ def test_robot_carried_from_jax(workloads):
     own = tw.problem.running.differential.state.robot
     np.testing.assert_array_equal(trbd.rnea(robot, q, q, q).numpy(),
                                   trbd.rnea(own, q, q, q).numpy())
+
+
+@pytest.fixture(scope="module")
+def sea_workloads():
+    return jax_sea(T=T), two_dof_sea(T=T, device="cpu")
+
+
+def test_sea_model_calc_and_quasi_static(sea_workloads):
+    jw, tw = sea_workloads
+    rng = np.random.default_rng(3)
+    xs = 0.4 * rng.standard_normal((5, T + 1, 8))
+    us = 2.0 * rng.standard_normal((5, T, 2))
+    jd = jax.jit(jax.vmap(jax.vmap(jw.problem.running.calc)))(
+        jnp.asarray(xs[:, :-1]), jnp.asarray(us))
+    td = tw.problem.running.calc(torch.tensor(xs[:, :-1]), torch.tensor(us))
+    _close(td.cost.numpy(), jd.cost)
+    _close(td.xnext.numpy(), jd.xnext)
+    _close(tw.problem.calc_cost(torch.tensor(xs), torch.tensor(us)).numpy(),
+           jax.jit(jax.vmap(jw.problem.calc_cost))(jnp.asarray(xs), jnp.asarray(us)))
+    _close(tw.problem.quasi_static(torch.tensor(xs[:, :-1])).numpy(),
+           jax.jit(jax.vmap(jw.problem.quasi_static))(jnp.asarray(xs[:, :-1])))
+    # the VSA's warm start: gravity torques on the motors, zero stiffness
+    jv, tv = jax_preset(T=T), two_dof_vsa_boxddp(T=T, device="cpu")
+    _close(tv.problem.quasi_static(torch.tensor(xs[:, :-1])).numpy(),
+           jax.jit(jax.vmap(jv.problem.quasi_static))(jnp.asarray(xs[:, :-1])))
+
+
+def test_sea_preset_and_spec_match_jax(sea_workloads):
+    jw, tw = sea_workloads
+    assert tw.problem.nu == jw.problem.nu == 2 and tw.bounds is None is jw.bounds
+    assert (tw.solver, tw.warm_start, tw.maxiter, tw.th_stop) == \
+        (jw.solver, jw.warm_start, jw.maxiter, jw.th_stop)
+    jspec = jax_extract_vsa_spec(jw.problem, None)
+    fields = jspec._asdict()
+    fields["rc"] = vars(jspec.rc)
+    carried = convert.spec_from_numpy(fields)
+    own = extract_vsa_spec(tw.problem, None)
+    _spec_equal(carried, own)
+    assert own.variant == "sea" and own.nu == 2
+    np.testing.assert_array_equal(own.K, np.eye(2))
+    np.testing.assert_array_equal(pack_params(carried), pack_params(own))
