@@ -2,11 +2,13 @@
 
 Batched trajectory optimization for articulated soft robots on an NVIDIA
 H100: the 2-DoF VSA and SEA arms' DDP, FDDP, BoxDDP and BoxFDDP solves,
-with their hot kernels (linearization, the Box, FDDP and BoxFDDP Riccati
-backwards, two-trial rollout) written by hand in CUDA C++ for ``sm_90a``
-(``csrc/``). The JAX package ``aslr_to_tpu`` stays the reference that the
-port is tested against. Presets and solves run on the card unless the
-caller builds the problem on another device.
+by the generic per-scenario solver (the reference), its fast path, or the
+lane solver, with their hot kernels (linearization, the Box, FDDP and
+BoxFDDP Riccati backwards, the two-trial and one-trial rollouts) and a
+multiply-add probe written by hand in CUDA C++ for ``sm_90a`` (``csrc/``).
+The JAX package ``aslr_to_tpu`` stays the reference that the port is
+tested against. Presets and solves run on the card unless the caller
+builds the problem on another device.
 
 Importing the package builds nothing: the kernels compile with ``nvcc`` at
 their first launch on a CUDA tensor (``kernels/build.py``). On CPU tensors
@@ -30,7 +32,17 @@ from .models.state import StateASR
 from .models import robots
 from .ops.rigid_body import RobotModel
 from .ops.se3 import SE3
-from .solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings
+from .solvers.ddp import (
+    Bounds,
+    SolveLog,
+    SolveResult,
+    SolverBoxDDP,
+    SolverBoxFDDP,
+    SolverDDP,
+    SolverFDDP,
+    SolverSettings,
+    solve,
+)
 from .solvers.problem import ShootingProblem
 from .workloads.presets import two_dof_sea, two_dof_vsa_boxddp
 from .parallel.batch import convergence_summary, make_batched_solver

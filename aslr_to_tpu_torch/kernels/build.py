@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"linearize": 0, "riccati_box": 0, "rollout2": 0, "riccati_fddp": 0,
-            "riccati_boxfddp": 0}
+            "riccati_boxfddp": 0, "rollout1": 0, "probe": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -47,7 +47,13 @@ _SIGNATURES = {
     # lb, ub, reg, T, B, qp_iters, k, K, w, dg, dq, stop, dg_gap, dq_gap, ok,
     # retryable, stream
     "aslr_riccati_fddp": [_I, _I, _I] + [_P] * 15 + [_I, _I, _I] + [_P] * 10 + [_P],
+    # params, nl, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas, T, B,
+    # xs_o, us_o, cost_o, stream
+    "aslr_rollout1": [_P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3 + [_P],
+    # x, out, n, ilp, fma, steps, loop, stream (float32 only)
+    "aslr_probe": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
+_SUFFIXES = {"aslr_probe": ("_f32",)}
 
 _lib = None
 build_log = ""
@@ -127,7 +133,7 @@ def lib():
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         for base, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+            for suffix in _SUFFIXES.get(base, ("_f32", "_f64")):
                 fn = getattr(handle, base + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -139,11 +145,12 @@ def entry(base: str, dtype):
     """The C entry of ``base`` for a float32 or float64 tensor dtype."""
     import torch
 
-    if dtype == torch.float32:
-        return getattr(lib(), base + "_f32")
-    if dtype == torch.float64:
-        return getattr(lib(), base + "_f64")
-    raise TypeError(f"{base}: float32 or float64 tensors only, got {dtype}")
+    suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
+    allowed = _SUFFIXES.get(base, ("_f32", "_f64"))
+    if suffix not in allowed:
+        names = " or ".join({"_f32": "float32", "_f64": "float64"}[a] for a in allowed)
+        raise TypeError(f"{base}: {names} tensors only, got {dtype}")
+    return getattr(lib(), base + suffix)
 
 
 def check(name: str, code: int):

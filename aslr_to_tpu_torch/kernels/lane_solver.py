@@ -30,7 +30,14 @@ from typing import Optional
 
 import torch
 
-from ..solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings
+from ..solvers.ddp import (
+    Bounds,
+    SolveLog,
+    SolveResult,
+    SolverSettings,
+    accept_trial,
+    schedule,
+)
 from ..solvers.problem import ShootingProblem
 from .riccati import (
     riccati_box_backward,
@@ -46,6 +53,7 @@ from .vsa_kernels import (
     linearize_plain,
     rollout2,
     rollout2_plain,
+    to_lanes,
 )
 
 
@@ -114,14 +122,11 @@ def build_lane_solver(
         B = x0s.shape[0]
         dtype = x0s.dtype
 
-        def to_lanes(x):
-            return x.to(dtype).permute(*range(1, x.dim()), 0).contiguous()
-
         x0_l = to_lanes(x0s)                                        # [ndx, B]
         xs = (x0_l.expand(T + 1, NDX, B).contiguous() if xs_init is None
-              else to_lanes(xs_init))
+              else to_lanes(xs_init.to(dtype)))
         us = (torch.zeros((T, nu, B), dtype=dtype, device=dev) if us_init is None
-              else to_lanes(us_init))
+              else to_lanes(us_init.to(dtype)))
         lb = ub = None
         if boxed:
             lb = torch.as_tensor(spec.lb, dtype=dtype, device=dev)[:, None].expand(nu, B)
@@ -192,8 +197,8 @@ def build_lane_solver(
 
             # -- early-exit backtracking line search, two trials a launch ---
             def ls_accept(alpha, trial):
-                dV = lin.cost - trial.cost
                 finite = torch.isfinite(trial.cost) & torch.isfinite(trial.xs).all(0).all(0)
+                d1, d2 = dg, dq
                 if use_gaps:
                     # dv correction (Crocoddyl FDDP::expectedImprovement):
                     # dv = -sum_t w_t . dx_t with dx = xs - xs_try
@@ -201,14 +206,8 @@ def build_lane_solver(
                     dv = -(bw.w * dx).sum(dim=(0, 1)) * infeas
                     d1 = dg + dv
                     d2 = dq - 2.0 * dv
-                    dVexp = alpha * (d1 + 0.5 * alpha * d2)
-                    accept_pos = (dVexp >= 0.0) & ((d1 < s.th_grad)
-                                                   | (dV > s.th_acceptstep * dVexp))
-                    accept_neg = (dVexp < 0.0) & (dV > s.th_acceptnegstep * dVexp)
-                    return finite & (accept_pos | accept_neg)
-                dVexp = alpha * (dg + 0.5 * alpha * dq)
-                return finite & (dVexp >= 0.0) & (
-                    (dg < s.th_grad) | (~feasible) | (dV > s.th_acceptstep * dVexp))
+                return accept_trial(s, use_gaps, alpha, d1, d2, lin.cost - trial.cost, finite,
+                                    feasible)
 
             gap_args = (fs, infeas) if use_gaps else (None, None)
             i = torch.zeros_like(it)
@@ -242,39 +241,24 @@ def build_lane_solver(
             any_accept = accepted
 
             # -- regularization schedule / termination ---------------------
-            eff_step = torch.where(any_accept, alpha_b, alphas[-1])
-            reg_dec = torch.clamp(reg_bw / s.reg_factor, min=s.reg_min)
-            inc_f = torch.where(any_accept, s.reg_factor, s.reg_reject_factor).to(dtype)
-            reg_inc = torch.clamp(reg_bw * inc_f, max=s.reg_max)
-            do_inc = eff_step <= s.th_stepinc
-            do_dec = (~do_inc) & (eff_step > s.th_stepdec)
-            reg_new = torch.where(do_inc, reg_inc, torch.where(do_dec, reg_dec, reg_bw))
-            div_now = ((bw_failed & (reg_bw >= s.reg_max))
-                       | (do_inc & (reg_new >= s.reg_max)) | ~lin_ok)
-            full_reject = (~any_accept) & do_inc
-            rej_new = torch.where(full_reject, rej_streak + 1, torch.zeros_like(rej_streak))
-            nonretry = bw_failed & ~bw.retryable
-            nrt_new = torch.where(nonretry, nrt_streak + 1, torch.zeros_like(nrt_streak))
-            if s.doomed_reject_iters:
-                div_now = div_now | (rej_new >= s.doomed_reject_iters) | (nrt_new >= 2)
-            conv_now = feasible & (bw.stop < s.th_stop)
             it1 = it + 1
-            done_now = conv_now | div_now | (it1 >= s.maxiter)
+            sched = schedule(s, any_accept, alpha_b, alphas[-1], reg_bw, bw.ok, bw.retryable,
+                             lin_ok, feasible, bw.stop, it1, rej_streak, nrt_streak)
 
             # masked merge: finished lanes keep their state (vmap semantics)
             xs = _sel(active, xs_b, xs)
             us = _sel(active, us_b, us)
             cost = torch.where(active, cost_b, cost)
             stop = torch.where(active, bw.stop, stop)
-            reg = torch.where(active, reg_new, reg)
+            reg = torch.where(active, sched.reg, reg)
             it = torch.where(active, it1, it)
-            converged = torch.where(active, conv_now, converged)
-            diverged = torch.where(active, div_now, diverged)
+            converged = torch.where(active, sched.converged, converged)
+            diverged = torch.where(active, sched.diverged, diverged)
             if warm:
                 kprev = _sel(active & bw.ok, bw.k, kprev)
-            rej_streak = torch.where(active, rej_new, rej_streak)
-            nrt_streak = torch.where(active, nrt_new, nrt_streak)
-            done = torch.where(active, done_now, done)
+            rej_streak = torch.where(active, sched.rej_streak, rej_streak)
+            nrt_streak = torch.where(active, sched.nrt_streak, nrt_streak)
+            done = torch.where(active, sched.done, done)
 
         empty = torch.zeros((B, 0), dtype=dtype, device=dev)
         return SolveResult(

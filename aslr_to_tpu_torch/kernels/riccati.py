@@ -10,7 +10,8 @@ kernel (``csrc/riccati_box.cu``, ``csrc/riccati_fddp.cu``) or raises; on a
 CPU tensor it runs the plain version below, which follows the kernel's
 order of operations. The plain versions are elementwise (broadcast
 products and sums, no ``torch.matmul``), so no TF32 path can touch them
-on the card.
+on the card. ``riccati_batch_major`` calls them from the per-scenario
+solver's batch-major tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import build as _build
-from .vsa_kernels import _check_lane, _route
+from .vsa_kernels import _check_lane, _route, from_lanes, to_lanes
 
 QP_ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 
@@ -378,3 +379,34 @@ def riccati_boxfddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
                                      lb, ub, reg, qp_iters)
     return _fddp_family_launch("riccati_boxfddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx,
                                fs, reg, us, kprev, lb, ub, qp_iters)
+
+
+def riccati_batch_major(run, term, fs, us, kprev, bounds, reg, qp_iters, plain=False):
+    """The family's kernel from batch-major tensors, as the JAX package's
+    ``custom_vmap`` rules call it under ``vmap(solve)``: ``run`` and
+    ``term`` ActionDerivs ``[B, T, ...]`` and ``[B, ...]``, ``fs [B, T+1,
+    ndx]`` or None (no gaps), ``us``/``kprev [B, T, nu]`` (kprev None: cold
+    QPs), ``bounds`` with a shared ``[nu]`` box or None, ``reg [B]``. K2
+    for a box without gaps, K5 for a box with gaps, K4 for gaps without a
+    box (``plain``: their plain versions). Every tensor is relayouted to
+    the lane layout and the outputs back; returns the kernel's output
+    tuple with batch-major tensors."""
+    derivs = [to_lanes(getattr(run, n)) for n in ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")]
+    derivs += [to_lanes(term.Lx), to_lanes(term.Lxx)]
+    reg = reg.contiguous()
+    if bounds is None:
+        if fs is None:
+            raise ValueError("the DDP family without box or gaps has no backward kernel")
+        fn = riccati_fddp_plain if plain else riccati_fddp_backward
+        out = fn(*derivs, to_lanes(fs), reg)
+    else:
+        B, nu = us.shape[0], us.shape[-1]
+        lb, ub = (b[:, None].expand(nu, B).contiguous() for b in (bounds.lb, bounds.ub))
+        kp = None if kprev is None else to_lanes(kprev)
+        if fs is None:
+            fn = riccati_box_plain if plain else riccati_box_backward
+            out = fn(*derivs, to_lanes(us), kp, lb, ub, reg, qp_iters)
+        else:
+            fn = riccati_boxfddp_plain if plain else riccati_boxfddp_backward
+            out = fn(*derivs, to_lanes(fs), to_lanes(us), kp, lb, ub, reg, qp_iters)
+    return type(out)(*(from_lanes(v) if v.dim() > 1 else v for v in out))

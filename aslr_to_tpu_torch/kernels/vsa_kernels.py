@@ -1,4 +1,5 @@
-"""Linearization (K1) and two-trial rollout (K3) of the soft arm (VSA or SEA).
+"""Linearization (K1), two-trial rollout (K3) and one-trial rollout (K6) of
+the soft arm (VSA or SEA), and the per-scenario solver's fast path.
 
 PyTorch counterpart of ``aslr_to_tpu/pallas/vsa_kernels.py``. Each
 wrapper takes tensors in lane layout (batch innermost: ``[..., B]``,
@@ -6,6 +7,8 @@ contiguous, unpadded). On a CUDA tensor it launches its hand-written
 kernel (``csrc/linearize.cu``, ``csrc/rollout.cu``) or raises; on a CPU
 tensor it runs its plain PyTorch version, which follows the kernel's order
 of operations and is what the CPU tests hold against the JAX package.
+``build_fast_path`` wraps K1 and K6 for ``solvers/ddp.py::solve``, whose
+tensors are batch-major (``[B, ...]``), relayouting at each call.
 
 Specialization contract (checked by :func:`extract_vsa_spec`): the VSA
 dynamics (u = [tau_m, k]) or the SEA dynamics with the ASR actuation (u =
@@ -208,6 +211,16 @@ def _check_lane(name, t, shape, dtype, device):
         raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def to_lanes(x):
+    """``[B, ...]`` -> the kernels' lane layout ``[..., B]`` (a copy)."""
+    return x.permute(*range(1, x.dim()), 0).contiguous()
+
+
+def from_lanes(x):
+    """``[..., B]`` -> batch-major ``[B, ...]`` (a copy)."""
+    return x.permute(x.dim() - 1, *range(x.dim() - 1)).contiguous()
 
 
 def _route(t):
@@ -529,19 +542,19 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
-                   fs=None, infeas=None):
-    """Plain PyTorch version of K3: both trials advance together as lanes
-    of shape ``[2, B]``, one knot at a time. ``lb``/``ub`` None: no clip;
-    ``fs``/``infeas`` given: the gap contraction."""
+def _rollout_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas):
+    """The trials of ``alpha [n, B]`` advance together as lanes of shape
+    ``[n, B]``, one knot at a time, each with the operations of one
+    kernel thread. ``lb``/``ub`` None: no clip; ``fs``/``infeas`` given:
+    the gap contraction."""
     T, NDX, NU = us.shape[0], spec.ndx, spec.nu
-    alpha = torch.stack([alpha_a, alpha_b])
+    n = alpha.shape[0]
     gaps = fs is not None
     if gaps:
         gscale = (alpha - 1.0) * infeas
         x = [x0[i] + fs[0, i] * gscale for i in range(NDX)]
     else:
-        x = [torch.stack([x0[i], x0[i]]) for i in range(NDX)]
+        x = [torch.stack([x0[i]] * n) for i in range(NDX)]
     xs_out, us_out = [torch.stack(x)], []
     cost = torch.zeros_like(alpha)
     for t in range(T):
@@ -562,10 +575,44 @@ def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb,
         us_out.append(torch.stack(u))
     c_goal_T, _ = _goal_cost_lanes(spec, x[:spec.nl], terminal=True)
     cost = cost + wterm * c_goal_T
-    xs_o = torch.stack(xs_out)          # [T+1, ndx, 2, B]
-    us_o = torch.stack(us_out)          # [T, nu, 2, B]
+    xs_o = torch.stack(xs_out)          # [T+1, ndx, n, B]
+    us_o = torch.stack(us_out)          # [T, nu, n, B]
     return tuple(Trial(xs_o[:, :, i].contiguous(), us_o[:, :, i].contiguous(), cost[i])
-                 for i in range(2))
+                 for i in range(n))
+
+
+def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
+                   fs=None, infeas=None):
+    """Plain PyTorch version of K3: both trials as lanes of shape ``[2, B]``."""
+    return _rollout_plain(spec, xs, us, k, K, x0, torch.stack([alpha_a, alpha_b]), wterm,
+                          lb, ub, fs, infeas)
+
+
+def rollout1_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
+                   infeas=None) -> Trial:
+    """Plain PyTorch version of K6: K3's plain version with both trials at
+    ``alpha``, the first kept. The CPU's elementwise kernels pick a
+    vectorized or a scalar loop by tensor size, and libm's and SLEEF's
+    last bits differ; at K3's shapes K6's plain version equals K3's first
+    trial to the bit, as the kernels do."""
+    return _rollout_plain(spec, xs, us, k, K, x0, torch.stack([alpha, alpha]), wterm, lb, ub,
+                          fs, infeas)[0]
+
+
+def _rollout_checks(spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, infeas):
+    if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
+        raise ValueError("lb and ub, and fs and infeas, come in pairs")
+    T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
+    checks = [("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
+              ("k", k, (T, NU, B)), ("K", K, (T, NU, NDX, B)),
+              ("x0", x0, (NDX, B)), ("wterm", wterm, (B,))]
+    checks += [(name, a, (B,)) for name, a in alphas]
+    if lb is not None:
+        checks += [("lb", lb, (NU, B)), ("ub", ub, (NU, B))]
+    if fs is not None:
+        checks += [("fs", fs, (T + 1, NDX, B)), ("infeas", infeas, (B,))]
+    for name, t, shape in checks:
+        _check_lane(name, t, shape, xs.dtype, xs.device)
 
 
 def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
@@ -580,18 +627,10 @@ def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
     if _route(xs) == "plain":
         return rollout2_plain(spec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
                               fs, infeas)
+    _rollout_checks(spec, xs, us, k, K, x0, [("alpha_a", alpha_a), ("alpha_b", alpha_b)],
+                    wterm, lb, ub, fs, infeas)
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     dt, dev = xs.dtype, xs.device
-    checks = [("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
-              ("k", k, (T, NU, B)), ("K", K, (T, NU, NDX, B)),
-              ("x0", x0, (NDX, B)), ("alpha_a", alpha_a, (B,)),
-              ("alpha_b", alpha_b, (B,)), ("wterm", wterm, (B,))]
-    if lb is not None:
-        checks += [("lb", lb, (NU, B)), ("ub", ub, (NU, B))]
-    if fs is not None:
-        checks += [("fs", fs, (T + 1, NDX, B)), ("infeas", infeas, (B,))]
-    for name, t, shape in checks:
-        _check_lane(name, t, shape, dt, dev)
     outs = [torch.empty(s, dtype=dt, device=dev)
             for _ in range(2) for s in ((T + 1, NDX, B), (T, NU, B), (B,))]
     params, pp = _params_ptr(spec)
@@ -606,3 +645,107 @@ def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
         _build.stream_of(xs))
     _build.check("rollout2", code)
     return Trial(*outs[:3]), Trial(*outs[3:])
+
+
+# ---------------------------------------------------------------------------
+# K6: one-trial rollout
+# ---------------------------------------------------------------------------
+
+def rollout1(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
+             infeas=None) -> Trial:
+    """K6 on lane tensors: K3's inputs with one step length ``alpha [B]``;
+    returns its :class:`Trial`, equal to K3's first trial at ``alpha``."""
+    if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
+        raise ValueError("lb and ub, and fs and infeas, come in pairs")
+    if _route(xs) == "plain":
+        return rollout1_plain(spec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas)
+    _rollout_checks(spec, xs, us, k, K, x0, [("alpha", alpha)], wterm, lb, ub, fs, infeas)
+    T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
+    dt, dev = xs.dtype, xs.device
+    out = Trial(torch.empty((T + 1, NDX, B), dtype=dt, device=dev),
+                torch.empty((T, NU, B), dtype=dt, device=dev),
+                torch.empty((B,), dtype=dt, device=dev))
+    params, pp = _params_ptr(spec)
+    p = _build.ptr
+
+    def opt(t):
+        return None if t is None else p(t)
+
+    code = _build.entry("aslr_rollout1", dt)(
+        pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha), p(wterm), opt(lb), opt(ub),
+        opt(fs), opt(infeas), T, B, *[p(o) for o in out], _build.stream_of(xs))
+    _build.check("rollout1", code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the per-scenario solver's fast path
+# ---------------------------------------------------------------------------
+
+class FastPath(NamedTuple):
+    linearize: object   # (xs [B,T+1,nx], us [B,T,nu], wterm [B]) -> (cost, run, term, xnext, ok)
+    rollout: object     # (xs, us, k, K, x0, alpha, fs, infeas, wterm) -> (xs_try, us_try, cost)
+    wterm_of: object    # problem -> the terminal goal weight
+
+
+def supports_fast_path(problem, bounds=None):
+    """``(ok, reason)``: whether the fused kernels cover this problem; the
+    reason names the first unsupported feature."""
+    try:
+        extract_vsa_spec(problem, bounds)
+        return True, ""
+    except TypeError as e:
+        return False, str(e)
+
+
+def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "auto") -> FastPath:
+    """The fused route of ``solvers/ddp.py::solve`` for a concrete problem:
+    the linearization through K1 and each line-search trial through K6,
+    with the batch-major tensors of the solver relayouted to the kernels'
+    lane layout and back at each call (as the JAX package's ``custom_vmap``
+    rules do). ``use_gaps`` gives the FDDP gap-contracting rollout.
+    ``backend="plain"`` takes the kernels' plain versions on any device.
+    Raises ``TypeError`` naming the first feature the kernels do not take."""
+    from ..models.integrator import ActionDerivs
+
+    if backend not in ("auto", "plain"):
+        raise ValueError(f"backend must be 'auto' or 'plain', got {backend!r}")
+    spec = extract_vsa_spec(problem, bounds)
+    auto = backend == "auto"
+    lin_fn = linearize if auto else linearize_plain
+    roll_fn = rollout1 if auto else rollout1_plain
+    NDX, NU = spec.ndx, spec.nu
+
+    def lin(xs, us, wterm):
+        out = lin_fn(spec, to_lanes(xs), to_lanes(us), wterm)
+        run = ActionDerivs(**{name: from_lanes(v) for name, v in out.run.items()})
+        B = xs.shape[0]
+
+        def z(*shape):
+            return torch.zeros((B,) + shape, dtype=xs.dtype, device=xs.device)
+
+        eye = torch.eye(NDX, dtype=xs.dtype, device=xs.device).expand(B, NDX, NDX)
+        term = ActionDerivs(Fx=eye, Fu=z(NDX, NU), Lx=from_lanes(out.term["Lx"]), Lu=z(NU),
+                            Lxx=from_lanes(out.term["Lxx"]), Lxu=z(NDX, NU), Luu=z(NU, NU))
+        return out.cost, run, term, from_lanes(out.xnext), out.ok
+
+    boxes = {}      # the box in lanes, made once per batch, type and device
+
+    def box_lanes(B, dt, dev):
+        if spec.lb is None:
+            return None, None
+        key = (B, dt, dev)
+        if key not in boxes:
+            # a copy from the host memory: one host sync, not one a trial
+            boxes[key] = tuple(torch.as_tensor(b, dtype=dt, device=dev)[:, None]
+                               .expand(NU, B).contiguous() for b in (spec.lb, spec.ub))
+        return boxes[key]
+
+    def roll(xs, us, k, K, x0, alpha, fs, infeas, wterm):
+        box = box_lanes(xs.shape[0], xs.dtype, xs.device)
+        gaps = (to_lanes(fs), infeas.to(xs.dtype)) if use_gaps else (None, None)
+        tr = roll_fn(spec, to_lanes(xs), to_lanes(us), to_lanes(k), to_lanes(K), to_lanes(x0),
+                     alpha.contiguous(), wterm, *box, *gaps)
+        return from_lanes(tr.xs), from_lanes(tr.us), tr.cost
+
+    return FastPath(linearize=lin, rollout=roll, wterm_of=lambda prob: spec.w_goal_term)

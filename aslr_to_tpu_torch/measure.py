@@ -15,7 +15,16 @@ path, ``SEEDS``):
             the i-th at x0s + 1e-4 (i + 1) (the benchmark's converged
             headline, bench.py:180-200);
   boxfddp   BoxFDDP on two_dof_vsa_boxddp with the preset's box, cold,
-            maxiter=20, th_stop=1e-5, boxqp_warm_iters=2.
+            maxiter=20, th_stop=1e-5, boxqp_warm_iters=2;
+  fast_boxddp  boxddp through the per-scenario solver's fast path
+            (``use_fast_path=True``: K1, K2, K6), same preset, seed and
+            settings;
+  fast_sea  the sea_warm path's cold solve (seed 1, maxiter=60,
+            th_stop=1e-5) through the fast path (K1, K4, K6).
+
+The lane paths run two trials a line-search round through K3; the fast
+paths one trial a round through K6, with a relayout between the solver's
+batch-major tensors and the kernels' lane layout at each kernel call.
 
 The kernels are built before anything is timed. For each batch size the
 path's set-up runs, then ``--reps`` timed solves, each ending in
@@ -25,7 +34,8 @@ loop passes the whole batch ran, and the count of lanes at each iteration
 count. ``--profile`` traces the last timed solve once more (same inputs)
 and prints each kernel's device time and launches, the device time of
 everything else, the host syncs, and the device's idle share of the wall
-time. ``--save-lanes FILE`` writes, for
+time; the copy kernels (the fast paths' relayouts, mostly) are counted
+apart from the rest of the glue. ``--save-lanes FILE`` writes, for
 the sea_warm path at the first batch size, the inputs and results of the
 first re-solve's lanes that ran to maxiter unconverged, with as many
 converged lanes, to an ``.npz``. Output lines are plain text; the last line
@@ -42,12 +52,12 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-PATHS = ("boxddp", "sea_warm", "boxfddp")
-SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2)
+PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea")
+SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1)
 T_PATH, B_PATH = 100, 4096
 WARM_OFFSET = 1e-4
 KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_fddp_kernel",
-                "rollout2_kernel")
+                "rollout2_kernel", "rollout1_kernel")
 
 
 class Path(NamedTuple):
@@ -71,16 +81,20 @@ def build_path(name, B=B_PATH, T=T_PATH, dtype=torch.float32):
     from . import SolverSettings, make_batched_solver, two_dof_sea, two_dof_vsa_boxddp
 
     x0s = x0_batch(B, dtype, SEEDS[name])
-    if name == "sea_warm":
+    if name in ("sea_warm", "fast_sea"):
         w = two_dof_sea(T=T, dtype=dtype)
         solve = make_batched_solver(w.problem, SolverSettings(maxiter=60, th_stop=1e-5),
-                                    use_gaps=True, bounds=None, use_fast_path="lanes")
+                                    use_gaps=True, bounds=None,
+                                    use_fast_path=True if name == "fast_sea" else "lanes")
+        if name == "fast_sea":
+            return Path(solve, lambda: None, lambda i, _: (x0s,), 60)
         return Path(solve, lambda: solve(x0s),
                     lambda i, cold: (x0s + WARM_OFFSET * (i + 1), cold.xs, cold.us), 60)
     w = two_dof_vsa_boxddp(T=T, dtype=dtype)
     settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
     solve = make_batched_solver(w.problem, settings, use_gaps=name == "boxfddp",
-                                bounds=w.bounds, use_fast_path="lanes")
+                                bounds=w.bounds,
+                                use_fast_path=True if name == "fast_boxddp" else "lanes")
     return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
 
 
@@ -129,6 +143,7 @@ def profile_solve(solve, inputs):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {k: dict(ms=0.0, launches=0) for k in KERNEL_NAMES}
+    copies = dict(ms=0.0, launches=0)
     other = dict(ms=0.0, launches=0)
     syncs = 0
     for evt in prof.key_averages():
@@ -136,12 +151,13 @@ def profile_solve(solve, inputs):
             syncs += evt.count
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        row = next((kernels[k] for k in KERNEL_NAMES if k in evt.key), other)
+        row = next((kernels[k] for k in KERNEL_NAMES if k in evt.key),
+                   copies if "copy" in evt.key.lower() else other)
         row["ms"] += _device_us(evt) / 1e3
         row["launches"] += evt.count
-    busy = sum(r["ms"] for r in kernels.values()) + other["ms"]
+    busy = sum(r["ms"] for r in kernels.values()) + copies["ms"] + other["ms"]
     return dict(wall_ms=wall_ms, device_ms=busy, idle_share=1.0 - busy / wall_ms,
-                host_syncs=syncs, kernels=kernels, other_device=other)
+                host_syncs=syncs, kernels=kernels, copy_device=copies, other_device=other)
 
 
 def main(argv=None):
@@ -187,7 +203,8 @@ def main(argv=None):
             print(f"  profile: wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, "
                   f"idle share {prof['idle_share']:.4f}, host syncs {prof['host_syncs']}",
                   flush=True)
-            for k, r in list(prof["kernels"].items()) + [("other", prof["other_device"])]:
+            for k, r in list(prof["kernels"].items()) + [("copies", prof["copy_device"]),
+                                                         ("other", prof["other_device"])]:
                 if r["launches"]:
                     print(f"    {k}: {r['ms']:.3f} ms in {r['launches']} launches", flush=True)
         record["runs"].append(run)

@@ -2,9 +2,10 @@
 stiffness (VSA).
 
 PyTorch counterpart of ``aslr_to_tpu/models/dynamics.py``
-(``DifferentialSEADynamics`` and ``DifferentialVSADynamics``: ``calc`` and
-``quasi_static``; the lane solver takes its derivatives from the
-linearization kernel). With the spring torque ``tau_c = K (q_l - q_m)``:
+(``DifferentialSEADynamics`` and ``DifferentialVSADynamics``: ``calc``,
+``calc_diff`` and ``quasi_static``; the lane solver takes its derivatives
+from the linearization kernel, the generic solver from ``calc_diff``). With
+the spring torque ``tau_c = K (q_l - q_m)``:
 
     a_l = M(q_l)^-1 (tau_link - nle - tau_c)
     a_m = B^-1      (tau_motor + tau_c)
@@ -21,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import rigid_body as rbd
-from .costs import CostModelSum, KinData
+from .costs import CostDerivs, CostModelSum, KinData
 from .state import StateASR
 
 
@@ -29,6 +30,39 @@ class DiffData(NamedTuple):
     xout: torch.Tensor   # accelerations [..., state.nv]
     cost: torch.Tensor   # [...]
     kin: KinData
+
+
+class DiffDerivs(NamedTuple):
+    Fx: torch.Tensor     # [..., nv, ndx] acceleration Jacobian w.r.t. the state
+    Fu: torch.Tensor     # [..., nv, nu]
+    costs: CostDerivs
+
+
+def _inv(A):
+    """Batched inverse; a singular matrix gives NaN, as ``jnp.linalg.inv``
+    does, instead of raising (and no host sync on the card)."""
+    Ainv, info = torch.linalg.inv_ex(A)
+    return torch.where((info == 0)[..., None, None], Ainv, torch.nan)
+
+
+def _solve(A, b):
+    """Batched ``A x = b`` for vectors ``b``; NaN where A is singular, as
+    ``jnp.linalg.solve`` gives, instead of raising."""
+    x, info = torch.linalg.solve_ex(A.expand(b.shape[:-1] + A.shape[-2:]), b)
+    return torch.where((info == 0)[..., None], x, torch.nan)
+
+
+def _acc_jacobian(state, x, a_l, K):
+    """Fx of the soft-arm accelerations for the spring matrix ``K``
+    ``[..., nl, nl]``: the link rows from the RNEA partials at (q_l, v_l,
+    a_l) (which include the dM/dq a terms). Returns the link rows of Fx
+    and Minv; the caller adds the motor rows."""
+    q_l, _, v_l, _ = state.split(x)
+    dtau_dq, dtau_dv = rbd.rnea_derivatives(state.robot, q_l, v_l, a_l)
+    Minv = _inv(rbd.mass_matrix(state.robot, q_l))
+    zero = torch.zeros_like(Minv)
+    top = torch.cat([Minv @ (-dtau_dq - K), Minv @ K, Minv @ (-dtau_dv), zero], dim=-1)
+    return top, Minv
 
 
 def _gravity_torques(state, x):
@@ -67,14 +101,28 @@ class DifferentialSEADynamics:
         tau_couple = (q_l - q_m) @ self.K.transpose(-1, -2)
 
         M, nle = rbd.compute_all_terms(self.state.robot, q_l, v_l)
-        a_l = torch.linalg.solve(M, tau[..., :nl] - nle - tau_couple)
-        rhs_m = tau[..., nl:] + tau_couple
-        a_m = torch.linalg.solve(self.B.expand(rhs_m.shape[:-1] + self.B.shape), rhs_m)
+        a_l = _solve(M, tau[..., :nl] - nle - tau_couple)
+        a_m = _solve(self.B, tau[..., nl:] + tau_couple)
         xout = torch.cat([a_l, a_m], dim=-1)
 
         rots, trans = rbd.forward_kinematics(self.state.robot, q_l)
         kin = KinData(rots=rots, trans=trans)
         return DiffData(xout=xout, cost=self.costs.calc(x, u, kin), kin=kin)
+
+    def calc_diff(self, x, u, data: Optional[DiffData] = None) -> DiffDerivs:
+        nl = self.state.nl
+        if data is None:
+            data = self.calc(x, u)
+        dtau_du = self.actuation.calc_diff(None, u)
+        K = self.K.expand(x.shape[:-1] + self.K.shape)
+        top, Minv = _acc_jacobian(self.state, x, data.xout[..., :nl], K)
+        Binv = _inv(self.B)
+        BK = Binv @ K
+        zero = torch.zeros_like(BK)
+        Fx = torch.cat([top, torch.cat([BK, -BK, zero, zero], dim=-1)], dim=-2)
+        Fu = torch.cat([Minv @ dtau_du[:nl, :], (Binv @ dtau_du[nl:, :]).expand(
+            x.shape[:-1] + (nl, self.nu))], dim=-2)
+        return DiffDerivs(Fx=Fx, Fu=Fu, costs=self.costs.calc_diff(x, u, data.kin))
 
     def quasi_static(self, x):
         """Gravity-compensation warm start: the least-squares motor input
@@ -111,14 +159,33 @@ class DifferentialVSADynamics:
         tau_couple = k_diag * (q_l - q_m)
 
         M, nle = rbd.compute_all_terms(self.state.robot, q_l, v_l)
-        a_l = torch.linalg.solve(M, -nle - tau_couple)
-        rhs_m = tau_m + tau_couple
-        a_m = torch.linalg.solve(self.B.expand(rhs_m.shape[:-1] + self.B.shape), rhs_m)
+        a_l = _solve(M, -nle - tau_couple)
+        a_m = _solve(self.B, tau_m + tau_couple)
         xout = torch.cat([a_l, a_m], dim=-1)
 
         rots, trans = rbd.forward_kinematics(self.state.robot, q_l)
         kin = KinData(rots=rots, trans=trans)
         return DiffData(xout=xout, cost=self.costs.calc(x, u, kin), kin=kin)
+
+    def calc_diff(self, x, u, data: Optional[DiffData] = None) -> DiffDerivs:
+        """Fx as the SEA's with K = diag(k); the stiffness columns of Fu are
+        ``Minv (q_m - q_l)`` (link) and ``Binv (q_l - q_m)`` (motor), by
+        broadcast over the columns, and the torque columns ``[0; Binv]``."""
+        nl = self.state.nl
+        if data is None:
+            data = self.calc(x, u)
+        q_l, q_m, _, _ = self.state.split(x)
+        K = torch.diag_embed(u[..., nl:])
+        top, Minv = _acc_jacobian(self.state, x, data.xout[..., :nl], K)
+        Binv = _inv(self.B)
+        BK = Binv @ K
+        zero = torch.zeros_like(BK)
+        Fx = torch.cat([top, torch.cat([BK, -BK, zero, zero], dim=-1)], dim=-2)
+        Fu = torch.cat([
+            torch.cat([zero, Minv * (q_m - q_l)[..., None, :]], dim=-1),
+            torch.cat([Binv.expand_as(zero), Binv * (q_l - q_m)[..., None, :]], dim=-1),
+        ], dim=-2)
+        return DiffDerivs(Fx=Fx, Fu=Fu, costs=self.costs.calc_diff(x, u, data.kin))
 
     def quasi_static(self, x):
         """Gravity-compensation warm start: the motor torques take the

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``aslr_to_tpu/models/state.py`` (``StateASR``). The
 configurations of the registry robots are Euclidean, so ``diff`` and
-``integrate`` are vector subtraction and addition.
+``integrate`` are vector subtraction and addition and their Jacobians
+(``jdiff``, ``jintegrate``) are identities.
 """
 from __future__ import annotations
 
@@ -51,3 +52,17 @@ class StateASR:
 
     def integrate(self, x, dx):
         return x + dx
+
+    def _eye(self, x):
+        eye = torch.eye(self.ndx, dtype=x.dtype, device=x.device)
+        return eye.expand(x.shape[:-1] + eye.shape)
+
+    def jdiff(self, x0, x1):
+        """(d diff / d x0, d diff / d x1): ``(-I, I)`` for Euclidean configurations."""
+        eye = self._eye(x0)
+        return -eye, eye
+
+    def jintegrate(self, x, dx):
+        """(d integrate / d x, d integrate / d dx): identities."""
+        eye = self._eye(x)
+        return eye, eye

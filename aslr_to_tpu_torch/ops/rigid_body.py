@@ -1,4 +1,5 @@
-"""Rigid-body dynamics: forward kinematics, RNEA, mass matrix.
+"""Rigid-body dynamics: forward kinematics, frame Jacobians, RNEA and its
+derivatives, mass matrix.
 
 PyTorch counterpart of ``aslr_to_tpu/ops/rigid_body.py``. The chain
 topology is static Python metadata and the per-joint loops unroll; every
@@ -12,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from .se3 import SE3
+from .se3 import SE3, jacfwd
 from .so3 import exp3, skew
 
 
@@ -94,6 +95,36 @@ def frame_placement(model: RobotModel, q, fid: int) -> SE3:
     return frame_placement_from_fk(model, rots, trans, fid)
 
 
+def frame_jacobian_local_from_fk(model: RobotModel, rots, trans, fid: int):
+    """LOCAL frame Jacobian ``[..., 6, nv]`` (``[linear; angular]`` rows)
+    from precomputed FK; the columns of joints off the frame's ancestor
+    chain are zero."""
+    j = model.frame_parents[fid]
+    oMf = frame_placement_from_fk(model, rots, trans, fid)
+    fRt = oMf.rot.transpose(-1, -2)
+    support = set()
+    k = j
+    while k >= 0:
+        support.add(k)
+        k = model.parents[k]
+    cols = []
+    for i in range(model.nv):
+        if i in support:
+            w_world = _mv(rots[..., i, :, :], model.axis[i])
+            v_world = torch.linalg.cross(w_world, oMf.trans - trans[..., i, :])
+            cols.append(torch.cat([_mv(fRt, v_world), _mv(fRt, w_world)], dim=-1))
+        else:
+            cols.append(torch.zeros(trans.shape[:-2] + (6,), dtype=trans.dtype,
+                                    device=trans.device))
+    return torch.stack(cols, dim=-1)
+
+
+def frame_jacobian_local(model: RobotModel, q, fid: int):
+    """LOCAL frame Jacobian at ``q [..., nq]``."""
+    rots, trans = forward_kinematics(model, q)
+    return frame_jacobian_local_from_fk(model, rots, trans, fid)
+
+
 def rnea(model: RobotModel, q, v, a, gravity: bool = True):
     """Inverse dynamics: joint torques ``[..., nj]`` for (q, v, a)."""
     nj = model.nq
@@ -150,18 +181,24 @@ def nonlinear_effects(model: RobotModel, q, v):
 
 def mass_matrix(model: RobotModel, q):
     """Joint-space inertia matrix ``[..., nv, nv]`` from unit-acceleration
-    RNEA columns, symmetrized."""
+    RNEA columns (one RNEA over a new leading dim of the nv unit
+    accelerations), symmetrized."""
     nv = model.nv
-    zeros = torch.zeros_like(q)
-    cols = []
-    for j in range(nv):
-        e = torch.zeros_like(q)
-        e[..., j] = 1.0
-        cols.append(rnea(model, q, zeros, e, gravity=False))
-    M = torch.stack(cols, dim=-1)
+    qs = q.expand((nv,) + q.shape)
+    eye = torch.eye(nv, dtype=q.dtype, device=q.device)
+    e = eye.reshape((nv,) + (1,) * (q.dim() - 1) + (nv,)).expand_as(qs)
+    M = rnea(model, qs, torch.zeros_like(qs), e, gravity=False).movedim(0, -1)
     return 0.5 * (M + M.transpose(-1, -2))
 
 
 def compute_all_terms(model: RobotModel, q, v):
     """(M, nle) in one call."""
     return mass_matrix(model, q), nonlinear_effects(model, q, v)
+
+
+def rnea_derivatives(model: RobotModel, q, v, a):
+    """(dtau_dq, dtau_dv) ``[..., nv, nv]`` of the inverse dynamics, by
+    forward mode through ``rnea``."""
+    dtau_dq = jacfwd(lambda q_: rnea(model, q_, v.expand_as(q_), a.expand_as(q_)), q)
+    dtau_dv = jacfwd(lambda v_: rnea(model, q.expand_as(v_), v_, a.expand_as(v_)), v)
+    return dtau_dq, dtau_dv

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from .so3 import exp3, log3, skew
 
@@ -74,3 +75,32 @@ def log6(M: SE3):
     w = log3(M.rot)
     v = (_v_inv_matrix(w) @ M.trans[..., None])[..., 0]
     return torch.cat([v, w], dim=-1)
+
+
+def jacfwd(f, x):
+    """Jacobian ``[..., m, n]`` of ``f: [..., n] -> [..., m]``, applied to
+    each element of the leading dims on its own: the counterpart of
+    ``jax.jacfwd`` under ``vmap``. One forward-mode pass (dual tensors)
+    over ``n`` copies of ``x``, the j-th with the j-th basis tangent; ``f``
+    must broadcast over a new leading dim and not write into its input."""
+    n = x.shape[-1]
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    xr = x.expand((n,) + x.shape).contiguous()
+    tangent = eye.reshape((n,) + (1,) * (x.dim() - 1) + (n,)).expand_as(xr).contiguous()
+    with fwAD.dual_level():
+        y = f(fwAD.make_dual(xr, tangent))
+        dy = fwAD.unpack_dual(y).tangent
+    if dy is None:                      # f does not depend on x
+        dy = torch.zeros_like(y)
+    return dy.movedim(0, -1)
+
+
+def jlog6(M: SE3):
+    """Jacobian ``[..., 6, 6]`` of ``xi -> log6(M * exp6(xi))`` at ``xi = 0``
+    (``pinocchio.Jlog6``), by forward mode through the closed-form maps;
+    ``log3``'s sanitized branches keep the tangents finite near pi."""
+    def f(xi):
+        return log6(M.compose(exp6(xi)))
+
+    zero = torch.zeros(M.trans.shape[:-1] + (6,), dtype=M.trans.dtype, device=M.trans.device)
+    return jacfwd(f, zero)

@@ -1,16 +1,20 @@
 """Batched solving: the throughput axis of the port.
 
-PyTorch counterpart of ``aslr_to_tpu/parallel/batch.py`` for the lane
-path (``make_batched_solver(..., use_fast_path="lanes")``) and
-``convergence_summary``. Sharding over several cards comes later.
+PyTorch counterpart of ``aslr_to_tpu/parallel/batch.py``:
+``make_batched_solver`` (the generic per-scenario solver, its fused fast
+path, and the lane solver) and ``convergence_summary``. Sharding over
+several cards comes later.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
-from ..solvers.ddp import Bounds, SolveResult, SolverSettings
+from ..kernels.lane_solver import build_lane_solver, check_device
+from ..kernels.vsa_kernels import build_fast_path
+from ..solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings, solve
 from ..solvers.problem import ShootingProblem
 
 
@@ -21,34 +25,60 @@ def make_batched_solver(
     bounds: Optional[Bounds] = None,
     warm_start: bool = False,
     keep_log: bool = False,
-    use_fast_path="lanes",
+    use_fast_path=False,
     globalization: Optional[str] = None,
     backend: str = "auto",
 ):
     """Build ``solve_batch(x0s) -> SolveResult`` over initial states
     ``x0s [B, nx]``; every other problem leaf is shared, and the solve runs
-    on the problem's device. Only the lane solver (``use_fast_path="lanes"``)
-    exists in the port so far. ``warm_start`` starts each scenario from the
-    problem's quasi-static controls at its x0 (the reference's
-    ``problem.quasiStatic``)."""
-    if use_fast_path != "lanes":
-        raise NotImplementedError("the port runs the lane solver only "
-                                  "(use_fast_path='lanes'); the generic path comes later")
+    on the problem's device. ``use_fast_path``: ``False`` runs the generic
+    per-scenario solver (``solvers/ddp.py::solve``, the reference);
+    ``True`` its fused route (K1 linearize, K6 rollout, and the Riccati
+    kernels, ``use_pallas_backward`` forced on, as the JAX package does);
+    ``"lanes"`` the lane solver (``kernels/lane_solver.py``).
+    ``warm_start`` starts each scenario from the problem's quasi-static
+    controls at its x0 (the reference's ``problem.quasiStatic``).
+    ``keep_log`` keeps the per-iteration ``SolveLog`` series (generic and
+    fast routes). ``backend="plain"`` runs the kernels' plain versions on
+    any device."""
     if globalization is not None:
         raise NotImplementedError("globalization='homotopy' comes with the homotopy slice")
-    from ..kernels.lane_solver import build_lane_solver, check_device
+    if use_fast_path == "lanes":
+        lane = build_lane_solver(problem, settings, bounds, use_gaps=use_gaps,
+                                 keep_log=keep_log, backend=backend)
+        if not warm_start:
+            return lane
 
-    lane = build_lane_solver(problem, settings, bounds, use_gaps=use_gaps,
-                             keep_log=keep_log, backend=backend)
-    if not warm_start:
-        return lane
+        def solve_warm(x0s):
+            check_device(problem.x0.device, x0s=x0s)
+            xs0 = x0s[:, None, :].expand(x0s.shape[0], problem.T + 1, x0s.shape[1])
+            return lane(x0s, xs0, problem.quasi_static(xs0[:, :-1]))
 
-    def solve_warm(x0s):
+        return solve_warm
+    if use_fast_path not in (False, True):
+        raise ValueError(f"use_fast_path must be False, True or 'lanes', got {use_fast_path!r}")
+
+    fast = None
+    if use_fast_path:
+        fast = build_fast_path(problem, bounds, use_gaps=use_gaps, backend=backend)
+        # the fused linearize and rollout and the fused backward belong together
+        settings = dataclasses.replace(settings, use_pallas_backward=True)
+
+    def solve_batch(x0s):
         check_device(problem.x0.device, x0s=x0s)
-        xs0 = x0s[:, None, :].expand(x0s.shape[0], problem.T + 1, x0s.shape[1])
-        return lane(x0s, xs0, problem.quasi_static(xs0[:, :-1]))
+        p = dataclasses.replace(problem, x0=x0s)
+        us0 = None
+        if warm_start:
+            xs0 = x0s[:, None, :].expand(x0s.shape[0], problem.T + 1, x0s.shape[1])
+            us0 = problem.quasi_static(xs0[:, :-1])
+        res = solve(p, None, us0, settings=settings, use_gaps=use_gaps, bounds=bounds,
+                    fast=fast, backend=backend)
+        if not keep_log:
+            empty = torch.zeros((x0s.shape[0], 0), dtype=res.cost.dtype, device=x0s.device)
+            res = res._replace(log=SolveLog(*[empty for _ in SolveLog._fields]))
+        return res
 
-    return solve_warm
+    return solve_batch
 
 
 def convergence_summary(result: SolveResult):

@@ -9,11 +9,16 @@ Phases, each printed with its result and time:
      once (-Xptxas -v), then the link;
   3. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes (T=100, B=4096): float64 to a relative error of 1e-9
-     with equal flags, float32 reported; kernel and plain times from CUDA
-     events after a warm-up; the least time the card could take for the
-     same work (bytes over 3.35 TB/s against arithmetic operations over
-     67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3 its BoxDDP and
-     FDDP-gap variants, K4 the SEA shape with gaps, K5 the VSA shape;
+     with equal flags, float32 reported; K6 to the bit in both, and equal
+     to K3's first trial at the same step length; kernel and plain times
+     from CUDA events after a warm-up; the least time the card could take
+     for the same work (bytes over 3.35 TB/s against arithmetic operations
+     over 67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3 its BoxDDP
+     and FDDP-gap variants, K4 the SEA shape with gaps, K5 the VSA shape,
+     K6 its box, SEA-gap and unbounded variants;
+     probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
+     2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
+     version, with its time, GFLOP/s and bound;
   4. main path: BoxDDP, make_batched_solver(..., use_fast_path="lanes") on
      two_dof_vsa_boxddp, T=100, B=4096, float32, maxiter=20;
   5. SEA warm: FDDP on two_dof_sea, T=100, B=4096, float32, maxiter=60,
@@ -27,11 +32,24 @@ Phases, each printed with its result and time:
      after, and every kernel of the path must have launched in it; a
      kernel row's launches are those of one timed solve);
   7. parity, float64, kernel backend against the plain backend lane by
-     lane: BoxDDP (B=256, T=100), SEA FDDP (B=256, T=100), BoxFDDP in a
+     lane: BoxDDP (B=256, T=50), SEA FDDP (B=256, T=50), BoxFDDP in a
      tight box (B=128, T=40);
   8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
      and the quasi-static-warm T=100 SEA FDDP solve against
-     tests/golden/sea_T100.npz, both float64 through the kernels.
+     tests/golden/sea_T100.npz, both float64 through the kernels;
+  9. fast path: the per-scenario solver's fused route,
+     make_batched_solver(..., use_fast_path=True) (K1, the Riccati kernel,
+     K6 one trial a line-search round), on the BoxDDP main path's inputs
+     and on the SEA cold solve's (measure.py paths fast_boxddp, fast_sea),
+     T=100, B=4096, f32; its convergence statistics must land within 3
+     points (1.5 mean iterations) of the lane path's on the same inputs;
+ 10. generic: the generic solver (use_fast_path=False, the reference),
+     the fast path and the lane path in float64 at T=40, B=64, maxiter=20
+     (BoxDDP in the tight box with cold QPs, SEA FDDP), at least B-1 lanes
+     equal in iterations and flags with cost within rtol 1e-8 (a lane
+     diverged in both excepted) pairwise; one timed f32 solve of each
+     route at T=100, B=256 with the main path's settings and maxiter=3
+     (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP.
 
 Any failed check raises, so the script exits non-zero. The line before the
 card's line is the kernel table as JSON; the last line is the device
@@ -44,6 +62,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -64,16 +83,26 @@ KERNELS = {
                          replaces="aslr_to_tpu/pallas/riccati.py:294"),
     "riccati_boxfddp": dict(source="aslr_to_tpu_torch/csrc/riccati_fddp.cu",
                             replaces="aslr_to_tpu/pallas/riccati.py:294"),
+    "rollout1": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                     replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
+    "probe": dict(source="aslr_to_tpu_torch/csrc/probe.cu",
+                  replaces="scripts/probe_sublane.py:40"),
 }
 # the case each kernel's row is timed on, and the path its launches come
 # from; the other cases of a kernel are reported as its variants
 ROW_CASE = ("linearize[vsa]", "riccati_box[vsa]", "rollout2[vsa box]", "riccati_fddp[sea]",
-            "riccati_boxfddp[vsa]")
+            "riccati_boxfddp[vsa]", "rollout1[vsa box]")
+# P is on no solver path: its launches are those of the probe phase
 ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp",
-            "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp"}
+            "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp",
+            "rollout1": "fast_boxddp", "probe": "probe"}
+PROBE_ROW = dict(B=1048576, ilp=1, mode="mul_add")
 NO_LIBRARY = ("no single PyTorch call computes this function (a serial per-scenario "
               "recursion); no stand-in timed")
-B_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 128, 40
+# T_PARITY: cut from 100 to 50 to keep the call inside half its limit (the
+# plain backend on the card is launch-bound)
+B_PARITY, T_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 50, 128, 40
+T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 REG = 1e-9
@@ -168,10 +197,11 @@ def io_values(name, T, ndx, nu, boxed=False, warm=False, gaps=False):
         extra = (T * nu * (2 if warm else 1) + 2 * nu) if boxed else 0
         return (derivs + (T + 1) * ndx + extra + 1,
                 T * (nu + nu * ndx) + (T + 1) * ndx + 5, 2)
-    if name == "rollout2":
-        inputs = T * ndx + 2 * T * nu + T * nu * ndx + ndx + 3
+    if name in ("rollout2", "rollout1"):
+        trials = 2 if name == "rollout2" else 1
+        inputs = T * ndx + 2 * T * nu + T * nu * ndx + ndx + 1 + trials
         inputs += (2 * nu if boxed else 0) + ((T + 1) * ndx + 1 if gaps else 0)
-        return inputs, 2 * ((T + 1) * ndx + T * nu + 1), 0
+        return inputs, trials * ((T + 1) * ndx + T * nu + 1), 0
     raise KeyError(name)
 
 
@@ -224,8 +254,8 @@ def tight_box(dtype):
 
 
 def kernel_cases(dtype):
-    """{row: (kernel call, plain call, io_values kwargs, ndx, nu)} at the
-    paths' shapes (T=100, B=4096)."""
+    """{row: (kernel call, plain call, io_values kwargs, name, ndx, nu)} at
+    the paths' shapes (T=100, B=4096)."""
     from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
     from aslr_to_tpu_torch.kernels import riccati as rk
     from aslr_to_tpu_torch.kernels import vsa_kernels as vk
@@ -279,6 +309,12 @@ def kernel_cases(dtype):
             cases["rollout2[vsa box]"] = (lambda a=roll_args: vk.rollout2(*a),
                                           lambda a=roll_args: vk.rollout2_plain(*a),
                                           dict(boxed=True), "rollout2", 8, nu)
+            # K6 at the second trial's step lengths, then without the box
+            for label, r1 in (("rollout1[vsa box]", roll_args[:6] + roll_args[7:]),
+                              ("rollout1[vsa unbounded]", roll_args[:6] + roll_args[7:9]
+                               + (None, None))):
+                cases[label] = (partial(vk.rollout1, *r1), partial(vk.rollout1_plain, *r1),
+                                dict(boxed=label.endswith("box]")), "rollout1", 8, nu)
         else:
             fd_args = derivs + (fs, reg)
             cases["riccati_fddp[sea]"] = (lambda a=fd_args: rk.riccati_fddp_backward(*a),
@@ -294,6 +330,10 @@ def kernel_cases(dtype):
             cases["rollout2[sea gaps]"] = (lambda a=roll_args: vk.rollout2(*a),
                                            lambda a=roll_args: vk.rollout2_plain(*a),
                                            dict(gaps=True), "rollout2", 8, nu)
+            r1 = roll_args[:6] + roll_args[7:]
+            cases["rollout1[sea gaps]"] = (partial(vk.rollout1, *r1),
+                                           partial(vk.rollout1_plain, *r1),
+                                           dict(gaps=True), "rollout1", 8, nu)
     return cases
 
 
@@ -303,6 +343,8 @@ def flat(out):
                 | {f"term.{k}": v for k, v in out.term.items()}
                 | dict(cost=out.cost, xnext=out.xnext, ok=out.ok))
     if hasattr(out, "retryable"):
+        return out._asdict()
+    if hasattr(out, "cost"):                    # one Trial (K6)
         return out._asdict()
     return {f"trial{i}.{f}": getattr(t, f) for i, t in enumerate(out)
             for f in ("xs", "us", "cost")}
@@ -341,6 +383,11 @@ def kernels_phase(report):
             rel, err = compare(label, got, plain(), tol)
             log(f"  {label} {tag}: kernel vs plain max rel err {rel:.3e}, max abs err "
                 f"{err:.3e}" + (f" (limit {tol:g}, flags equal)" if tol else ""))
+            if name == "rollout1":
+                if err != 0.0:
+                    raise AssertionError(f"{label} {tag}: K6 differs from its plain version "
+                                         f"by {err:.3e}; it is built to equal it to the bit")
+                check_k6_is_k3_first_trial(label, tag, kern, got)
             target = (report[name] if label in ROW_CASE else
                       report[name].setdefault("variants", {}).setdefault(label, {}))
             target[f"rel_err_{tag}"] = rel
@@ -348,7 +395,9 @@ def kernels_phase(report):
             if tag == "f32":
                 target["ms"] = cuda_ms(kern, 20)
                 target["plain_ms"] = cuda_ms(plain, 2)
-                ops = count_ops(plain)
+                # K6's plain version runs K3's two trials at one step
+                # length and keeps the first: half its operations are K6's
+                ops = count_ops(plain) // (2 if name == "rollout1" else 1)
                 n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
                 target["bound_ms"], target["bound_by"], nbytes = bound(
                     ops, n_in, n_out, n_flags, B_PATH, 4)
@@ -356,6 +405,45 @@ def kernels_phase(report):
                 log(f"  {label} f32 time: kernel {target['ms']:.4f} ms, plain "
                     f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
                     f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
+
+
+def same_bits(a, b):
+    """Equal to the bit, NaN where the other has NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0),
+                                                             b.nan_to_num(0.0))
+
+
+def check_k6_is_k3_first_trial(label, tag, kern, got):
+    """K6 at alpha equals K3's first trial at alpha, to the bit (one
+    per-thread code, rollout.cu::rollout_trial)."""
+    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
+
+    a = kern.args                   # K6's inputs: (spec, xs, us, k, K, x0, alpha, ...)
+    first, _ = vk.rollout2(*a[:7], 0.5 * a[6], *a[7:])
+    torch.cuda.synchronize()
+    for field, g, w in zip(got._fields, got, first):
+        if not same_bits(g, w):
+            raise AssertionError(f"{label} {tag}: K6's {field} differs from K3's first trial")
+    log(f"  {label} {tag}: equal to K3's first trial to the bit")
+
+
+@phase("probe")
+def probe_phase(report):
+    """P in every configuration against its plain version (raises on a
+    difference), driven with the launch counters reset just before."""
+    from aslr_to_tpu_torch import probe
+    from aslr_to_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    rows = probe.run(log=log)
+    row = report["probe"]
+    row["launches"] = build.LAUNCHES["probe"]
+    row.setdefault("launches_by_path", {})["probe"] = row["launches"]
+    pick = next(r for r in rows if all(r[k] == v for k, v in PROBE_ROW.items()))
+    row.update(case=PROBE_ROW, ms=pick["ms"], plain_ms=pick["plain_ms"],
+               bound_ms=pick["bound_ms"], bound_by="operations",
+               max_abs_err=max(r["max_abs_err"] for r in rows), configs=rows)
 
 
 def drive(path, report, fn, expect):
@@ -401,38 +489,147 @@ def summarize(res, B, T, nu, label, tpu=None):
 
 def solve_path(name, report, card, expect, nu, n_timed, tpu=None):
     """Drive the path ``name`` of measure.py at T=100, B=4096, f32: its
-    set-up (the SEA cold solve) where it has one, then ``n_timed`` solves."""
+    set-up (the SEA cold solve) where it has one, then ``n_timed`` solves.
+    Returns the convergence summaries: the set-up's (or None) and the last
+    solve's."""
     from aslr_to_tpu_torch.measure import B_PATH, T_PATH, build_path
 
     p = build_path(name)
-    prep = None
+    prep = setup_summ = None
     if name == "sea_warm":
         prep, t = drive("sea_cold", report, p.setup, expect)
         log(f"  cold solve: {t:.4f} s")
-        summarize(prep, B_PATH, T_PATH, nu, "SEA cold, f32")
+        setup_summ = summarize(prep, B_PATH, T_PATH, nu, "SEA cold, f32")
     for i in range(n_timed):
         inputs = p.args(i, prep)
         res, t = drive(name, report, lambda: p.solve(*inputs), expect)
         log(f"  solve {i}: {t:.4f} s, {B_PATH / t:.2f} solves/s on {card} "
             f"(T={T_PATH}, B={B_PATH}, f32, maxiter={p.maxiter})")
-    summarize(res, B_PATH, T_PATH, nu, f"{name}, last solve, f32", tpu)
+    return setup_summ, summarize(res, B_PATH, T_PATH, nu, f"{name}, last solve, f32", tpu)
 
 
 @phase("main path")
 def main_path_phase(report, card):
-    solve_path("boxddp", report, card, ("linearize", "riccati_box", "rollout2"), 4, 2,
-               TPU_REFERENCE["boxddp"])
+    return solve_path("boxddp", report, card, ("linearize", "riccati_box", "rollout2"), 4, 2,
+                      TPU_REFERENCE["boxddp"])[1]
 
 
 @phase("SEA warm")
 def sea_warm_phase(report, card):
-    solve_path("sea_warm", report, card, ("linearize", "riccati_fddp", "rollout2"), 2, 2,
-               TPU_REFERENCE["sea_warm"])
+    return solve_path("sea_warm", report, card, ("linearize", "riccati_fddp", "rollout2"), 2,
+                      2, TPU_REFERENCE["sea_warm"])[0]
 
 
 @phase("BoxFDDP")
 def boxfddp_phase(report, card):
     solve_path("boxfddp", report, card, ("linearize", "riccati_boxfddp", "rollout2"), 4, 1)
+
+
+def close_to_lanes(label, fast, lanes):
+    """The fast path's statistics within 3 points (1.5 mean iterations) of
+    the lane path's on the same inputs."""
+    gaps = {k: abs(fast[k] - lanes[k]) for k in ("converged_frac", "diverged_frac",
+                                                  "mean_iterations")}
+    log(f"  {label} against the lane path on the same inputs: {gaps}")
+    if gaps["converged_frac"] > 0.03 or gaps["diverged_frac"] > 0.03 \
+            or gaps["mean_iterations"] > 1.5:
+        raise AssertionError(f"{label}: the fast path's statistics are far from the lane "
+                             f"path's ({fast} against {lanes})")
+
+
+@phase("fast path")
+def fast_path_phase(report, card, lanes_boxddp, lanes_sea_cold):
+    """The per-scenario solver's fused route (K1, Riccati, K6) on the main
+    path's and the SEA cold solve's inputs."""
+    summ = solve_path("fast_boxddp", report, card, ("linearize", "riccati_box", "rollout1"),
+                      4, 2)[1]
+    close_to_lanes("fast BoxDDP", summ, lanes_boxddp)
+    summ = solve_path("fast_sea", report, card, ("linearize", "riccati_fddp", "rollout1"),
+                      2, 1)[1]
+    close_to_lanes("fast SEA FDDP (cold)", summ, lanes_sea_cold)
+
+
+def lanes_equal(label, a, b, B):
+    """At least B - 1 lanes agree: equal iterations and flags, and cost
+    within rtol 1e-8 unless the lane diverged in both (a diverged lane's
+    cost is that of a blown-up rollout, chaotic in the last bit)."""
+    same = ((a.iterations == b.iterations) & (a.converged == b.converged)
+            & (a.diverged == b.diverged))
+    c_rel = (a.cost - b.cost).abs() / b.cost.abs()
+    live = same & ~b.diverged
+    agree = same & (b.diverged | (c_rel <= 1e-8))
+    n_agree = int(agree.sum())
+    worst = float(c_rel[live].max()) if bool(live.any()) else 0.0
+    log(f"  {label}: {n_agree}/{B} lanes agree ({int(same.sum())} equal in iterations and "
+        f"flags, {int((same & b.diverged).sum())} of them diverged in both); max cost rel err "
+        f"in the lanes that did not diverge {worst:.3e}")
+    if n_agree < B - 1:
+        raise AssertionError(f"{label}: only {n_agree} of {B} lanes agree")
+
+
+@phase("generic")
+def generic_phase(card):
+    """The generic solver (the reference) against the fast and lane
+    routes in f64, one timed f32 solve of each route, and the T=30 golden
+    through SolverBoxDDP, all on the card. BoxDDP runs in the tight box
+    with cold QPs: the generic BoxQP stops iterating a converged QP (as the
+    JAX package's does) and the kernels' runs all its iterations (as the
+    Pallas kernel does), so 2-iteration warm QPs part the two routes at
+    1e-6 within a few iterations, and in the preset's wide box a fifth of
+    the lanes blow up in their first accepted rollout."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea
+    from aslr_to_tpu_torch import two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.measure import T_PATH, summary, x0_batch
+    from aslr_to_tpu_torch.solvers.ddp import SolverBoxDDP
+
+    settings = SolverSettings(maxiter=20, th_stop=1e-5)
+    for label, arm, use_gaps, seed in (("BoxDDP", "vsa", False, 1), ("SEA FDDP", "sea", True, 3)):
+        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T_GENERIC,
+                                                                  dtype=torch.float64)
+        bounds = tight_box(torch.float64) if arm == "vsa" else None
+        x0s = x0_batch(B_GENERIC, torch.float64, seed)
+        res = {}
+        for route in (False, True, "lanes"):
+            t0 = time.perf_counter()
+            res[route] = make_batched_solver(w.problem, settings, use_gaps=use_gaps,
+                                             bounds=bounds, use_fast_path=route)(x0s)
+            torch.cuda.synchronize()
+            log(f"  {label} f64 T={T_GENERIC} B={B_GENERIC} use_fast_path={route!r}: "
+                f"{time.perf_counter() - t0:.3f} s")
+        lanes_equal(f"{label} generic against fast", res[True], res[False], B_GENERIC)
+        lanes_equal(f"{label} generic against lanes", res["lanes"], res[False], B_GENERIC)
+
+    # the main path's settings but MAXITER_TIMED iterations: the generic
+    # route runs thousands of small kernels a knot loop
+    w = two_dof_vsa_boxddp(T=T_PATH, dtype=torch.float32)
+    x0s = x0_batch(B_TIMED, torch.float32, 0)
+    timed = SolverSettings(maxiter=MAXITER_TIMED, th_stop=1e-5, boxqp_warm_iters=2)
+    for route in (False, True, "lanes"):
+        solve = make_batched_solver(w.problem, timed, use_gaps=False, bounds=w.bounds,
+                                    use_fast_path=route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(x0s)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        summ = summary(out)
+        log(f"  BoxDDP f32 T={T_PATH} B={B_TIMED} maxiter={MAXITER_TIMED} "
+            f"use_fast_path={route!r}: {t:.3f} s, {t / summ['max_iterations']:.4f} s a loop "
+            f"pass, {B_TIMED / t:.2f} solves/s on {card}; converged {summ['converged_frac']}, "
+            f"diverged {summ['diverged_frac']}, mean iterations {summ['mean_iterations']}")
+
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                               "vsa_boxddp_T30.npz"))
+    w = two_dof_vsa_boxddp(T=30, dtype=torch.float64)
+    solver = SolverBoxDDP(w.problem, w.bounds)
+    solver.th_stop = 1e-7
+    res = solver.solve(maxiter=25)
+    cost, iters = float(res.cost), int(res.iterations)
+    log(f"  SolverBoxDDP T=30 f64 on the card: cost {cost} (golden {float(ref['cost'])}), "
+        f"iterations {iters} (golden {int(ref['iters'])})")
+    if not (abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"]))
+            and iters == int(ref["iters"])):
+        raise AssertionError("SolverBoxDDP does not reproduce vsa_boxddp_T30.npz on the card")
 
 
 def parity(label, w, bounds, use_gaps, B, settings, seed):
@@ -474,10 +671,10 @@ def parity_phase():
     from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
 
     f64 = torch.float64
-    w = two_dof_vsa_boxddp(T=100, dtype=f64)
+    w = two_dof_vsa_boxddp(T=T_PARITY, dtype=f64)
     parity("BoxDDP", w, w.bounds, False, B_PARITY,
            SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2), seed=1)
-    parity("SEA FDDP", two_dof_sea(T=100, dtype=f64), None, True, B_PARITY,
+    parity("SEA FDDP", two_dof_sea(T=T_PARITY, dtype=f64), None, True, B_PARITY,
            SolverSettings(maxiter=20, th_stop=1e-5), seed=3)
     parity("BoxFDDP", two_dof_vsa_boxddp(T=T_PARITY_BOX, dtype=f64), tight_box(f64), True,
            B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)
@@ -489,7 +686,7 @@ def golden(label, fname, w, settings, use_gaps, bounds, warm_start):
     ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "tests", "golden", fname))
     res = make_batched_solver(w.problem, settings, use_gaps=use_gaps, bounds=bounds,
-                              warm_start=warm_start)(
+                              warm_start=warm_start, use_fast_path="lanes")(
         torch.zeros(1, 8, dtype=torch.float64, device="cuda"))
     cost, iters = float(res.cost[0]), int(res.iterations[0])
     us_err = float(np.abs(res.us[0].cpu().numpy() - ref["us"]).max())
@@ -518,11 +715,14 @@ def main():
     report = {name: dict(name=name, route="cuda", **meta, library_ms=None,
                          library_note=NO_LIBRARY) for name, meta in KERNELS.items()}
     kernels_phase(report)
-    main_path_phase(report, smi)
-    sea_warm_phase(report, smi)
+    probe_phase(report)
+    lanes_boxddp = main_path_phase(report, smi)
+    lanes_sea_cold = sea_warm_phase(report, smi)
     boxfddp_phase(report, smi)
+    fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
     parity_phase()
     golden_phase()
+    generic_phase(smi)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for row in report.values():
         missing = [k for k in keys if k not in row]

@@ -4,7 +4,10 @@ Every test here carries the ``gpu`` marker and skips without a CUDA
 device; the decision is taken inside a fixture, so every worker collects
 the same tests. The file imports no JAX, so it also runs on a machine
 without it. K1-K3 run on the VSA arm and again in their SEA and gap
-variants; K4 on the SEA arm with gaps, K5 on the VSA arm:
+variants; K4 on the SEA arm with gaps, K5 on the VSA arm; K6 in its box,
+SEA-gap and unbounded variants, also against K3's first trial; the fast
+path of the per-scenario solver against its plain backend; P against its
+plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch import probe
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
 
 pytestmark = pytest.mark.gpu
@@ -226,6 +230,76 @@ def test_lane_solver_kernels_match_plain_on_card(cuda):
     assert torch.equal(k.converged, p.converged) and torch.equal(k.diverged, p.diverged)
     torch.testing.assert_close(k.cost, p.cost, rtol=1e-8, atol=0)
     torch.testing.assert_close(k.us, p.us, rtol=0, atol=1e-8)
+
+
+def _rollout1_args(variant, dtype, device):
+    """K6's inputs in the box (VSA), SEA-gap and unbounded (VSA) variants."""
+    if variant == "sea_gaps":
+        kernel, plain, args = _sea_calls("rollout2", dtype, device)
+        return args[:6] + (args[6],) + args[8:]
+    inp = _inputs(dtype, device)
+    args = _roll_args(inp, riccati.riccati_box_plain(*_bw_args(inp, vsa_kernels.linearize_plain(
+        inp["spec"], inp["xs"], inp["us"], inp["wterm"]))))
+    args = args[:6] + (inp["alpha_b"],) + args[8:]
+    if variant == "vsa_unbounded":
+        args = args[:8] + (None, None)
+    return args
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("variant", ["vsa_box", "sea_gaps", "vsa_unbounded"])
+def test_rollout1_matches_plain_and_rollout2(cuda, variant, dtype):
+    """K6 equals its plain version, and K3's first trial at the same alpha
+    to the bit (the same per-thread code)."""
+    args = _rollout1_args(variant, dtype, cuda)
+    before = build.LAUNCHES["rollout1"]
+    got = vsa_kernels.rollout1(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rollout1"] == before + 1
+    _assert_same(got, vsa_kernels.rollout1_plain(*args), dtype)
+    first, _ = vsa_kernels.rollout2(*args[:7], 0.5 * args[6], *args[7:])
+    for g, w in zip(got, first):        # the negative-reg lanes are NaN in both
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+
+
+def test_fast_path_kernels_match_plain_on_card(cuda):
+    w = two_dof_vsa_boxddp(T=T, dtype=torch.float64, device=cuda)
+    settings = SolverSettings(maxiter=8, th_stop=1e-5, boxqp_warm_iters=2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x0s = 0.05 * torch.randn(64, 8, generator=g, device=cuda, dtype=torch.float64)
+    res = {}
+    for backend in ("auto", "plain"):
+        solve = make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+                                    use_fast_path=True, backend=backend)
+        build.reset_launches()
+        res[backend] = solve(x0s)
+        launched = (build.LAUNCHES["rollout1"] > 0 and build.LAUNCHES["linearize"] > 0
+                    and build.LAUNCHES["riccati_box"] > 0)
+        assert launched == (backend == "auto"), backend
+        assert build.LAUNCHES["rollout2"] == 0
+    k, p = res["auto"], res["plain"]
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.converged, p.converged) and torch.equal(k.diverged, p.diverged)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-8, atol=0)
+    torch.testing.assert_close(k.us, p.us, rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("ilp", probe.ILPS)
+def test_probe_matches_plain(cuda, ilp):
+    """P's mul+add mode equals its plain version to the bit; its fma mode
+    is within 1e-6 of the float64-evaluated plain fma (double rounding)."""
+    x = probe.inputs(5000)
+    for fma in (False, True):
+        before = build.LAUNCHES["probe"]
+        got = probe.probe(x, ilp, fma, chain=40, loop=3)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["probe"] == before + 1
+        want = probe.probe_plain(x, ilp, fma, chain=40, loop=3)
+        if fma:
+            assert float(((got - want).abs() / want.abs()).max()) <= 1e-6
+        else:
+            assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

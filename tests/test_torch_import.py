@@ -1,7 +1,9 @@
 """The port imports without JAX, and on CPU tensors its kernel wrappers
 take their plain versions without launching (or building) anything."""
+import ast
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from aslr_to_tpu_torch import two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
 
 T, B = 3, 2
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -22,14 +25,35 @@ def _one_thread():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, aslr_to_tpu_torch, aslr_to_tpu_torch.convert, "
-            "aslr_to_tpu_torch.kernels.lane_solver; "
+    """Importing every module of the port, and chip_smoke.py, loads no JAX
+    and nothing of the JAX package."""
+    code = ("import importlib, pkgutil, sys, aslr_to_tpu_torch, chip_smoke; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "aslr_to_tpu_torch.__path__, 'aslr_to_tpu_torch.')]; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('aslr_to_tpu.') or m == 'aslr_to_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_name_no_jax_import():
+    """No import statement of the port or of chip_smoke.py, at module level
+    or inside a function, names JAX or the JAX package."""
+    files = sorted((ROOT / "aslr_to_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "aslr_to_tpu"), f"{f}: imports {name}"
 
 
 def test_cpu_wrappers_take_plain_versions_without_launching():
@@ -52,13 +76,14 @@ def test_cpu_wrappers_take_plain_versions_without_launching():
                                       lb, ub, reg, 2)
     trials = vsa_kernels.rollout2(spec, xs, us, bw.k, bw.K, xs[0], ones, 0.5 * ones,
                                   wterm, lb, ub)
+    trial1 = vsa_kernels.rollout1(spec, xs, us, bw.k, bw.K, xs[0], ones, wterm, lb, ub)
     derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
               lin.term["Lx"], lin.term["Lxx"])
     fs = torch.zeros((T + 1, 8, B), dtype=torch.float64)
     fddp = riccati.riccati_fddp_backward(*derivs, fs, reg)
     boxfddp = riccati.riccati_boxfddp_backward(*derivs, fs, us, None, lb, ub, reg, 2)
     assert set(build.LAUNCHES) == {"linearize", "riccati_box", "rollout2", "riccati_fddp",
-                                   "riccati_boxfddp"}
+                                   "riccati_boxfddp", "rollout1", "probe"}
     assert set(build.LAUNCHES.values()) == {0}
     assert build._lib is None                      # nothing was built or loaded
 
@@ -73,6 +98,8 @@ def test_cpu_wrappers_take_plain_versions_without_launching():
                                         wterm, lb, ub)
     for got, want in zip(trials, roll_p):
         assert torch.equal(got.xs, want.xs) and torch.equal(got.cost, want.cost)
+    want1 = vsa_kernels.rollout1_plain(spec, xs, us, bw.k, bw.K, xs[0], ones, wterm, lb, ub)
+    assert torch.equal(trial1.xs, want1.xs) and torch.equal(trial1.cost, want1.cost)
     assert torch.equal(fddp.K, riccati.riccati_fddp_plain(*derivs, fs, reg).K)
     assert torch.equal(boxfddp.K, riccati.riccati_boxfddp_plain(*derivs, fs, us, None, lb, ub,
                                                                 reg, 2).K)
@@ -86,7 +113,8 @@ def test_solve_refuses_inputs_off_the_problems_device(on_meta):
 
     w = two_dof_vsa_boxddp(T=T, device="cpu")
     solve = make_batched_solver(w.problem, SolverSettings(maxiter=2), use_gaps=False,
-                                bounds=w.bounds, warm_start=on_meta == "warm_x0s")
+                                bounds=w.bounds, warm_start=on_meta == "warm_x0s",
+                                use_fast_path="lanes")
     args = dict(x0s=torch.zeros(B, 8, dtype=torch.float64),
                 xs_init=torch.zeros(B, T + 1, 8, dtype=torch.float64),
                 us_init=torch.zeros(B, T, 4, dtype=torch.float64))
@@ -97,6 +125,19 @@ def test_solve_refuses_inputs_off_the_problems_device(on_meta):
     build.reset_launches()
     with pytest.raises(ValueError, match=f"{key} is on meta, the problem on cpu"):
         solve(*args.values())
+    assert set(build.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("route", [False, True])
+def test_generic_and_fast_routes_refuse_x0s_off_the_problems_device(route):
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver
+
+    w = two_dof_vsa_boxddp(T=T, device="cpu")
+    solve = make_batched_solver(w.problem, SolverSettings(maxiter=2), use_gaps=False,
+                                bounds=w.bounds, use_fast_path=route)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="x0s is on meta, the problem on cpu"):
+        solve(torch.zeros(B, 8, dtype=torch.float64, device="meta"))
     assert set(build.LAUNCHES.values()) == {0}
 
 
