@@ -20,6 +20,7 @@ none.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -685,7 +686,8 @@ def rollout1(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
 class FastPath(NamedTuple):
     linearize: object   # (xs [B,T+1,nx], us [B,T,nu], wterm [B]) -> (cost, run, term, xnext, ok)
     rollout: object     # (xs, us, k, K, x0, alpha, fs, infeas, wterm) -> (xs_try, us_try, cost)
-    wterm_of: object    # problem -> the terminal goal weight
+    backward: object    # riccati.py::riccati_batch_major with this path's backend
+    wterm: float        # the terminal goal weight
 
 
 def supports_fast_path(problem, bounds=None):
@@ -700,13 +702,15 @@ def supports_fast_path(problem, bounds=None):
 
 def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "auto") -> FastPath:
     """The fused route of ``solvers/ddp.py::solve`` for a concrete problem:
-    the linearization through K1 and each line-search trial through K6,
-    with the batch-major tensors of the solver relayouted to the kernels'
-    lane layout and back at each call (as the JAX package's ``custom_vmap``
-    rules do). ``use_gaps`` gives the FDDP gap-contracting rollout.
-    ``backend="plain"`` takes the kernels' plain versions on any device.
-    Raises ``TypeError`` naming the first feature the kernels do not take."""
+    the linearization through K1, each line-search trial through K6 and the
+    backward through the family's Riccati kernel, with the batch-major
+    tensors of the solver relayouted to the kernels' lane layout and back
+    at each call (as the JAX package's ``custom_vmap`` rules do).
+    ``use_gaps`` gives the FDDP gap-contracting rollout. ``backend="plain"``
+    takes the kernels' plain versions on any device. Raises ``TypeError``
+    naming the first feature the kernels do not take."""
     from ..models.integrator import ActionDerivs
+    from .riccati import riccati_batch_major
 
     if backend not in ("auto", "plain"):
         raise ValueError(f"backend must be 'auto' or 'plain', got {backend!r}")
@@ -748,4 +752,6 @@ def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "aut
                      alpha.contiguous(), wterm, *box, *gaps)
         return from_lanes(tr.xs), from_lanes(tr.us), tr.cost
 
-    return FastPath(linearize=lin, rollout=roll, wterm_of=lambda prob: spec.w_goal_term)
+    return FastPath(linearize=lin, rollout=roll,
+                    backward=partial(riccati_batch_major, plain=not auto),
+                    wterm=spec.w_goal_term)

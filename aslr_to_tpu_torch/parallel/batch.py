@@ -39,8 +39,9 @@ def make_batched_solver(
     ``warm_start`` starts each scenario from the problem's quasi-static
     controls at its x0 (the reference's ``problem.quasiStatic``).
     ``keep_log`` keeps the per-iteration ``SolveLog`` series (generic and
-    fast routes). ``backend="plain"`` runs the kernels' plain versions on
-    any device."""
+    fast routes). ``backend="plain"`` runs the lane and fast routes'
+    kernels as their plain versions on any device (the generic route's
+    Riccati kernels, under ``use_pallas_backward``, follow the device)."""
     if globalization is not None:
         raise NotImplementedError("globalization='homotopy' comes with the homotopy slice")
     if use_fast_path == "lanes":
@@ -72,7 +73,7 @@ def make_batched_solver(
             xs0 = x0s[:, None, :].expand(x0s.shape[0], problem.T + 1, x0s.shape[1])
             us0 = problem.quasi_static(xs0[:, :-1])
         res = solve(p, None, us0, settings=settings, use_gaps=use_gaps, bounds=bounds,
-                    fast=fast, backend=backend)
+                    fast=fast)
         if not keep_log:
             empty = torch.zeros((x0s.shape[0], 0), dtype=res.cost.dtype, device=x0s.device)
             res = res._replace(log=SolveLog(*[empty for _ in SolveLog._fields]))

@@ -145,10 +145,10 @@ def _gaps(problem: ShootingProblem, xs, xnext):
 
 
 def _backward(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, settings,
-              kprev=None, backend="auto") -> _Backward:
+              kprev=None, fast=None) -> _Backward:
     """Riccati sweep of the family; ``kprev [B, T, nu]`` warm-starts the
     BoxQPs. With ``use_pallas_backward`` the families that have a kernel
-    go through it (``backend="plain"``: its plain version)."""
+    go through it (``fast.backward`` where the fast path is given)."""
     warm = kprev is not None
     qp_iters = settings.boxqp_warm_iters if warm else settings.boxqp_iters
     if settings.use_pallas_backward and (bounds is not None or use_gaps):
@@ -156,8 +156,9 @@ def _backward(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, setti
 
         B, T = us.shape[:2]
         ndx = problem.state.ndx
-        out = riccati_batch_major(run_diff, term_diff, fs if use_gaps else None, us,
-                                  kprev, bounds, reg, qp_iters, plain=backend == "plain")
+        riccati = riccati_batch_major if fast is None else fast.backward
+        out = riccati(run_diff, term_diff, fs if use_gaps else None, us, kprev, bounds, reg,
+                      qp_iters)
         zeros = torch.zeros((B, T + 1, ndx), dtype=us.dtype, device=us.device)
         if not use_gaps:
             zero = torch.zeros_like(out.dg)
@@ -268,12 +269,11 @@ def _rollout(problem, xs, us, k, K, fs, alpha, gap_scale_on, use_gaps, bounds):
 
 def solve(problem: ShootingProblem, xs_init=None, us_init=None,
           settings: SolverSettings = SolverSettings(), use_gaps: bool = True,
-          bounds: Optional[Bounds] = None, fast=None, backend: str = "auto") -> SolveResult:
+          bounds: Optional[Bounds] = None, fast=None) -> SolveResult:
     """Solve the scenarios of ``problem`` (``x0 [B, nx]``), from ``xs_init
     [B, T+1, nx]`` and ``us_init [B, T, nu]`` (default: x0 everywhere and
     zero controls). ``use_gaps`` selects the FDDP family, ``bounds`` the
     Box variants; ``fast`` the fused kernels (``build_fast_path``).
-    ``backend="plain"`` runs the kernels' plain versions on any device.
 
     The float32 products run in full float32 (no TF32), as the JAX package
     pins them: reduced-precision passes doubled the f32 divergence there.
@@ -282,13 +282,10 @@ def solve(problem: ShootingProblem, xs_init=None, us_init=None,
         raise NotImplementedError("assoc_backward (solvers/assoc_riccati.py) is not ported yet")
     if bounds is not None and bounds.lb.dim() != 1:
         raise NotImplementedError("a per-knot [T, nu] box comes with the per-knot slice")
-    if backend not in ("auto", "plain"):
-        raise ValueError(f"backend must be 'auto' or 'plain', got {backend!r}")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _solve_impl(problem, xs_init, us_init, settings, use_gaps, bounds, fast,
-                           backend)
+        return _solve_impl(problem, xs_init, us_init, settings, use_gaps, bounds, fast)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
@@ -350,7 +347,7 @@ def _log_set(series, it, value, active):
     return series.scatter(1, idx, torch.where(active, value, old)[:, None])
 
 
-def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast, backend):
+def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast):
     T, nu = problem.T, problem.nu
     x0 = problem.x0
     B, dtype, dev = x0.shape[0], x0.dtype, x0.device
@@ -376,7 +373,7 @@ def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast, backend):
     rej_streak = torch.zeros_like(it)
     nrt_streak = torch.zeros_like(it)
     warm = s.boxqp_warm_iters > 0 and bounds is not None
-    wterm = (torch.full((B,), fast.wterm_of(problem), dtype=dtype, device=dev)
+    wterm = (torch.full((B,), fast.wterm, dtype=dtype, device=dev)
              if fast is not None else None)
 
     while bool((~done).any()):
@@ -397,7 +394,7 @@ def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast, backend):
 
         def backward(r):
             return _backward(problem, run_diff, term_diff, fs, us, r, use_gaps, bounds, s,
-                             kp, backend)
+                             kp, fast)
 
         reg_bw = reg
         bw = backward(reg_bw)

@@ -32,7 +32,7 @@ Phases, each printed with its result and time:
      after, and every kernel of the path must have launched in it; a
      kernel row's launches are those of one timed solve);
   7. parity, float64, kernel backend against the plain backend lane by
-     lane: BoxDDP (B=256, T=50), SEA FDDP (B=256, T=50), BoxFDDP in a
+     lane: BoxDDP (B=256, T=100), SEA FDDP (B=256, T=100), BoxFDDP in a
      tight box (B=128, T=40);
   8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
      and the quasi-static-warm T=100 SEA FDDP solve against
@@ -47,8 +47,10 @@ Phases, each printed with its result and time:
      the fast path and the lane path in float64 at T=40, B=64, maxiter=20
      (BoxDDP in the tight box with cold QPs, SEA FDDP), at least B-1 lanes
      equal in iterations and flags with cost within rtol 1e-8 (a lane
-     diverged in both excepted) pairwise; one timed f32 solve of each
-     route at T=100, B=256 with the main path's settings and maxiter=3
+     diverged in both excepted) pairwise, a lane whose generic and fast
+     logs part re-run to the parting with the controls that sit on a
+     bound in one route only printed; one timed f32 solve of each
+     route at T=100, B=256 with the main path's settings and maxiter=2
      (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP.
 
 Any failed check raises, so the script exits non-zero. The line before the
@@ -57,6 +59,7 @@ record.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -99,10 +102,9 @@ ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp"
 PROBE_ROW = dict(B=1048576, ilp=1, mode="mul_add")
 NO_LIBRARY = ("no single PyTorch call computes this function (a serial per-scenario "
               "recursion); no stand-in timed")
-# T_PARITY: cut from 100 to 50 to keep the call inside half its limit (the
-# plain backend on the card is launch-bound)
-B_PARITY, T_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 50, 128, 40
-T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 3
+# BoxDDP and SEA FDDP parity at the main path's depth (measure.T_PATH)
+B_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 128, 40
+T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 REG = 1e-9
@@ -549,10 +551,22 @@ def fast_path_phase(report, card, lanes_boxddp, lanes_sea_cold):
     close_to_lanes("fast SEA FDDP (cold)", summ, lanes_sea_cold)
 
 
-def lanes_equal(label, a, b, B):
+def first_parting(a, b, rtol=1e-8):
+    """The first index where two per-iteration series part beyond rtol
+    (NaN past a solve's last iteration on both), or None."""
+    part = ((a - b).abs() > rtol * b.abs()) | (a.isnan() != b.isnan())
+    idx = torch.nonzero(part).flatten()
+    return int(idx[0]) if idx.numel() else None
+
+
+def lanes_equal(label, a, b, B, x0s):
     """At least B - 1 lanes agree: equal iterations and flags, and cost
     within rtol 1e-8 unless the lane diverged in both (a diverged lane's
-    cost is that of a blown-up rollout, chaotic in the last bit)."""
+    cost is that of a blown-up rollout, chaotic in the last bit). Each lane
+    that does not agree is printed with its x0 and the first iteration at
+    which the two routes' per-iteration logs part; returns {lane: that
+    iteration} for the lanes whose logs part."""
+    parted = {}
     same = ((a.iterations == b.iterations) & (a.converged == b.converged)
             & (a.diverged == b.diverged))
     c_rel = (a.cost - b.cost).abs() / b.cost.abs()
@@ -563,8 +577,45 @@ def lanes_equal(label, a, b, B):
     log(f"  {label}: {n_agree}/{B} lanes agree ({int(same.sum())} equal in iterations and "
         f"flags, {int((same & b.diverged).sum())} of them diverged in both); max cost rel err "
         f"in the lanes that did not diverge {worst:.3e}")
+    for lane in torch.nonzero(~agree).flatten().tolist():
+        log(f"    lane {lane}, x0 {x0s[lane].tolist()}: iterations {int(a.iterations[lane])} / "
+            f"{int(b.iterations[lane])}, converged {bool(a.converged[lane])} / "
+            f"{bool(b.converged[lane])}, diverged {bool(a.diverged[lane])} / "
+            f"{bool(b.diverged[lane])}, cost {float(a.cost[lane])!r} / {float(b.cost[lane])!r}")
+        logged = a.log.costs.shape[1] > 0 and b.log.costs.shape[1] > 0
+        for field in ("stops", "costs", "steps", "regs") if logged else ():
+            sa, sb = getattr(a.log, field)[lane], getattr(b.log, field)[lane]
+            j = first_parting(sa, sb)
+            if j is not None:
+                parted[lane] = min(j, parted.get(lane, j))
+                log(f"      {field} part first at iteration {j}: {float(sa[j])!r} / "
+                    f"{float(sb[j])!r} (rel {float((sa[j] - sb[j]).abs() / sb[j].abs()):.3e})")
     if n_agree < B - 1:
         raise AssertionError(f"{label}: only {n_agree} of {B} lanes agree")
+    return parted
+
+
+def explain_parting(label, problem, settings, use_gaps, bounds, x0, j):
+    """Re-run one lane through the generic and fast routes for the ``j``
+    iterations before their logs part and print how far the iterates
+    differ there, and each control that sits on a bound of the box in one
+    route and not in the other (the BoxQP's clamped set is a discrete
+    function of that: on the bound with the gradient pushing out)."""
+    from aslr_to_tpu_torch import make_batched_solver
+
+    short = dataclasses.replace(settings, maxiter=j)
+    g, f = (make_batched_solver(problem, short, use_gaps=use_gaps, bounds=bounds,
+                                use_fast_path=route)(x0) for route in (False, True))
+    log(f"    {label}: after {j} iterations, xs rel diff "
+        f"{float((g.xs - f.xs).abs().max() / g.xs.abs().max()):.3e}, us rel diff "
+        f"{float((g.us - f.us).abs().max() / g.us.abs().max()):.3e}")
+    if bounds is None:
+        return
+    on_g = (g.us[0] == bounds.lb) | (g.us[0] == bounds.ub)
+    on_f = (f.us[0] == bounds.lb) | (f.us[0] == bounds.ub)
+    for t, i in torch.nonzero(on_g != on_f).tolist():
+        log(f"      knot {t}, control {i}: generic {float(g.us[0, t, i])!r}, fast "
+            f"{float(f.us[0, t, i])!r} (box [{float(bounds.lb[i])}, {float(bounds.ub[i])}])")
 
 
 @phase("generic")
@@ -576,7 +627,9 @@ def generic_phase(card):
     JAX package's does) and the kernels' runs all its iterations (as the
     Pallas kernel does), so 2-iteration warm QPs part the two routes at
     1e-6 within a few iterations, and in the preset's wide box a fifth of
-    the lanes blow up in their first accepted rollout."""
+    the lanes blow up in their first accepted rollout. A lane whose
+    generic and fast logs part is re-run up to the parting
+    (``explain_parting``)."""
     from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea
     from aslr_to_tpu_torch import two_dof_vsa_boxddp
     from aslr_to_tpu_torch.measure import T_PATH, summary, x0_batch
@@ -592,12 +645,21 @@ def generic_phase(card):
         for route in (False, True, "lanes"):
             t0 = time.perf_counter()
             res[route] = make_batched_solver(w.problem, settings, use_gaps=use_gaps,
-                                             bounds=bounds, use_fast_path=route)(x0s)
+                                             bounds=bounds, keep_log=route != "lanes",
+                                             use_fast_path=route)(x0s)
             torch.cuda.synchronize()
             log(f"  {label} f64 T={T_GENERIC} B={B_GENERIC} use_fast_path={route!r}: "
                 f"{time.perf_counter() - t0:.3f} s")
-        lanes_equal(f"{label} generic against fast", res[True], res[False], B_GENERIC)
-        lanes_equal(f"{label} generic against lanes", res["lanes"], res[False], B_GENERIC)
+        # (fast / generic, lanes / generic, fast / lanes)
+        parted = lanes_equal(f"{label} fast against generic", res[True], res[False],
+                             B_GENERIC, x0s)
+        for lane, j in parted.items():
+            if j > 0:
+                explain_parting(f"{label} lane {lane}", w.problem, settings, use_gaps, bounds,
+                                x0s[lane:lane + 1], j)
+        lanes_equal(f"{label} lanes against generic", res["lanes"], res[False], B_GENERIC,
+                    x0s)
+        lanes_equal(f"{label} fast against lanes", res[True], res["lanes"], B_GENERIC, x0s)
 
     # the main path's settings but MAXITER_TIMED iterations: the generic
     # route runs thousands of small kernels a knot loop
@@ -670,11 +732,13 @@ def parity(label, w, bounds, use_gaps, B, settings, seed):
 def parity_phase():
     from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
 
+    from aslr_to_tpu_torch.measure import T_PATH
+
     f64 = torch.float64
-    w = two_dof_vsa_boxddp(T=T_PARITY, dtype=f64)
+    w = two_dof_vsa_boxddp(T=T_PATH, dtype=f64)
     parity("BoxDDP", w, w.bounds, False, B_PARITY,
            SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2), seed=1)
-    parity("SEA FDDP", two_dof_sea(T=T_PARITY, dtype=f64), None, True, B_PARITY,
+    parity("SEA FDDP", two_dof_sea(T=T_PATH, dtype=f64), None, True, B_PARITY,
            SolverSettings(maxiter=20, th_stop=1e-5), seed=3)
     parity("BoxFDDP", two_dof_vsa_boxddp(T=T_PARITY_BOX, dtype=f64), tight_box(f64), True,
            B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)

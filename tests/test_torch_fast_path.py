@@ -158,3 +158,44 @@ def test_fast_path_names_what_it_does_not_take():
         make_batched_solver(p, SolverSettings(maxiter=1), use_gaps=False, bounds=w.bounds,
                             use_fast_path=True)
     assert supports_fast_path(w.problem, w.bounds) == (True, "")
+
+
+# lane 3 of chip_smoke's generic parity inputs on the card (measure.x0_batch(64,
+# float64, seed=1)): the one lane whose generic and fast costs part there
+TIE_X0 = [-0.04297752460840816, 0.034963995728248314, -0.051637270500705684,
+          -0.07238023021349398, 0.02627283322143751, 0.04192598237761758,
+          0.022264361253443974, -0.0814797556563205]
+
+
+def test_fast_and_generic_part_only_at_a_bound_tie():
+    """That lane (T=40, the tight box, cold QPs) through the generic and
+    fast routes on the CPU: the logs of the first three iterations agree and
+    the iterates after them differ by rounding only, yet some controls sit on
+    a bound of the box in one route and an ulp inside it in the other (the
+    rollouts sum the feedback in different orders). The BoxQP's clamped set
+    is a discrete function of that, so the fourth backward parts by more
+    than 1e-3, and the lane runs to maxiter on two different paths.
+    chip_smoke's ``explain_parting`` prints the same on the card."""
+    f64 = torch.float64
+    w = two_dof_vsa_boxddp(T=40, device="cpu")
+    box = Bounds(*(torch.tensor(b, dtype=f64) for b in TIGHT_BOX))
+    x0 = torch.tensor([TIE_X0], dtype=f64)
+
+    def run(maxiter):
+        s = SolverSettings(maxiter=maxiter, th_stop=1e-5)
+        return [make_batched_solver(w.problem, s, use_gaps=False, bounds=box, keep_log=True,
+                                    use_fast_path=route)(x0) for route in (False, True)]
+
+    g, f = run(3)
+    for a, b in ((g.xs, f.xs), (g.us, f.us)):
+        assert float((a - b).abs().max()) <= 1e-12 * float(a.abs().max())
+    on_g = (g.us == box.lb) | (g.us == box.ub)
+    on_f = (f.us == box.lb) | (f.us == box.ub)
+    tie = on_g != on_f
+    assert bool(tie.any())
+    assert float((g.us - f.us)[tie].abs().max()) <= 2 * torch.finfo(f64).eps * 2.0
+    g, f = run(4)
+    for field in ("costs", "stops", "steps"):
+        a, b = getattr(g.log, field)[0], getattr(f.log, field)[0]
+        np.testing.assert_allclose(a[:3].numpy(), b[:3].numpy(), rtol=1e-9)
+    assert abs(float(g.log.stops[0, 3] / f.log.stops[0, 3]) - 1.0) > 1e-3
