@@ -1,44 +1,40 @@
-// K4 and K5: the FDDP-family backward Riccati sweep, with Cholesky gains
-// (K4: FDDP, and DDP with zero gaps) or with K2's masked BoxQP gains (K5:
-// BoxFDDP). One template, BOXED selecting the gains.
+// K4: the FDDP backward Riccati sweep with Cholesky gains (FDDP, and DDP
+// with zero gaps).
 //
 // Replaces the Pallas kernel aslr_to_tpu/pallas/riccati.py::
-// _riccati_fddp_kernel, boxed=False (launched through
-// prepare_riccati_fddp_backward_lanes) and boxed=True (through
-// prepare_riccati_boxfddp_backward_lanes). Per scenario:
+// _riccati_fddp_kernel with boxed=False (launched through
+// prepare_riccati_fddp_backward_lanes). Per scenario:
 //   terminal node: Vxx_T = tLxx + reg I, w_T = Vxx_T fs_T, Vx_T = tLx + w_T;
 //   knots T-1 .. 0: the Q terms from (Vx, Vxx), Quu + reg I; the gains
-//   k, K from a Cholesky of Quu (K4) or from the masked BoxQP on
-//   (lb - u, ub - u), warm from -kprev or cold from 0, and the masked
-//   free-subspace solve (K5); the value update, symmetrized, plus reg; the
-//   deflection w_t = Vxx_t fs_t, and Vx += w_t (Crocoddyl's
+//   k, K from a Cholesky of Quu; the value update, symmetrized, plus reg;
+//   the deflection w_t = Vxx_t fs_t, and Vx += w_t (Crocoddyl's
 //   SolverFDDP::backwardPass);
 //   the sums dg, dq, stop and the gap terms dg_gap = -sum Vx.fs,
 //   dq_gap = sum fs.w, and the flags ok and retryable (K2's taxonomy: a
 //   failure whose Quu was still finite is retryable with more reg).
 // Outputs k [T,nu,B], K [T,nu,ndx,B] and w [T+1,ndx,B] in lane layout.
+// (boxed=True, K5, is K2's group kernel with gaps: riccati_box.cu.)
 //
-// Thread mapping: one thread per scenario, the knot loop serial inside it,
-// as in K2. Per knot a thread reads 2 ndx^2 + 2 ndx nu + nu^2 + 2 ndx + nu
-// derivative values plus ndx gaps (and nu controls and nu kprev for K5) and
-// writes nu + nu ndx + ndx: at the SEA shape (ndx 8, nu 2) about 208
-// values, 0.83 KB in f32. The work is about 2.5 kflop of dependent 8x8
-// products per knot. What bounds it is latency and registers: the value
-// carry (Vx, Vxx: 72 values) and the Q blocks live in the thread; f64 K5
-// adds the BoxQP's state and spills. Right first, not fast, as K2.
+// Thread mapping: one thread per scenario, the knot loop serial inside it.
+// Per knot a thread reads 2 ndx^2 + 2 ndx nu + nu^2 + 2 ndx + nu
+// derivative values plus ndx gaps and writes nu + nu ndx + ndx: at the SEA
+// shape (ndx 8, nu 2) about 208 values, 0.83 KB in f32. The work is about
+// 2.5 kflop of dependent 8x8 products per knot. What bounds it is latency
+// and registers: the value carry (Vx, Vxx: 72 values) and the Q blocks live
+// in the thread, and the derivatives are read from global memory inside the
+// products. K2/K5's design (a group of lanes a scenario, knot inputs staged
+// in shared memory) is the model for its redesign.
 #include "boxqp.cuh"
 
 namespace aslr {
 
-template <class S, int NDX, int NU, bool BOXED>
+template <class S, int NDX, int NU>
 __global__ void riccati_fddp_kernel(const S* __restrict__ Fx, const S* __restrict__ Fu,
                                     const S* __restrict__ Lx, const S* __restrict__ Lu,
                                     const S* __restrict__ Lxx, const S* __restrict__ Lxu,
                                     const S* __restrict__ Luu, const S* __restrict__ tLx,
                                     const S* __restrict__ tLxx, const S* __restrict__ fs,
-                                    const S* __restrict__ us, const S* __restrict__ kprev,
-                                    const S* __restrict__ lb, const S* __restrict__ ub,
-                                    const S* __restrict__ reg_in, int T, int B, int qp_iters,
+                                    const S* __restrict__ reg_in, int T, int B,
                                     S* __restrict__ k_out, S* __restrict__ K_out,
                                     S* __restrict__ w_out, S* __restrict__ dg_out,
                                     S* __restrict__ dq_out, S* __restrict__ stop_out,
@@ -48,13 +44,6 @@ __global__ void riccati_fddp_kernel(const S* __restrict__ Fx, const S* __restric
   if (b >= B) return;
   const long long TB = (long long)B;
   const S reg = reg_in[b];
-  S lo[NU], hi[NU];
-  if constexpr (BOXED) {
-    for (int j = 0; j < NU; ++j) {
-      lo[j] = lb[j * TB + b];
-      hi[j] = ub[j * TB + b];
-    }
-  }
 
   // terminal node
   S Vx[NDX], Vxx[NDX][NDX], f[NDX];
@@ -135,35 +124,15 @@ __global__ void riccati_fddp_kernel(const S* __restrict__ Fx, const S* __restric
         quu_ok = quu_ok && finite(v);
       }
 
-    // gains: k = Quu^-1 Qu, K = Quu^-1 Qxu^T (K4), or the box QP on du in
-    // (lb - u, ub - u) and the free-subspace solve (K5)
+    // gains: k = Quu^-1 Qu, K = Quu^-1 Qxu^T
     S k[NU], Kg[NU][NDX], L[NU][NU];
-    if constexpr (BOXED) {
-      S low[NU], up[NU], du[NU], free[NU];
-      for (int j = 0; j < NU; ++j) {
-        const S u_t = us[(kt * NU + j) * TB + b];
-        low[j] = lo[j] - u_t;
-        up[j] = hi[j] - u_t;
-        du[j] = kprev ? -kprev[(kt * NU + j) * TB + b] : S(0);
-      }
-      boxqp<S, NU>(Quu, Qu, low, up, qp_iters, du, free);
-      for (int j = 0; j < NU; ++j) k[j] = -du[j];
-      masked_factor<S, NU>(Quu, free, L);
-      for (int c = 0; c < NDX; ++c) {
-        S rhs[NU], sol[NU];
-        for (int i = 0; i < NU; ++i) rhs[i] = Qxu[c][i] * free[i];
-        chol_solve<S, NU>(L, rhs, sol);
-        for (int i = 0; i < NU; ++i) Kg[i][c] = sol[i];
-      }
-    } else {
-      chol<S, NU>(Quu, L);
-      chol_solve<S, NU>(L, Qu, k);
-      for (int c = 0; c < NDX; ++c) {
-        S rhs[NU], sol[NU];
-        for (int i = 0; i < NU; ++i) rhs[i] = Qxu[c][i];
-        chol_solve<S, NU>(L, rhs, sol);
-        for (int i = 0; i < NU; ++i) Kg[i][c] = sol[i];
-      }
+    chol<S, NU>(Quu, L);
+    chol_solve<S, NU>(L, Qu, k);
+    for (int c = 0; c < NDX; ++c) {
+      S rhs[NU], sol[NU];
+      for (int i = 0; i < NU; ++i) rhs[i] = Qxu[c][i];
+      chol_solve<S, NU>(L, rhs, sol);
+      for (int i = 0; i < NU; ++i) Kg[i][c] = sol[i];
     }
 
     // value update: Vx = Qx + K^T Quu k - 2 K^T Qu; Vxx = sym(Qxx - Qxu K) + reg I
@@ -248,36 +217,19 @@ __global__ void riccati_fddp_kernel(const S* __restrict__ Fx, const S* __restric
   retry_out[b] = indef;
 }
 
-template <class S, int NDX, int NU, bool BOXED>
-static void launch_shape(const S* Fx, const S* Fu, const S* Lx, const S* Lu, const S* Lxx,
-                         const S* Lxu, const S* Luu, const S* tLx, const S* tLxx, const S* fs,
-                         const S* us, const S* kprev, const S* lb, const S* ub, const S* reg,
-                         int T, int B, int qp_iters, S* k, S* K, S* w, S* dg, S* dq, S* stop,
-                         S* dgg, S* dqg, bool* ok, bool* retryable, void* stream) {
-  riccati_fddp_kernel<S, NDX, NU, BOXED><<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
-      Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, lb, ub, reg, T, B, qp_iters,
-      k, K, w, dg, dq, stop, dgg, dqg, ok, retryable);
-}
-
-// boxed = 0: K4 (us, kprev, lb, ub unused); boxed = 1: K5 (kprev may be
-// null: cold QPs from 0)
 template <class S>
-static int launch_riccati_fddp(int ndx, int nu, int boxed, const S* Fx, const S* Fu,
-                               const S* Lx, const S* Lu, const S* Lxx, const S* Lxu,
-                               const S* Luu, const S* tLx, const S* tLxx, const S* fs,
-                               const S* us, const S* kprev, const S* lb, const S* ub,
-                               const S* reg, int T, int B, int qp_iters, S* k, S* K, S* w,
-                               S* dg, S* dq, S* stop, S* dgg, S* dqg, bool* ok,
-                               bool* retryable, void* stream) {
+static int launch_riccati_fddp(int ndx, int nu, const S* Fx, const S* Fu, const S* Lx,
+                               const S* Lu, const S* Lxx, const S* Lxu, const S* Luu,
+                               const S* tLx, const S* tLxx, const S* fs, const S* reg, int T,
+                               int B, S* k, S* K, S* w, S* dg, S* dq, S* stop, S* dgg, S* dqg,
+                               bool* ok, bool* retryable, void* stream) {
   if (ndx != 8 || (nu != 2 && nu != 4)) return -1;
-#define ASLR_FDDP_CASE(NU_, BOXED)                                                         \
-  launch_shape<S, 8, NU_, BOXED>(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, \
-                                 lb, ub, reg, T, B, qp_iters, k, K, w, dg, dq, stop, dgg, \
-                                 dqg, ok, retryable, stream)
-  if (nu == 2 && !boxed) ASLR_FDDP_CASE(2, false);
-  else if (nu == 2) ASLR_FDDP_CASE(2, true);
-  else if (!boxed) ASLR_FDDP_CASE(4, false);
-  else ASLR_FDDP_CASE(4, true);
+#define ASLR_FDDP_CASE(NU_)                                                                 \
+  riccati_fddp_kernel<S, 8, NU_><<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(            \
+      Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, T, B, k, K, w, dg, dq, stop, dgg, dqg, \
+      ok, retryable)
+  if (nu == 2) ASLR_FDDP_CASE(2);
+  else ASLR_FDDP_CASE(4);
 #undef ASLR_FDDP_CASE
   return (int)cudaGetLastError();
 }
@@ -285,15 +237,14 @@ static int launch_riccati_fddp(int ndx, int nu, int boxed, const S* Fx, const S*
 }  // namespace aslr
 
 #define ASLR_RICCATI_FDDP_ENTRY(NAME, S)                                                      \
-  extern "C" int NAME(int ndx, int nu, int boxed, const S* Fx, const S* Fu, const S* Lx,       \
-                      const S* Lu, const S* Lxx, const S* Lxu, const S* Luu, const S* tLx,    \
-                      const S* tLxx, const S* fs, const S* us, const S* kprev, const S* lb,   \
-                      const S* ub, const S* reg, int T, int B, int qp_iters, S* k, S* K,      \
-                      S* w, S* dg, S* dq, S* stop, S* dgg, S* dqg, bool* ok, bool* retryable, \
+  extern "C" int NAME(int ndx, int nu, const S* Fx, const S* Fu, const S* Lx, const S* Lu,    \
+                      const S* Lxx, const S* Lxu, const S* Luu, const S* tLx, const S* tLxx,  \
+                      const S* fs, const S* reg, int T, int B, S* k, S* K, S* w, S* dg,       \
+                      S* dq, S* stop, S* dgg, S* dqg, bool* ok, bool* retryable,              \
                       void* stream) {                                                         \
-    return aslr::launch_riccati_fddp<S>(ndx, nu, boxed, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx,   \
-                                        tLxx, fs, us, kprev, lb, ub, reg, T, B, qp_iters, k,  \
-                                        K, w, dg, dq, stop, dgg, dqg, ok, retryable, stream); \
+    return aslr::launch_riccati_fddp<S>(ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx,    \
+                                        fs, reg, T, B, k, K, w, dg, dq, stop, dgg, dqg, ok,   \
+                                        retryable, stream);                                   \
   }
 
 ASLR_RICCATI_FDDP_ENTRY(aslr_riccati_fddp_f32, float)

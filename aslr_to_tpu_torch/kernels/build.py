@@ -37,23 +37,25 @@ _SIGNATURES = {
     # params, nl, xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext,
     # cost, ok, tLx, tLxx, tcost, tok, stream
     "aslr_linearize": [_P, _I, _P, _P, _P, _I, _I] + [_P] * 14 + [_P],
-    # ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, ub,
-    # reg, T, B, qp_iters, k, K, dg, dq, stop, ok, retryable, stream
-    "aslr_riccati_box": [_I, _I] + [_P] * 14 + [_I, _I, _I] + [_P] * 7 + [_P],
+    # ndx, nu, gaps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
+    # lb, ub, reg, T, B, qp_iters, k, K, w, dg, dq, stop, dg_gap, dq_gap, ok,
+    # retryable, stream
+    "aslr_riccati_box": [_I, _I, _I] + [_P] * 15 + [_I, _I, _I] + [_P] * 10 + [_P],
     # params, nl, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, fs,
     # infeas, T, B, xs_a, us_a, cost_a, xs_b, us_b, cost_b, stream
     "aslr_rollout2": [_P, _I] + [_P] * 12 + [_I, _I] + [_P] * 6 + [_P],
-    # ndx, nu, boxed, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
-    # lb, ub, reg, T, B, qp_iters, k, K, w, dg, dq, stop, dg_gap, dq_gap, ok,
-    # retryable, stream
-    "aslr_riccati_fddp": [_I, _I, _I] + [_P] * 15 + [_I, _I, _I] + [_P] * 10 + [_P],
+    # ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, T, B, k, K,
+    # w, dg, dq, stop, dg_gap, dq_gap, ok, retryable, stream
+    "aslr_riccati_fddp": [_I, _I] + [_P] * 11 + [_I, _I] + [_P] * 10 + [_P],
     # params, nl, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas, T, B,
     # xs_o, us_o, cost_o, stream
     "aslr_rollout1": [_P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3 + [_P],
     # x, out, n, ilp, fma, steps, loop, stream (float32 only)
     "aslr_probe": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # nu, gaps, itemsize: the box kernel's dynamic shared memory a block
+    "aslr_riccati_box_smem": [_I, _I, _I],
 }
-_SUFFIXES = {"aslr_probe": ("_f32",)}
+_SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",)}
 
 _lib = None
 build_log = ""

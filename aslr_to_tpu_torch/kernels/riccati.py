@@ -6,7 +6,8 @@ PyTorch counterpart of ``aslr_to_tpu/pallas/riccati.py``
 ``_riccati_fddp_kernel`` through ``prepare_riccati_fddp_backward_lanes``
 and ``prepare_riccati_boxfddp_backward_lanes``). Each wrapper takes lane
 tensors (batch innermost, unpadded): on a CUDA tensor it launches its
-kernel (``csrc/riccati_box.cu``, ``csrc/riccati_fddp.cu``) or raises; on a
+kernel (K2 and K5: the box kernel of ``csrc/riccati_box.cu``, without and
+with gaps; K4: ``csrc/riccati_fddp.cu``) or raises; on a
 CPU tensor it runs the plain version below, which follows the kernel's
 order of operations. The plain versions are elementwise (broadcast
 products and sums, no ``torch.matmul``), so no TF32 path can touch them
@@ -215,29 +216,10 @@ def riccati_box_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us,
     if _route(Fx) == "plain":
         return riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev,
                                  lb, ub, reg, qp_iters)
-    T, NDX, NU, B = Fu.shape[0], Fu.shape[1], Fu.shape[2], Fu.shape[3]
-    dt, dev = Fx.dtype, Fx.device
-    shapes = (("Fx", Fx, (T, NDX, NDX, B)), ("Fu", Fu, (T, NDX, NU, B)),
-              ("Lx", Lx, (T, NDX, B)), ("Lu", Lu, (T, NU, B)),
-              ("Lxx", Lxx, (T, NDX, NDX, B)), ("Lxu", Lxu, (T, NDX, NU, B)),
-              ("Luu", Luu, (T, NU, NU, B)), ("tLx", tLx, (NDX, B)),
-              ("tLxx", tLxx, (NDX, NDX, B)), ("us", us, (T, NU, B)),
-              ("lb", lb, (NU, B)), ("ub", ub, (NU, B)), ("reg", reg, (B,)))
-    if kprev is not None:
-        shapes += (("kprev", kprev, (T, NU, B)),)
-    for name, t, shape in shapes:
-        _check_lane(name, t, shape, dt, dev)
-    k = torch.empty((T, NU, B), dtype=dt, device=dev)
-    K = torch.empty((T, NU, NDX, B), dtype=dt, device=dev)
-    dg, dq, stop = (torch.empty((B,), dtype=dt, device=dev) for _ in range(3))
-    ok, retry = (torch.empty((B,), dtype=torch.bool, device=dev) for _ in range(2))
-    p = _build.ptr
-    code = _build.entry("aslr_riccati_box", dt)(
-        NDX, NU, p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu), p(tLx), p(tLxx), p(us),
-        p(kprev) if kprev is not None else None, p(lb), p(ub), p(reg), T, B, qp_iters,
-        p(k), p(K), p(dg), p(dq), p(stop), p(ok), p(retry), _build.stream_of(Fx))
-    _build.check("riccati_box", code)
-    return BoxBackwardOut(k=k, K=K, dg=dg, dq=dq, stop=stop, ok=ok, retryable=retry)
+    out = _box_launch("riccati_box", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, None, us,
+                      kprev, lb, ub, reg, qp_iters)
+    return BoxBackwardOut(k=out.k, K=out.K, dg=out.dg, dq=out.dq, stop=out.stop, ok=out.ok,
+                          retryable=out.retryable)
 
 
 # -- K4 / K5: the FDDP family --------------------------------------------------
@@ -320,42 +302,52 @@ def riccati_boxfddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kpre
                               (us, kprev, lb, ub, qp_iters))
 
 
-def _fddp_family_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg,
-                        us=None, kprev=None, lb=None, ub=None, qp_iters=0):
-    boxed = us is not None
-    T, NDX, NU, B = Fu.shape[0], Fu.shape[1], Fu.shape[2], Fu.shape[3]
-    dt, dev = Fx.dtype, Fx.device
-    shapes = [("Fx", Fx, (T, NDX, NDX, B)), ("Fu", Fu, (T, NDX, NU, B)),
-              ("Lx", Lx, (T, NDX, B)), ("Lu", Lu, (T, NU, B)),
-              ("Lxx", Lxx, (T, NDX, NDX, B)), ("Lxu", Lxu, (T, NDX, NU, B)),
-              ("Luu", Luu, (T, NU, NU, B)), ("tLx", tLx, (NDX, B)),
-              ("tLxx", tLxx, (NDX, NDX, B)), ("fs", fs, (T + 1, NDX, B)), ("reg", reg, (B,))]
-    if boxed:
-        shapes += [("us", us, (T, NU, B)), ("lb", lb, (NU, B)), ("ub", ub, (NU, B))]
-        if kprev is not None:
-            shapes += [("kprev", kprev, (T, NU, B))]
-    for n, t, shape in shapes:
-        _check_lane(n, t, shape, dt, dev)
+def _check_lanes(**lanes):
+    """Check each lane tensor (None skipped) against its shape, which
+    follows from Fu [T, ndx, nu, B], and against Fx's dtype and device."""
+    T, X, U, B = lanes["Fu"].shape
+    shapes = dict(Fx=(T, X, X, B), Fu=(T, X, U, B), Lx=(T, X, B), Lu=(T, U, B),
+                  Lxx=(T, X, X, B), Lxu=(T, X, U, B), Luu=(T, U, U, B), tLx=(X, B),
+                  tLxx=(X, X, B), fs=(T + 1, X, B), us=(T, U, B), kprev=(T, U, B), lb=(U, B),
+                  ub=(U, B), reg=(B,))
+    dt, dev = lanes["Fx"].dtype, lanes["Fx"].device
+    for name, t in lanes.items():
+        if t is not None:
+            _check_lane(name, t, shapes[name], dt, dev)
 
+
+def _empty_out(T, NDX, NU, B, dt, dev, gaps=True):
+    """The kernel's outputs, uninitialized; without gaps (K2) no w, dg_gap
+    or dq_gap."""
     def e(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    k, K, w = e(T, NU, B), e(T, NU, NDX, B), e(T + 1, NDX, B)
-    dg, dq, stop, dg_gap, dq_gap = (e(B) for _ in range(5))
-    ok, retry = e(B, dtype=torch.bool), e(B, dtype=torch.bool)
+    w, dgg, dqg = (e(T + 1, NDX, B), e(B), e(B)) if gaps else (None, None, None)
+    return FddpBackwardOut(k=e(T, NU, B), K=e(T, NU, NDX, B), w=w, dg=e(B), dq=e(B),
+                           stop=e(B), dg_gap=dgg, dq_gap=dqg, ok=e(B, dtype=torch.bool),
+                           retryable=e(B, dtype=torch.bool))
+
+
+def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, lb, ub, reg,
+                qp_iters) -> FddpBackwardOut:
+    """K2 (``fs`` None) or K5: the one box kernel of ``csrc/riccati_box.cu``.
+    K2 leaves ``w``, ``dg_gap`` and ``dq_gap`` unwritten."""
+    _check_lanes(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu, tLx=tLx, tLxx=tLxx,
+                 fs=fs, us=us, kprev=kprev, lb=lb, ub=ub, reg=reg)
+    T, NDX, NU, B = Fu.shape
+    dt = Fx.dtype
+    out = _empty_out(T, NDX, NU, B, dt, Fx.device, gaps=fs is not None)
     p = _build.ptr
 
     def opt(t):
         return None if t is None else p(t)
 
-    code = _build.entry("aslr_riccati_fddp", dt)(
-        NDX, NU, int(boxed), p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu), p(tLx),
-        p(tLxx), p(fs), opt(us), opt(kprev), opt(lb), opt(ub), p(reg), T, B, qp_iters,
-        p(k), p(K), p(w), p(dg), p(dq), p(stop), p(dg_gap), p(dq_gap), p(ok), p(retry),
-        _build.stream_of(Fx))
+    code = _build.entry("aslr_riccati_box", dt)(
+        NDX, NU, int(fs is not None), p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu),
+        p(tLx), p(tLxx), opt(fs), p(us), opt(kprev), p(lb), p(ub), p(reg), T, B, qp_iters,
+        *(opt(v) for v in out), _build.stream_of(Fx))
     _build.check(name, code)
-    return FddpBackwardOut(k=k, K=K, w=w, dg=dg, dq=dq, stop=stop, dg_gap=dg_gap,
-                           dq_gap=dq_gap, ok=ok, retryable=retry)
+    return out
 
 
 def riccati_fddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs,
@@ -365,8 +357,17 @@ def riccati_fddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs,
     and reg [B]."""
     if _route(Fx) == "plain":
         return riccati_fddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg)
-    return _fddp_family_launch("riccati_fddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx,
-                               fs, reg)
+    _check_lanes(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu, tLx=tLx, tLxx=tLxx,
+                 fs=fs, reg=reg)
+    T, NDX, NU, B = Fu.shape
+    dt = Fx.dtype
+    out = _empty_out(T, NDX, NU, B, dt, Fx.device)
+    p = _build.ptr
+    code = _build.entry("aslr_riccati_fddp", dt)(
+        NDX, NU, p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu), p(tLx), p(tLxx), p(fs),
+        p(reg), T, B, *(p(v) for v in out), _build.stream_of(Fx))
+    _build.check("riccati_fddp", code)
+    return out
 
 
 def riccati_boxfddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
@@ -377,8 +378,8 @@ def riccati_boxfddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
     if _route(Fx) == "plain":
         return riccati_boxfddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
                                      lb, ub, reg, qp_iters)
-    return _fddp_family_launch("riccati_boxfddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx,
-                               fs, reg, us, kprev, lb, ub, qp_iters)
+    return _box_launch("riccati_boxfddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
+                       kprev, lb, ub, reg, qp_iters)
 
 
 def riccati_batch_major(run, term, fs, us, kprev, bounds, reg, qp_iters, plain=False):

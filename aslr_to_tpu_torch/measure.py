@@ -56,8 +56,8 @@ PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea")
 SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1)
 T_PATH, B_PATH = 100, 4096
 WARM_OFFSET = 1e-4
-KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_fddp_kernel",
-                "rollout2_kernel", "rollout1_kernel")
+KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_boxfddp_kernel",
+                "riccati_fddp_kernel", "rollout2_kernel", "rollout1_kernel")
 
 
 class Path(NamedTuple):

@@ -15,7 +15,9 @@ Phases, each printed with its result and time:
      for the same work (bytes over 3.35 TB/s against arithmetic operations
      over 67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3 its BoxDDP
      and FDDP-gap variants, K4 the SEA shape with gaps, K5 the VSA shape,
-     K6 its box, SEA-gap and unbounded variants;
+     K6 its box, SEA-gap and unbounded variants; K2 and K5 (one box kernel)
+     also time f32 at B=16384, kernel only, to show whether they fill the
+     card;
      probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
      2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
      version, with its time, GFLOP/s and bound;
@@ -84,7 +86,7 @@ KERNELS = {
                      replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
     "riccati_fddp": dict(source="aslr_to_tpu_torch/csrc/riccati_fddp.cu",
                          replaces="aslr_to_tpu/pallas/riccati.py:294"),
-    "riccati_boxfddp": dict(source="aslr_to_tpu_torch/csrc/riccati_fddp.cu",
+    "riccati_boxfddp": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
                             replaces="aslr_to_tpu/pallas/riccati.py:294"),
     "rollout1": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
                      replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
@@ -108,6 +110,7 @@ T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 REG = 1e-9
+B_FILL = 16384                     # the box kernel's batch-filling variant
 
 
 def log(msg):
@@ -244,6 +247,10 @@ def build_phase():
     for line in build.build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry", "== ")):
             log(f"  ptxas: {line.strip()}")
+    smem = build.lib().aslr_riccati_box_smem
+    for label, nu, gaps in (("K2", 4, 0), ("K5", 4, 1), ("K5", 2, 1)):
+        log(f"  box kernel {label} (ndx 8, nu {nu}): dynamic shared memory a block of 128 "
+            f"threads, f32 {smem(nu, gaps, 4)} bytes, f64 {smem(nu, gaps, 8)} bytes")
 
 
 def tight_box(dtype):
@@ -255,18 +262,19 @@ def tight_box(dtype):
     return Bounds(t([-2.0, -2.0, 0.0, 0.0]), t([2.0, 2.0, 3.0, 3.0]))
 
 
-def kernel_cases(dtype):
+def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
     """{row: (kernel call, plain call, io_values kwargs, name, ndx, nu)} at
-    the paths' shapes (T=100, B=4096)."""
+    the paths' shapes (T=100, B=4096 unless given)."""
     from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
     from aslr_to_tpu_torch.kernels import riccati as rk
     from aslr_to_tpu_torch.kernels import vsa_kernels as vk
-    from aslr_to_tpu_torch.measure import B_PATH as B
+    from aslr_to_tpu_torch.measure import B_PATH
     from aslr_to_tpu_torch.measure import T_PATH as T
     from aslr_to_tpu_torch.measure import x0_batch
 
+    B = B or B_PATH
     cases = {}
-    for arm in ("vsa", "sea"):
+    for arm in arms:
         w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T, dtype=dtype)
         spec = vk.extract_vsa_spec(w.problem, w.bounds)
         nu = spec.nu
@@ -407,6 +415,18 @@ def kernels_phase(report):
                 log(f"  {label} f32 time: kernel {target['ms']:.4f} ms, plain "
                     f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
                     f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
+    # the box kernel at four times the batch, kernel only; its operations
+    # scale with B (elementwise per scenario)
+    for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(torch.float32, B_FILL,
+                                                               ("vsa",)).items():
+        if name not in ("riccati_box", "riccati_boxfddp"):
+            continue
+        ms = cuda_ms(kern, 10)
+        bms, by, _ = bound(report[name]["ops"] * (B_FILL // B_PATH),
+                           *io_values(name, T_PATH, ndx, nu, **io_kw), B_FILL, 4)
+        report[name].setdefault("variants", {})[f"{label} B={B_FILL}"] = dict(
+            ms=ms, bound_ms=bms, bound_by=by)
+        log(f"  {label} f32 time at B={B_FILL}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
 def same_bits(a, b):

@@ -4,7 +4,9 @@ Every test here carries the ``gpu`` marker and skips without a CUDA
 device; the decision is taken inside a fixture, so every worker collects
 the same tests. The file imports no JAX, so it also runs on a machine
 without it. K1-K3 run on the VSA arm and again in their SEA and gap
-variants; K4 on the SEA arm with gaps, K5 on the VSA arm; K6 in its box,
+variants; K4 on the SEA arm with gaps; the box kernel (K2, and K5 at nu 4
+and 2) on ragged batches, warm and cold, and with one NaN scenario among
+healthy ones in its warp; K6 in its box,
 SEA-gap and unbounded variants, also against K3's first trial; the fast
 path of the per-scenario solver against its plain backend; P against its
 plain version:
@@ -59,7 +61,7 @@ def _assert_same(got, want, dtype):
             assert _rel_err(g, w) <= TOL[dtype], name
 
 
-def _inputs(dtype, device, seed=0):
+def _inputs(dtype, device, seed=0, B=B):
     w = two_dof_vsa_boxddp(T=T, dtype=dtype, device=device)
     spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
     rng = np.random.default_rng(seed)
@@ -230,6 +232,76 @@ def test_lane_solver_kernels_match_plain_on_card(cuda):
     assert torch.equal(k.converged, p.converged) and torch.equal(k.diverged, p.diverged)
     torch.testing.assert_close(k.cost, p.cost, rtol=1e-8, atol=0)
     torch.testing.assert_close(k.us, p.us, rtol=0, atol=1e-8)
+
+
+def _box_args(kernel, nu, dtype, device, B, warm):
+    """K2 (VSA, nu 4) or K5 (VSA nu 4, or the SEA arm, nu 2, in a made-up
+    box) on a random trajectory with gaps; a tenth of the lanes at a
+    negative reg. Returns (kernel wrapper, plain version, args)."""
+    if nu == 4:
+        inp = _inputs(dtype, device, B=B)
+        spec, xs, us, kprev = inp["spec"], inp["xs"], inp["us"], inp["kprev"]
+        lb, ub, reg = inp["lb"], inp["ub"], inp["reg"]
+    else:
+        spec = vsa_kernels.extract_vsa_spec(two_dof_sea(T=T, dtype=dtype, device=device).problem,
+                                            None)
+        rng = np.random.default_rng(2)
+
+        def t(a):
+            return torch.tensor(a, dtype=dtype, device=device)
+
+        xs = t(0.3 * rng.standard_normal((T + 1, 8, B)))
+        us, kprev = t(3.0 * rng.standard_normal((T, 2, B))), t(rng.standard_normal((T, 2, B)))
+        lb, ub = t(np.full((2, B), -2.0)), t(np.full((2, B), 2.5))
+        reg = t(np.where(np.arange(B) % 10 == 0, -0.05, 1e-9))
+    wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=device)
+    lin = vsa_kernels.linearize_plain(spec, xs, us, wterm)
+    r = lin.run
+    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"], lin.term["Lx"],
+              lin.term["Lxx"])
+    box = (us, kprev if warm else None, lb, ub, reg, 2 if warm else 6)
+    if kernel == "riccati_box":
+        return riccati.riccati_box_backward, riccati.riccati_box_plain, derivs + box
+    return (riccati.riccati_boxfddp_backward, riccati.riccati_boxfddp_plain,
+            derivs + (_gaps(dict(xs=xs), lin),) + box)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("kernel,nu", [("riccati_box", 4), ("riccati_boxfddp", 4),
+                                       ("riccati_boxfddp", 2)])
+def test_box_kernel_matches_plain_version(cuda, kernel, nu, batch, warm, dtype):
+    """The box kernel (K2, and K5 at nu 4 and 2) on ragged batches (none a
+    multiple of the 16 scenarios of a block; B=15 also takes the
+    one-element copies), warm from kprev and cold."""
+    fn, plain, args = _box_args(kernel, nu, dtype, cuda, batch, warm)
+    before = build.LAUNCHES[kernel]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[kernel] == before + 1
+    _assert_same(got, plain(*args), dtype)
+    if batch > 1:       # lanes 0 and 10 at a negative reg: the flags go both ways
+        assert not bool(got.ok.all()) and bool(got.ok.any())
+        assert bool(got.retryable.any()) and not bool(got.retryable.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kernel", ["riccati_box", "riccati_boxfddp"])
+def test_box_kernel_keeps_a_scenario_in_its_group(cuda, kernel, dtype):
+    """A scenario whose inputs are NaN fails alone: the other scenarios of
+    its warp (four a warp, eight lanes each) keep ok and equal the plain
+    version."""
+    fn, plain, args = _box_args(kernel, 4, dtype, cuda, B, True)
+    args = list(args)
+    for i in range(9):                  # the derivatives of scenario 25: warp 6, group 1
+        args[i] = args[i].clone()
+        args[i][..., 25] = float("nan")
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    _assert_same(got, want, dtype)
+    assert not bool(got.ok[25])
+    assert bool(got.ok[[24, 26, 27]].all())
 
 
 def _rollout1_args(variant, dtype, device):

@@ -1,0 +1,145 @@
+"""The box kernel (K2 and K5, ``csrc/riccati_box.cu``) run on the CPU.
+
+The CUDA source compiles with g++ against the stand-ins of
+``tests/cuda_on_cpu``: one thread per CUDA thread, the block and warp
+primitives at a barrier over the block, cp.async as a copy, and shared
+memory refilled with NaN bytes before each block, so an unstaged read
+shows. The wrappers, pointed at that library, are held against their plain
+versions on ragged batches (one 16-scenario block and a partial one; B=15
+and B=33 take the one-element copies, B=40 the 16-byte ones), warm and
+cold, with lanes at a negative reg and one NaN scenario. That checks the
+group mapping, the exchanges, the staging and the ragged block without a
+card.
+
+The kernel performs its plain version's operations in the same order, so
+the two agree to the bit, flags and NaNs included, in f64 and f32: the
+kernel builds with -ffp-contract=off, and the plain versions run here with
+a correctly rounded square root (``torch.sqrt`` on the CPU is not, for
+longer tensors).
+"""
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
+
+T = 6
+HERE = Path(__file__).resolve().parent
+SMEM = """#include "cuda_runtime.h"
+namespace aslr { alignas(16) unsigned char sweep_smem[cpu_cuda::kSharedBytes]; }
+unsigned char* cpu_cuda::shared_memory = aslr::sweep_smem;
+"""
+
+
+@pytest.fixture(scope="module")
+def box_lib(tmp_path_factory):
+    """riccati_box.cu built for the CPU; the wrappers launch it on CPU
+    tensors while the fixture lasts."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel source for the CPU")
+    d = tmp_path_factory.mktemp("box_kernel")
+    src = (build.CSRC / "riccati_box.cu").read_text()
+    # kernel<<<grid, block, smem, stream>>>(args) -> cpu_cuda::launch(...)
+    src = re.sub(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"::cpu_cuda::launch(\2, \1, ", src)
+    (d / "riccati_box.cpp").write_text(src)
+    (d / "smem.cpp").write_text(SMEM)
+    lib = d / "libbox.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                    "-pthread", f"-I{HERE / 'cuda_on_cpu'}", f"-I{build.CSRC}", "-o", str(lib),
+                    str(d / "riccati_box.cpp"), str(d / "smem.cpp"),
+                    str(HERE / "cuda_on_cpu" / "runtime.cpp")], check=True)
+    handle = ctypes.CDLL(str(lib))
+    for suffix in ("_f32", "_f64"):
+        fn = getattr(handle, "aslr_riccati_box" + suffix)
+        fn.argtypes = build._SIGNATURES["aslr_riccati_box"]
+        fn.restype = ctypes.c_int
+    mp = pytest.MonkeyPatch()
+    mp.setattr(build, "_lib", handle)
+    mp.setattr(riccati, "_route", lambda t: "kernel")
+    mp.setattr(build, "stream_of", lambda t: None)
+    mp.setattr(torch, "sqrt", _ieee_sqrt)
+    yield handle
+    mp.undo()
+
+
+def _ieee_sqrt(x):
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def _args(kernel, nu, B, warm, dtype, seed=0):
+    """K2 (VSA, nu 4) or K5 (VSA nu 4, or the SEA arm, nu 2, in a box) on a
+    random trajectory with gaps; every tenth lane at a negative reg."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype)
+
+    xs = t(0.3 * rng.standard_normal((T + 1, 8, B)))
+    if nu == 4:
+        w = two_dof_vsa_boxddp(T=T, dtype=dtype, device="cpu")
+        spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
+        us = t(np.concatenate([3.0 * rng.standard_normal((T, 2, B)),
+                               2.0 * np.abs(rng.standard_normal((T, 2, B)))], axis=1))
+        lb, ub = spec.lb, spec.ub
+    else:
+        spec = vsa_kernels.extract_vsa_spec(two_dof_sea(T=T, dtype=dtype, device="cpu").problem,
+                                            None)
+        us = t(3.0 * rng.standard_normal((T, 2, B)))
+        lb, ub = np.array([-2.0, -1.5]), np.array([1.0, 2.5])
+    lin = vsa_kernels.linearize_plain(spec, xs, us, torch.full((B,), spec.w_goal_term,
+                                                                dtype=dtype))
+    r = lin.run
+    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"], lin.term["Lx"],
+              lin.term["Lxx"])
+    box = [t(np.repeat(np.asarray(b, dtype=float)[:, None], B, axis=1)) for b in (lb, ub)]
+    kprev = t(0.5 * rng.standard_normal((T, nu, B))) if warm else None
+    reg = t(np.where(np.arange(B) % 10 == 0, -0.05, 1e-9))
+    tail = (us, kprev, box[0], box[1], reg, 2 if warm else 6)
+    if kernel == "riccati_box":
+        return riccati.riccati_box_backward, riccati.riccati_box_plain, derivs + tail
+    fs = torch.cat([torch.full_like(xs[:1], 0.01), lin.xnext - xs[1:]], dim=0)
+    return riccati.riccati_boxfddp_backward, riccati.riccati_boxfddp_plain, derivs + (fs,) + tail
+
+
+def _assert_same_bits(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.isnan(), w.isnan()), name
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("batch", [15, 33, 40])
+@pytest.mark.parametrize("kernel,nu", [("riccati_box", 4), ("riccati_boxfddp", 4),
+                                       ("riccati_boxfddp", 2)])
+def test_box_kernel_on_cpu_matches_plain_version(box_lib, kernel, nu, batch, warm, dtype):
+    fn, plain, args = _args(kernel, nu, batch, warm, dtype)
+    before = build.LAUNCHES[kernel]
+    got = fn(*args)
+    assert build.LAUNCHES[kernel] == before + 1
+    _assert_same_bits(got, plain(*args))
+    assert not bool(got.ok.all()) and bool(got.ok.any())
+    assert bool(got.retryable.any()) and not bool(got.retryable.all())
+
+
+@pytest.mark.parametrize("kernel", ["riccati_box", "riccati_boxfddp"])
+def test_box_kernel_on_cpu_keeps_a_scenario_in_its_group(box_lib, kernel):
+    """Scenario 25's inputs NaN: it fails alone; the other scenarios of its
+    warp (24, 26, 27) keep ok and equal the plain version."""
+    fn, plain, args = _args(kernel, 4, 40, True, torch.float64)
+    args = list(args)
+    for i in range(9):
+        args[i] = args[i].clone()
+        args[i][..., 25] = float("nan")
+    got = fn(*args)
+    _assert_same_bits(got, plain(*args))
+    assert not bool(got.ok[25]) and bool(got.ok[[24, 26, 27]].all())
