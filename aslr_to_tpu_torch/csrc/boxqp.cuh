@@ -100,26 +100,6 @@ __device__ inline void free_mask(const S (&H)[N][N], const S* q, const S* x, con
   }
 }
 
-// G consecutive lanes of a warp (G a power of two) that hold one scenario:
-// they meet and vote on their own mask, never on the whole warp's
-template <int G>
-struct Group {
-  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "a power of two within a warp");
-  int lane;
-  unsigned base, mask;
-  __device__ Group() {
-    const unsigned l = threadIdx.x & 31u;
-    lane = (int)(l & (G - 1));
-    base = l & ~(unsigned)(G - 1);
-    mask = (G == 32 ? 0xffffffffu : (1u << G) - 1u) << base;
-  }
-  __device__ void sync() const { __syncwarp(mask); }
-  __device__ bool all(bool p) const { return __all_sync(mask, p) != 0; }
-  __device__ unsigned ballot(bool p) const { return __ballot_sync(mask, p) >> base; }
-  template <class S>
-  __device__ S from(int lane_of_group, S v) const { return __shfl_sync(mask, v, lane_of_group, G); }
-};
-
 // masked projected-Newton box QP (riccati.py::_boxqp_lanes) for one
 // scenario on a group: every lane runs the factor and the Newton step (the
 // same operations on the same values, so every lane holds the same x), lane

@@ -185,4 +185,27 @@ constexpr int kBlock = 128;
 
 inline int grid_for(long long n) { return (int)((n + kBlock - 1) / kBlock); }
 
+// a pointer that a 16-byte cp.async may take (null: an input not passed)
+inline bool aligned16(const void* p) { return p == nullptr || ((size_t)p & 15) == 0; }
+
+// G consecutive lanes of a warp (G a power of two) that hold one scenario:
+// they meet and vote on their own mask, never on the whole warp's
+template <int G>
+struct Group {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "a power of two within a warp");
+  int lane;
+  unsigned base, mask;
+  __device__ Group() {
+    const unsigned l = threadIdx.x & 31u;
+    lane = (int)(l & (G - 1));
+    base = l & ~(unsigned)(G - 1);
+    mask = (G == 32 ? 0xffffffffu : (1u << G) - 1u) << base;
+  }
+  __device__ void sync() const { __syncwarp(mask); }
+  __device__ bool all(bool p) const { return __all_sync(mask, p) != 0; }
+  __device__ unsigned ballot(bool p) const { return __ballot_sync(mask, p) >> base; }
+  template <class S>
+  __device__ S from(int lane_of_group, S v) const { return __shfl_sync(mask, v, lane_of_group, G); }
+};
+
 }  // namespace aslr

@@ -176,15 +176,28 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
   }
 }
 
+// sweep c of mass_nle: c = 0 the nle (velocity v, no acceleration, with
+// gravity), c > 0 column c - 1 of M (no velocity, unit acceleration of
+// link c - 1, no gravity). c may differ from thread to thread: the inputs
+// are chosen by value, so every sweep runs the same instructions.
+template <class V, int NL>
+__device__ inline void mass_nle_sweep(const VSAParams<NL>& P, const V* q, const V* v, int c,
+                                      V* out) {
+  V vc[NL], ac[NL];
+  for (int i = 0; i < NL; ++i) {
+    vc[i] = c == 0 ? v[i] : V(cst<V>(0.0));
+    ac[i] = V(cst<V>(c == i + 1 ? 1.0 : 0.0));
+  }
+  rnea<V, NL>(P, q, vc, ac, c == 0, out);
+}
+
 // mass matrix M (from unit-acceleration RNEA columns) and nle
 template <class V, int NL>
 __device__ inline void mass_nle(const VSAParams<NL>& P, const V* q, const V* v, V (*M)[NL], V* nle) {
-  V zero[NL], e[NL], col[NL];
-  for (int i = 0; i < NL; ++i) zero[i] = V(cst<V>(0.0));
-  rnea<V, NL>(P, q, v, zero, true, nle);
+  V col[NL];
+  mass_nle_sweep<V, NL>(P, q, v, 0, nle);
   for (int j = 0; j < NL; ++j) {
-    for (int i = 0; i < NL; ++i) e[i] = V(cst<V>(i == j ? 1.0 : 0.0));
-    rnea<V, NL>(P, q, zero, e, false, col);
+    mass_nle_sweep<V, NL>(P, q, v, j + 1, col);
     for (int i = 0; i < NL; ++i) M[i][j] = col[i];
   }
 }
@@ -307,16 +320,12 @@ __device__ inline V goal_cost(const VSAParams<NL>& P, const V* q_l, bool termina
   return cst<V>(0.5) * c;
 }
 
-// soft-arm accelerations a [2 NL] (vsa_kernels.py::_dynamics_lanes): the
-// spring torque tau_c = k (q_l - q_m) with the VSA's stiffness controls, or
-// K (q_l - q_m) with the SEA's constant spring matrix; also hands back M
-// and tau_c for the linearization
+// the spring torque tau_c = k (q_l - q_m) with the VSA's stiffness
+// controls, or K (q_l - q_m) with the SEA's constant spring matrix
 template <class S, int NL, bool SEA>
-__device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S* u, S* a,
-                                    S (*M)[NL], S* tau_c) {
+__device__ inline void spring_torque(const VSAParams<NL>& P, const S* x, const S* u, S* tau_c) {
   const S* q_l = x;
   const S* q_m = x + NL;
-  const S* v_l = x + 2 * NL;
   if constexpr (SEA) {
     S d[NL];
     for (int i = 0; i < NL; ++i) d[i] = q_l[i] - q_m[i];
@@ -328,8 +337,14 @@ __device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S*
   } else {
     for (int i = 0; i < NL; ++i) tau_c[i] = u[NL + i] * (q_l[i] - q_m[i]);
   }
-  S nle[NL], rhs[NL];
-  mass_nle<S, NL>(P, q_l, v_l, M, nle);
+}
+
+// the link accelerations from M and nle, and the motor accelerations
+// Binv (u + tau_c)
+template <class S, int NL>
+__device__ inline void accelerations(const VSAParams<NL>& P, const S* u, const S* tau_c,
+                                     S (*M)[NL], const S* nle, S* a) {
+  S rhs[NL];
   for (int i = 0; i < NL; ++i) rhs[i] = -nle[i] - tau_c[i];
   solven<S, NL>(M, rhs, a);
   for (int i = 0; i < NL; ++i) {
@@ -337,6 +352,17 @@ __device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S*
     for (int j = 1; j < NL; ++j) acc = acc + S(P.binv[i][j]) * (u[j] + tau_c[j]);
     a[NL + i] = acc;
   }
+}
+
+// soft-arm accelerations a [2 NL] (vsa_kernels.py::_dynamics_lanes); also
+// hands back M and tau_c for the linearization
+template <class S, int NL, bool SEA>
+__device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S* u, S* a,
+                                    S (*M)[NL], S* tau_c) {
+  spring_torque<S, NL, SEA>(P, x, u, tau_c);
+  S nle[NL];
+  mass_nle<S, NL>(P, x, x + 2 * NL, M, nle);
+  accelerations<S, NL>(P, u, tau_c, M, nle, a);
 }
 
 // running cost: w_goal * goal + state/control regularization + stiffness

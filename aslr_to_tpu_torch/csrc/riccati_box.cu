@@ -415,8 +415,6 @@ static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-static bool aligned16(const void* p) { return p == nullptr || ((size_t)p & 15) == 0; }
-
 // gaps = 0: K2 (fs, w, dgg, dqg unused); gaps = 1: K5. kprev may be null
 // (cold QPs from 0).
 template <class S>

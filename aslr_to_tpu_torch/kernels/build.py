@@ -54,8 +54,11 @@ _SIGNATURES = {
     "aslr_probe": [_P, _P, _I, _I, _I, _I, _I, _P],
     # nu, gaps, itemsize: the box kernel's dynamic shared memory a block
     "aslr_riccati_box_smem": [_I, _I, _I],
+    # ntrials, sea, gaps, itemsize: the rollout's dynamic shared memory a block
+    "aslr_rollout_smem": [_I, _I, _I, _I],
 }
-_SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",)}
+_SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",),
+             "aslr_rollout_smem": ("",)}
 
 _lib = None
 build_log = ""

@@ -6,18 +6,20 @@ Phases, each printed with its result and time:
   1. device: a CUDA card must be present (else exit 2); its name and power
      limit as nvidia-smi reports them;
   2. build: one nvcc per aslr_to_tpu_torch/csrc/*.cu for sm_90a, all at
-     once (-Xptxas -v), then the link;
+     once (-Xptxas -v), then the link; the box kernel's and each rollout
+     instantiation's dynamic shared memory, and the rollouts' registers and
+     spills;
   3. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes (T=100, B=4096): float64 to a relative error of 1e-9
-     with equal flags, float32 reported; K6 to the bit in both, and equal
-     to K3's first trial at the same step length; kernel and plain times
-     from CUDA events after a warm-up; the least time the card could take
-     for the same work (bytes over 3.35 TB/s against arithmetic operations
-     over 67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3 its BoxDDP
-     and FDDP-gap variants, K4 the SEA shape with gaps, K5 the VSA shape,
-     K6 its box, SEA-gap and unbounded variants; K2 and K5 (one box kernel)
-     also time f32 at B=16384, kernel only, to show whether they fill the
-     card;
+     with equal flags, float32 reported; K3 and K6 to the bit in both, and
+     K6 equal to K3's first trial at the same step length; kernel and plain
+     times from CUDA events after a warm-up; the least time the card could
+     take for the same work (bytes over 3.35 TB/s against arithmetic
+     operations over 67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3
+     and K6 their box, unbounded and SEA-gap variants, K4 the SEA shape with
+     gaps, K5 the VSA shape; K2, K5 (one box kernel), K3 and K6 (one
+     rollout kernel) also time f32 at B=16384, kernel only, to show whether
+     they fill the card;
      probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
      2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
      version, with its time, GFLOP/s and bound;
@@ -64,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -110,7 +113,7 @@ T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 REG = 1e-9
-B_FILL = 16384                     # the box kernel's batch-filling variant
+B_FILL = 16384                     # the box kernel's and the rollouts' batch-filling variant
 
 
 def log(msg):
@@ -251,6 +254,32 @@ def build_phase():
     for label, nu, gaps in (("K2", 4, 0), ("K5", 4, 1), ("K5", 2, 1)):
         log(f"  box kernel {label} (ndx 8, nu {nu}): dynamic shared memory a block of 128 "
             f"threads, f32 {smem(nu, gaps, 4)} bytes, f64 {smem(nu, gaps, 8)} bytes")
+    for line in rollout_ptxas(build.build_log, build.lib().aslr_rollout_smem):
+        log(f"  rollout {line}")
+
+
+def rollout_ptxas(build_log, smem):
+    """One line per instantiation of the rollouts (K3 and K6): registers,
+    stack frame and spills from ptxas, and the block's dynamic shared
+    memory."""
+    entry = re.compile(r"Compiling entry function '\w*rollout([12])_kernelI([fd])Li2ELb([01])"
+                       r"ELb([01])ELb([01])E")
+    lines, name, frame = [], None, ""
+    for line in build_log.splitlines():
+        m = entry.search(line)
+        if m:
+            nt, s, sea, boxed, gaps = m.groups()
+            name = (f"{'K3' if nt == '2' else 'K6'} {'f32' if s == 'f' else 'f64'} "
+                    f"{'SEA' if sea == '1' else 'VSA'}{' box' if boxed == '1' else ''}"
+                    f"{' gaps' if gaps == '1' else ''}",
+                    smem(int(nt), int(sea), int(gaps), 4 if s == "f" else 8))
+        elif name and "stack frame" in line:
+            frame = line.strip()
+        elif name and "Used" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            lines.append(f"{name[0]}: {regs}; {frame}; dynamic shared memory {name[1]} bytes")
+            name = None
+    return lines
 
 
 def tight_box(dtype):
@@ -319,10 +348,13 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
             cases["rollout2[vsa box]"] = (lambda a=roll_args: vk.rollout2(*a),
                                           lambda a=roll_args: vk.rollout2_plain(*a),
                                           dict(boxed=True), "rollout2", 8, nu)
+            free_args = roll_args[:9] + (None, None)
+            cases["rollout2[vsa unbounded]"] = (lambda a=free_args: vk.rollout2(*a),
+                                                lambda a=free_args: vk.rollout2_plain(*a),
+                                                dict(), "rollout2", 8, nu)
             # K6 at the second trial's step lengths, then without the box
             for label, r1 in (("rollout1[vsa box]", roll_args[:6] + roll_args[7:]),
-                              ("rollout1[vsa unbounded]", roll_args[:6] + roll_args[7:9]
-                               + (None, None))):
+                              ("rollout1[vsa unbounded]", free_args[:6] + free_args[7:])):
                 cases[label] = (partial(vk.rollout1, *r1), partial(vk.rollout1_plain, *r1),
                                 dict(boxed=label.endswith("box]")), "rollout1", 8, nu)
         else:
@@ -393,11 +425,13 @@ def kernels_phase(report):
             rel, err = compare(label, got, plain(), tol)
             log(f"  {label} {tag}: kernel vs plain max rel err {rel:.3e}, max abs err "
                 f"{err:.3e}" + (f" (limit {tol:g}, flags equal)" if tol else ""))
-            if name == "rollout1":
+            if name in ("rollout2", "rollout1"):
                 if err != 0.0:
-                    raise AssertionError(f"{label} {tag}: K6 differs from its plain version "
-                                         f"by {err:.3e}; it is built to equal it to the bit")
-                check_k6_is_k3_first_trial(label, tag, kern, got)
+                    raise AssertionError(f"{label} {tag}: the rollout differs from its plain "
+                                         f"version by {err:.3e}; it is built to equal it to "
+                                         f"the bit")
+                if name == "rollout1":
+                    check_k6_is_k3_first_trial(label, tag, kern, got)
             target = (report[name] if label in ROW_CASE else
                       report[name].setdefault("variants", {}).setdefault(label, {}))
             target[f"rel_err_{tag}"] = rel
@@ -415,11 +449,11 @@ def kernels_phase(report):
                 log(f"  {label} f32 time: kernel {target['ms']:.4f} ms, plain "
                     f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
                     f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
-    # the box kernel at four times the batch, kernel only; its operations
-    # scale with B (elementwise per scenario)
+    # the box kernel and the rollouts at four times the batch, kernel only;
+    # their operations scale with B (elementwise per scenario)
     for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(torch.float32, B_FILL,
                                                                ("vsa",)).items():
-        if name not in ("riccati_box", "riccati_boxfddp"):
+        if label not in ROW_CASE or name == "linearize":
             continue
         ms = cuda_ms(kern, 10)
         bms, by, _ = bound(report[name]["ops"] * (B_FILL // B_PATH),
@@ -437,7 +471,7 @@ def same_bits(a, b):
 
 def check_k6_is_k3_first_trial(label, tag, kern, got):
     """K6 at alpha equals K3's first trial at alpha, to the bit (one
-    per-thread code, rollout.cu::rollout_trial)."""
+    trajectory code, rollout.cu::rollout_group)."""
     from aslr_to_tpu_torch.kernels import vsa_kernels as vk
 
     a = kern.args                   # K6's inputs: (spec, xs, us, k, K, x0, alpha, ...)

@@ -4,7 +4,8 @@
 // another with one std::thread per CUDA thread, and the block and warp
 // primitives meet at a std::barrier over the block. That is exact only for
 // kernels in which every thread of a block reaches the same barriers,
-// votes and shuffles in the same order, as the box kernel's do.
+// votes and shuffles in the same order, as the box kernel's and the
+// rollout's do.
 #pragma once
 
 #include <barrier>
@@ -82,11 +83,13 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
   });
 }
 inline int __all_sync(unsigned mask, int p) { return __ballot_sync(mask, p) == mask; }
+// a shuffle whose mask leaves out the calling lane or its source lane is
+// undefined on the card; here it reads NaN, so the fault shows in the output
 template <class T>
-inline T __shfl_sync(unsigned, T v, int src, int width) {
-  const unsigned lane = threadIdx.x & 31u;
+inline T __shfl_sync(unsigned mask, T v, int src, int width) {
+  const unsigned lane = threadIdx.x & 31u, from = (lane & ~(unsigned)(width - 1)) + src;
   return cpu_cuda::exchange((double)v, [=](const double* w) {
-    return (T)w[(lane & ~(unsigned)(width - 1)) + src];
+    return (mask >> lane & 1u) && (mask >> from & 1u) ? (T)w[from] : (T)NAN;
   });
 }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }

@@ -7,7 +7,8 @@ without it. K1-K3 run on the VSA arm and again in their SEA and gap
 variants; K4 on the SEA arm with gaps; the box kernel (K2, and K5 at nu 4
 and 2) on ragged batches, warm and cold, and with one NaN scenario among
 healthy ones in its warp; K6 in its box,
-SEA-gap and unbounded variants, also against K3's first trial; the fast
+SEA-gap and unbounded variants, also against K3's first trial; K3 and K6
+in every variant on ragged batches, to the bit; the fast
 path of the per-scenario solver against its plain backend; P against its
 plain version:
 
@@ -115,7 +116,7 @@ def _gaps(inp, lin):
     return torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
 
 
-def _sea_calls(name, dtype, device):
+def _sea_calls(name, dtype, device, B=B):
     """K1's SEA variant, K4 with gaps and K3's gap variant on the SEA arm."""
     w = two_dof_sea(T=T, dtype=dtype, device=device)
     spec = vsa_kernels.extract_vsa_spec(w.problem, None)
@@ -333,6 +334,52 @@ def test_rollout1_matches_plain_and_rollout2(cuda, variant, dtype):
     for g, w in zip(got, first):        # the negative-reg lanes are NaN in both
         assert torch.equal(g.isnan(), w.isnan())
         assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+
+
+def _rollout2_args(variant, dtype, device, B):
+    """K3's inputs at batch ``B``: the VSA arm in its box, unbounded, and in
+    its box with gaps; the SEA arm with gaps. The gains of a lane whose
+    backward failed are zeroed, as the solvers' are."""
+    if variant == "sea_gaps":
+        return _sea_calls("rollout2", dtype, device, B)[2]
+    inp = _inputs(dtype, device, B=B)
+    lin = vsa_kernels.linearize_plain(inp["spec"], inp["xs"], inp["us"], inp["wterm"])
+    bw = riccati.riccati_box_plain(*_bw_args(inp, lin))
+    args = _roll_args(inp, bw._replace(k=torch.where(bw.ok, bw.k, 0.0),
+                                       K=torch.where(bw.ok, bw.K, 0.0)))
+    if variant == "vsa_unbounded":
+        return args[:9] + (None, None)
+    if variant == "vsa_box_gaps":
+        return args + (_gaps(inp, lin), (torch.arange(B, device=device) % 2).to(dtype))
+    return args
+
+
+def _assert_same_bits(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.isnan(), w.isnan()), name
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("variant", ["vsa_box", "vsa_unbounded", "vsa_box_gaps", "sea_gaps"])
+def test_rollouts_match_plain_version_to_the_bit(cuda, variant, batch, dtype):
+    """K3 and K6 on ragged batches (none a multiple of a block's 16 or 32
+    trajectories; B=1 and 15 also take the one-element copies) equal their
+    plain versions to the bit, and K6 equals K3's first trial."""
+    args = _rollout2_args(variant, dtype, cuda, batch)
+    k6_args = args[:6] + args[7:]
+    before = dict(build.LAUNCHES)
+    got = vsa_kernels.rollout2(*args)
+    one = vsa_kernels.rollout1(*k6_args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rollout2"] == before["rollout2"] + 1
+    assert build.LAUNCHES["rollout1"] == before["rollout1"] + 1
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6_args))
+    first, _ = vsa_kernels.rollout2(*k6_args[:7], 0.5 * k6_args[6], *k6_args[7:])
+    _assert_same_bits(one, first)
 
 
 def test_fast_path_kernels_match_plain_on_card(cuda):
