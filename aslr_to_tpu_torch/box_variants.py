@@ -1,5 +1,6 @@
-"""Time source variants of the box kernel (K2 and K5, ``csrc/riccati_box.cu``)
-on the card, to see what each part of its design is worth.
+"""Time source variants of the group kernel of ``csrc/riccati_box.cu`` (K2
+and K5 with BoxQP gains, K4 with Cholesky gains) on the card, to see what
+each part of its design is worth.
 
     python -m aslr_to_tpu_torch.box_variants [--batch 4096 16384]
 
@@ -7,11 +8,13 @@ Each variant is the kernel's source (with ``boxqp.cuh`` and ``common.cuh``)
 after a few text substitutions, compiled by its own ``nvcc`` (all at once)
 into a library under ``build/aslr_to_tpu_torch/variants/``; a substitution
 that no longer matches the source raises. K2 and K5 run in float32 at T=100
-on the inputs of ``chip_smoke.py``'s kernel phase (a linearization at
-x0 = 0.05 randn, seed 0, zero controls, warm QPs from zero kprev,
-qp_iters=2), timed with CUDA events over 10 launches after a warm-up, two
-rounds of every variant in turn. Each variant's outputs are compared with
-the unmodified kernel's: the exact ones must equal it to the bit.
+on the inputs of ``chip_smoke.py``'s kernel phase (a linearization of the
+VSA arm at x0 = 0.05 randn, seed 0, zero controls, warm QPs from zero
+kprev, qp_iters=2), K4 on the SEA arm (nu 2, its quasi-static controls, the
+gaps of that linearization) and on the VSA arm (nu 4), timed with CUDA
+events over 10 launches after a warm-up, two rounds of every variant in
+turn. Each variant's outputs are compared with the unmodified kernel's: the
+exact ones must equal it to the bit.
 
   base           the source as it is
   divide_zeros   the zero-dividend skip off: every division runs, and a zero
@@ -20,11 +23,13 @@ the unmodified kernel's: the exact ones must equal it to the bit.
                  the gains, as the plain version does
   approx_div     __fdividef and x * rsqrtf(x) for the factor's divisions and
                  square roots: a floor for what IEEE division costs (inexact)
+  chol_skip0     K4's Cholesky with the zero-dividend skip of the BoxQP's
   fma            -fmad=true (inexact)
   group16/32     16 or 32 lanes a scenario
   threads64/256  blocks of 64 or 256 threads
 
-The base kernel also runs at qp_iters 0, 1, 2, 4 and 8. Needs a CUDA device.
+The base kernel also runs K2 and K5 at qp_iters 0, 1, 2, 4 and 8. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from .kernels import build
 from .kernels import riccati as rk
 
 FILES = ("riccati_box.cu", "boxqp.cuh", "common.cuh")
-EXACT = ("base", "divide_zeros", "refactor", "group16", "group32", "threads64", "threads256")
+EXACT = ("base", "divide_zeros", "refactor", "chol_skip0", "group16", "group32", "threads64",
+         "threads256")
 
 
 def _threads(n):
@@ -58,6 +64,8 @@ VARIANTS = {
                    ("boxqp.cuh", "        L[i][i] = dsqrt(s);",
                     "        if constexpr (SKIP0 && sizeof(S) == 4) L[i][i] = s * rsqrtf(s);\n"
                     "        else L[i][i] = dsqrt(s);")],
+    "chol_skip0": [("riccati_box.cu", "constexpr bool kCholSkip0 = false;",
+                    "constexpr bool kCholSkip0 = true;")],
     "fma": [],
     "group16": [("riccati_box.cu", "  constexpr int G = NDX;", "  constexpr int G = 16;")],
     "group32": [("riccati_box.cu", "  constexpr int G = NDX;", "  constexpr int G = 32;")],
@@ -96,37 +104,50 @@ def build_variants(names):
                 if "Used" in line]
         print(f"built {name}: {', '.join(regs)}", flush=True)
         lib = ctypes.CDLL(str(root / name / "lib.so"))
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, "aslr_riccati_box" + suffix)
-            fn.argtypes = build._SIGNATURES["aslr_riccati_box"]
-            fn.restype = ctypes.c_int
+        for base in ("aslr_riccati_box", "aslr_riccati_fddp"):
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, base + suffix)
+                fn.argtypes = build._SIGNATURES[base]
+                fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
 def box_inputs(B, T=100, dtype=torch.float32):
-    """K2's and K5's arguments on chip_smoke's kernel-phase inputs."""
-    from . import two_dof_vsa_boxddp
+    """{case: (call of qp_iters, whether it takes them)}: K2 and K5 on the
+    VSA arm, K4 on the SEA and VSA arms, on chip_smoke's kernel-phase
+    inputs."""
+    from . import two_dof_sea, two_dof_vsa_boxddp
     from .kernels import vsa_kernels as vk
     from .measure import x0_batch
 
-    w = two_dof_vsa_boxddp(T=T, dtype=dtype)
-    spec = vk.extract_vsa_spec(w.problem, w.bounds)
     x0 = x0_batch(B, dtype, seed=0).T.contiguous()
     xs = x0.expand(T + 1, 8, B).contiguous()
-    us = torch.zeros(T, spec.nu, B, dtype=dtype, device="cuda")
-    lin = vk.linearize_plain(spec, xs, us, torch.full((B,), spec.w_goal_term, dtype=dtype,
-                                                       device="cuda"))
-    r = lin.run
-    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"], lin.term["Lx"],
-              lin.term["Lxx"])
-    fs = torch.cat([torch.zeros_like(x0)[None], lin.xnext - xs[1:]], dim=0)
-    box = [torch.as_tensor(b, dtype=dtype, device="cuda")[:, None].expand(spec.nu, B).contiguous()
-           for b in (spec.lb, spec.ub)]
-    tail = (us, torch.zeros_like(us), box[0], box[1],
-            torch.full((B,), 1e-9, dtype=dtype, device="cuda"))
-    return {"K2": (rk.riccati_box_backward, derivs + tail),
-            "K5": (rk.riccati_boxfddp_backward, derivs + (fs,) + tail)}
+    reg = torch.full((B,), 1e-9, dtype=dtype, device="cuda")
+    cases = {}
+    for arm in ("vsa", "sea"):
+        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T, dtype=dtype)
+        spec = vk.extract_vsa_spec(w.problem, w.bounds)
+        if arm == "sea":
+            us = w.problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+        else:
+            us = torch.zeros(T, spec.nu, B, dtype=dtype, device="cuda")
+        lin = vk.linearize_plain(spec, xs, us, torch.full((B,), spec.w_goal_term, dtype=dtype,
+                                                           device="cuda"))
+        r = lin.run
+        derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+                  lin.term["Lx"], lin.term["Lxx"])
+        fs = torch.cat([torch.zeros_like(x0)[None], lin.xnext - xs[1:]], dim=0)
+        cases[f"K4 {arm.upper()}"] = (lambda it, a=derivs + (fs, reg):
+                                      rk.riccati_fddp_backward(*a), False)
+        if arm == "vsa":
+            box = [torch.as_tensor(b, dtype=dtype, device="cuda")[:, None].expand(spec.nu, B)
+                   .contiguous() for b in (spec.lb, spec.ub)]
+            tail = (us, torch.zeros_like(us), box[0], box[1], reg)
+            cases["K2"] = (lambda it, a=derivs + tail: rk.riccati_box_backward(*a, it), True)
+            cases["K5"] = (lambda it, a=derivs + (fs,) + tail:
+                           rk.riccati_boxfddp_backward(*a, it), True)
+    return {k: cases[k] for k in ("K2", "K5", "K4 SEA", "K4 VSA")}
 
 
 def cuda_ms(fn, reps=10):
@@ -161,12 +182,12 @@ def main(argv=None):
     own = build._lib
     try:
         for B in args.batch:
-            for kernel, (fn, kargs) in box_inputs(B).items():
+            for kernel, (fn, takes_qp) in box_inputs(B).items():
                 build._lib = libs["base"]
-                want = fn(*kargs, 2)
+                want = fn(2)
                 for name, lib in libs.items():
                     build._lib = lib
-                    got = fn(*kargs, 2)
+                    got = fn(2)
                     torch.cuda.synchronize()
                     if name in EXACT and not same_bits(got, want):
                         raise AssertionError(f"variant {name} of {kernel} differs from base")
@@ -174,12 +195,13 @@ def main(argv=None):
                     times = []
                     for name, lib in libs.items():
                         build._lib = lib
-                        times.append(f"{name} {cuda_ms(lambda: fn(*kargs, 2)):.4f}")
+                        times.append(f"{name} {cuda_ms(lambda: fn(2)):.4f}")
                     print(f"{kernel} f32 T=100 B={B} ms (round {rnd}): " + ", ".join(times),
                           flush=True)
-                build._lib = libs["base"]
-                sweep = [f"{it}: {cuda_ms(lambda: fn(*kargs, it)):.4f}" for it in (0, 1, 2, 4, 8)]
-                print(f"{kernel} base B={B} ms by qp_iters: " + ", ".join(sweep), flush=True)
+                if takes_qp:
+                    build._lib = libs["base"]
+                    sweep = [f"{it}: {cuda_ms(lambda: fn(it)):.4f}" for it in (0, 1, 2, 4, 8)]
+                    print(f"{kernel} base B={B} ms by qp_iters: " + ", ".join(sweep), flush=True)
     finally:
         build._lib = own
 

@@ -1,7 +1,7 @@
 // Small dense linear algebra, per thread, shared by the backward Riccati
-// kernels (K2/K5 in riccati_box.cu, K4 in riccati_fddp.cu), and the masked
-// projected-Newton BoxQP of K2/K5 over a group of lanes that holds one
-// scenario.
+// kernels (K2, K4 and K5, one group kernel in riccati_box.cu), and the
+// masked projected-Newton BoxQP of K2/K5 over a group of lanes that holds
+// one scenario.
 //
 // Replaces the helpers of aslr_to_tpu/pallas/riccati.py: _chol4,
 // _chol4_solve, _masked_chol_solve and _boxqp_lanes. Every sum runs in the

@@ -23,47 +23,69 @@ template <class V> __device__ inline typename scalar_of<V>::type cst(double c) {
   return (typename scalar_of<V>::type)c;
 }
 
-template <class V> __device__ inline Vec3<V> v_add(const Vec3<V>& a, const Vec3<V>& b) {
+// The vector and matrix operations take a scalar and a dual operand alike
+// (Mix: a scalar times a dual is a dual). The robot's constants stay
+// scalars, as the plain version's constant tensors do, so a constant times a
+// dual performs the plain version's two multiplications, not the three
+// multiplications and an add of a dual with a zero tangent (whose 0 * inf
+// would also turn an infinite value into a NaN tangent).
+template <class A, class B> struct Mix { typedef A type; };
+template <class S> struct Mix<S, Dual<S>> { typedef Dual<S> type; };
+template <class A, class B> using mix_t = typename Mix<A, B>::type;
+
+template <class A, class B>
+__device__ inline Vec3<mix_t<A, B>> v_add(const Vec3<A>& a, const Vec3<B>& b) {
   return {{a.x[0] + b.x[0], a.x[1] + b.x[1], a.x[2] + b.x[2]}};
 }
-template <class V> __device__ inline Vec3<V> v_sub(const Vec3<V>& a, const Vec3<V>& b) {
+template <class A, class B>
+__device__ inline Vec3<mix_t<A, B>> v_sub(const Vec3<A>& a, const Vec3<B>& b) {
   return {{a.x[0] - b.x[0], a.x[1] - b.x[1], a.x[2] - b.x[2]}};
 }
-template <class V> __device__ inline V v_dot(const Vec3<V>& a, const Vec3<V>& b) {
+template <class A, class B>
+__device__ inline mix_t<A, B> v_dot(const Vec3<A>& a, const Vec3<B>& b) {
   return a.x[0] * b.x[0] + a.x[1] * b.x[1] + a.x[2] * b.x[2];
 }
-template <class V> __device__ inline Vec3<V> v_cross(const Vec3<V>& a, const Vec3<V>& b) {
+template <class A, class B>
+__device__ inline Vec3<mix_t<A, B>> v_cross(const Vec3<A>& a, const Vec3<B>& b) {
   return {{a.x[1] * b.x[2] - a.x[2] * b.x[1],
            a.x[2] * b.x[0] - a.x[0] * b.x[2],
            a.x[0] * b.x[1] - a.x[1] * b.x[0]}};
 }
-template <class V> __device__ inline Vec3<V> v_const(const double* c) {
-  return {{V(cst<V>(c[0])), V(cst<V>(c[1])), V(cst<V>(c[2]))}};
+// a constant vector or matrix of the parameter block, as scalars of V's type
+template <class V> __device__ inline Vec3<typename scalar_of<V>::type> v_const(const double* c) {
+  return {{cst<V>(c[0]), cst<V>(c[1]), cst<V>(c[2])}};
 }
-template <class V> __device__ inline Vec3<V> v_zero() { return {{V(cst<V>(0.0)), V(cst<V>(0.0)), V(cst<V>(0.0))}}; }
-template <class V> __device__ inline Mat3<V> m_const(const double (*c)[3]) {
-  Mat3<V> M;
+template <class V> __device__ inline Mat3<typename scalar_of<V>::type> m_const(const double (*c)[3]) {
+  Mat3<typename scalar_of<V>::type> M;
   for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) M.m[i][j] = V(cst<V>(c[i][j]));
+    for (int j = 0; j < 3; ++j) M.m[i][j] = cst<V>(c[i][j]);
   return M;
 }
+// a scalar vector as a V vector (a dual with a zero tangent)
+template <class V, class S> __device__ inline Vec3<V> v_lift(const Vec3<S>& a) {
+  return {{V(a.x[0]), V(a.x[1]), V(a.x[2])}};
+}
+template <class V> __device__ inline Vec3<V> v_zero() { return {{V(cst<V>(0.0)), V(cst<V>(0.0)), V(cst<V>(0.0))}}; }
 // A @ v
-template <class V> __device__ inline Vec3<V> m_vec(const Mat3<V>& A, const Vec3<V>& v) {
-  Vec3<V> r;
-  for (int i = 0; i < 3; ++i) r.x[i] = A.m[i][0] * v.x[0] + A.m[i][1] * v.x[1] + A.m[i][2] * v.x[2];
+template <class A, class B>
+__device__ inline Vec3<mix_t<A, B>> m_vec(const Mat3<A>& M, const Vec3<B>& v) {
+  Vec3<mix_t<A, B>> r;
+  for (int i = 0; i < 3; ++i) r.x[i] = M.m[i][0] * v.x[0] + M.m[i][1] * v.x[1] + M.m[i][2] * v.x[2];
   return r;
 }
 // A^T @ v
-template <class V> __device__ inline Vec3<V> m_t_vec(const Mat3<V>& A, const Vec3<V>& v) {
-  Vec3<V> r;
-  for (int j = 0; j < 3; ++j) r.x[j] = A.m[0][j] * v.x[0] + A.m[1][j] * v.x[1] + A.m[2][j] * v.x[2];
+template <class A, class B>
+__device__ inline Vec3<mix_t<A, B>> m_t_vec(const Mat3<A>& M, const Vec3<B>& v) {
+  Vec3<mix_t<A, B>> r;
+  for (int j = 0; j < 3; ++j) r.x[j] = M.m[0][j] * v.x[0] + M.m[1][j] * v.x[1] + M.m[2][j] * v.x[2];
   return r;
 }
-template <class V> __device__ inline Mat3<V> m_mul(const Mat3<V>& A, const Mat3<V>& B) {
-  Mat3<V> C;
+template <class A, class B>
+__device__ inline Mat3<mix_t<A, B>> m_mul(const Mat3<A>& X, const Mat3<B>& Y) {
+  Mat3<mix_t<A, B>> C;
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
-      C.m[i][j] = A.m[i][0] * B.m[0][j] + A.m[i][1] * B.m[1][j] + A.m[i][2] * B.m[2][j];
+      C.m[i][j] = X.m[i][0] * Y.m[0][j] + X.m[i][1] * Y.m[1][j] + X.m[i][2] * Y.m[2][j];
   return C;
 }
 
@@ -94,10 +116,10 @@ __device__ inline void frame_placement(const VSAParams<NL>& P, const V* q, Mat3<
   Vec3<V> trans, trans_f;
   for (int i = 0; i < NL; ++i) {
     Mat3<V> E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
-    Vec3<V> pi = v_const<V>(P.joint_pos[i]);
+    const auto pi = v_const<V>(P.joint_pos[i]);
     if (i == 0) {
       rot = E;
-      trans = pi;
+      trans = v_lift<V>(pi);
     } else {
       trans = v_add(m_vec(rot, pi), trans);
       rot = m_mul(rot, E);
@@ -120,7 +142,7 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
   const Vec3<V> zero = v_zero<V>();
   for (int i = 0; i < NL; ++i) {
     Mat3<V> E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
-    Vec3<V> p = v_const<V>(P.joint_pos[i]);
+    const auto p = v_const<V>(P.joint_pos[i]);
     Es[i] = E;
     Vec3<V> vp, wp, ap, alp;
     if (i == 0) {
@@ -128,7 +150,7 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
       wp = zero;
       if (gravity) {
         double mg[3] = {-P.gravity[0], -P.gravity[1], -P.gravity[2]};
-        ap = v_const<V>(mg);
+        ap = v_lift<V>(v_const<V>(mg));
       } else {
         ap = zero;
       }
@@ -143,7 +165,7 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
     Vec3<V> wi = m_t_vec(E, wp);
     Vec3<V> ai = m_t_vec(E, v_add(ap, v_cross(alp, p)));
     Vec3<V> ali = m_t_vec(E, alp);
-    Vec3<V> axis = v_const<V>(P.axis[i]);
+    const auto axis = v_const<V>(P.axis[i]);
     Vec3<V> wJ = {{v[i] * axis.x[0], v[i] * axis.x[1], v[i] * axis.x[2]}};
     Vec3<V> aJ = {{a[i] * axis.x[0], a[i] * axis.x[1], a[i] * axis.x[2]}};
     Vec3<V> w_tot = v_add(wi, wJ);
@@ -153,8 +175,8 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
     aas[i] = v_add(v_add(ali, aJ), v_cross(w_tot, wJ));
 
     const auto m_i = cst<V>(P.mass[i]);
-    Vec3<V> c = v_const<V>(P.com[i]);
-    Mat3<V> Ic = m_const<V>(P.inertia[i]);
+    const auto c = v_const<V>(P.com[i]);
+    const auto Ic = m_const<V>(P.inertia[i]);
     // momentum of body i: h_lin = m (v + w x c), h_ang = I w + c x h_lin
     Vec3<V> t1 = v_add(vs[i], v_cross(ws[i], c));
     Vec3<V> h_lin = {{m_i * t1.x[0], m_i * t1.x[1], m_i * t1.x[2]}};
@@ -310,8 +332,13 @@ __device__ inline V goal_cost(const VSAParams<NL>& P, const V* q_l, bool termina
   Mat3<V> R;
   Vec3<V> p;
   frame_placement<V, NL>(P, q_l, R, p);
-  Mat3<V> Ri = m_const<V>(terminal ? P.term_rinv : P.tgt_rinv);
-  Vec3<V> tp = v_const<V>(terminal ? P.term_pos : P.tgt_pos);
+  // the running or the terminal target, entry by entry
+  Mat3<typename scalar_of<V>::type> Ri;
+  Vec3<typename scalar_of<V>::type> tp;
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) Ri.m[i][j] = cst<V>(terminal ? P.term_rinv[i][j] : P.tgt_rinv[i][j]);
+    tp.x[i] = cst<V>(terminal ? P.term_pos[i] : P.tgt_pos[i]);
+  }
   Mat3<V> rM = m_mul(Ri, R);
   Vec3<V> rp = m_vec(Ri, v_sub(p, tp));
   log6(rM, rp, r6);

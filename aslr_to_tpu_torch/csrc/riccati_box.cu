@@ -1,29 +1,36 @@
-// K2 and K5: the box backward Riccati sweeps, one template. GAPS = false is
-// K2 (Box-DDP), GAPS = true is K5 (BoxFDDP: K2 plus the FDDP deflection).
+// K2, K4 and K5: the backward Riccati sweeps, one group kernel. Two template
+// switches pick the instance: QP (the gains of a masked projected-Newton
+// BoxQP, or those of a plain Cholesky of Quu) and GAPS (the FDDP deflection
+// and gap sums). K2 (Box-DDP) is QP without GAPS, K5 (BoxFDDP) QP with
+// GAPS, K4 (FDDP, and DDP with zero gaps) the Cholesky instance with GAPS.
 //
 // Replaces the Pallas kernels aslr_to_tpu/pallas/riccati.py::
 // _riccati_box_kernel (launched by prepare_riccati_box_backward_lanes, with
 // its helpers _boxqp_lanes, _masked_chol_solve, _chol4, _chol4_solve) and
 // _riccati_fddp_kernel with boxed=True (launched by
-// prepare_riccati_boxfddp_backward_lanes). Per scenario, over the knots
+// prepare_riccati_boxfddp_backward_lanes) and boxed=False (launched by
+// prepare_riccati_fddp_backward_lanes). Per scenario, over the knots
 // T-1 .. 0:
 //   Q terms from (Vx, Vxx), Quu + reg I;
-//   a masked projected-Newton BoxQP on the box (lb - u, ub - u), started
-//   from -kprev (warm) or 0 (cold): qp_iters iterations, each a masked
-//   Cholesky Newton step and a 5-step Armijo search;
-//   the free-subspace gains K from a masked Cholesky;
-//   the value update with symmetrization and reg; for K5 the deflection
+//   the gains: K2/K5 a masked projected-Newton BoxQP on the box (lb - u,
+//   ub - u), started from -kprev (warm) or 0 (cold), qp_iters iterations,
+//   each a masked Cholesky Newton step and a 5-step Armijo search, then the
+//   free-subspace gains K from a masked Cholesky; K4 k and K from one
+//   Cholesky of Quu;
+//   the value update with symmetrization and reg; with GAPS the deflection
 //   w_t = Vxx_t fs_t and Vx += w_t (after the terminal node's own w_T);
-//   the sums dg, dq, stop (K5: and dg_gap = -sum Vx.fs, dq_gap = sum fs.w)
-//   and the flags ok and retryable (a failure whose Quu was still finite).
+//   the sums dg, dq, stop (with GAPS also dg_gap = -sum Vx.fs, dq_gap =
+//   sum fs.w) and the flags ok and retryable (a failure whose Quu was still
+//   finite).
 //
 // What bounds it: the instructions each warp issues. The bytes (228-236
-// values a knot and scenario) take 0.13 ms at T=100, B=4096 on an H100; the
-// knot loop is a dependent chain per scenario, and the BoxQP inside it a
-// chain of IEEE divisions and square roots (up to 54 a knot). The earlier
-// design (one thread a scenario) ran 4096 threads, read every derivative
-// from global memory inside the products, solved the eight gain columns one
-// after another and spilled in f64. This one:
+// values a knot and scenario with a box, 208 for K4 at nu 2) take
+// 0.10-0.14 ms at T=100, B=4096 on an H100; the knot loop is a dependent
+// chain per scenario, and the BoxQP inside it a chain of IEEE divisions and
+// square roots (up to 54 a knot). The earlier designs (one thread a
+// scenario) ran 4096 threads, read every derivative from global memory
+// inside the products, solved the eight gain columns one after another
+// and spilled in f64. This one:
 //   - spreads a scenario over a group of G >= NDX lanes of one warp (G = 8:
 //     four scenarios a warp, 16 a block of 128 threads, 256 blocks at
 //     B = 4096). Lane r owns row r of Fx^T Vxx, Qx, Qxu and the new Vxx,
@@ -32,20 +39,23 @@
 //     memory; the group meets at __syncwarp on its own mask and votes with
 //     __all_sync / __ballot_sync on that mask, never the whole warp's.
 //     Wider groups (16, 32 lanes) run slower: the work every lane of a
-//     group repeats (the QP) then serves fewer scenarios a warp instruction;
+//     group repeats (the QP, the Cholesky) then serves fewer scenarios a
+//     warp instruction. At ndx = 28 the group is a whole warp;
 //   - stages each knot's inputs in shared memory with cp.async, coalesced
 //     along the batch axis ([rows, scenarios] tiles, 16-byte copies where
 //     the batch stride and the pointers allow, else one element a copy),
 //     double-buffered: knot t-1's copy is in flight while knot t computes,
-//     so no global load sits on the dependent chain;
-//   - runs the BoxQP's factor and solves redundantly on every lane of the
-//     group (a SIMT instruction costs the same on one lane or eight), its
+//     so no global load sits on the dependent chain. K4 stages no controls,
+//     warm start or box;
+//   - runs the factor and the solves redundantly on every lane of the group
+//     (a SIMT instruction costs the same on one lane or eight); the BoxQP's
 //     five Armijo trials on five lanes (accepted in order by a ballot, the
 //     winner's point shuffled from its lane), and keeps the masked factor
 //     while the free set does not change (boxqp.cuh);
-//   - skips the division of a zero dividend (boxqp.cuh::div0): the clamped
-//     controls zero whole rows of the masked systems, and IEEE division
-//     sends a zero dividend down its slow path.
+//   - skips the division of a zero dividend in the BoxQP (boxqp.cuh::div0):
+//     the clamped controls zero whole rows of the masked systems, and IEEE
+//     division sends a zero dividend down its slow path. K4's Cholesky has
+//     few zero dividends and divides plainly (kCholSkip0).
 // aslr_to_tpu_torch/box_variants.py times each of these choices against
 // its alternative on the card.
 // The products are 8x8x8 per scenario, each scenario with its own
@@ -73,21 +83,25 @@ struct BoxSweep {
 };
 
 constexpr int kSweepThreads = 128;
+constexpr bool kCholSkip0 = false;  // K4's Cholesky skips zero dividends (boxqp.cuh::div0)
 
 // The block's shared memory: two stages of knot inputs, each a [rows, P]
 // tile (P = scenarios a block plus 16 bytes, which spreads a warp's four
 // scenarios over the banks), then one scratch region a scenario.
-template <class S, int NDX, int NU, int G, bool GAPS>
+template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
 struct Sweep {
   static constexpr int SPB = kSweepThreads / G;
   static constexpr int VEC = 16 / (int)sizeof(S);
   static constexpr int P = SPB + VEC;
-  static_assert(G >= NDX && G >= 5, "a lane a row, and five Armijo trials");
+  static constexpr bool BOXQP = QP;
+  static_assert(G >= NDX, "a lane a row");
+  static_assert(!QP || G >= 5, "five Armijo trials, a lane each");
   static_assert(SPB % VEC == 0, "16-byte copies tile the scenarios of a block");
-  // stage rows, per knot and scenario
+  // stage rows, per knot and scenario (the controls and the warm start only
+  // for the BoxQP)
   static constexpr int rFx = 0, rFu = rFx + NDX * NDX, rLx = rFu + NDX * NU, rLu = rLx + NDX,
                        rLxx = rLu + NU, rLxu = rLxx + NDX * NDX, rLuu = rLxu + NDX * NU,
-                       rUs = rLuu + NU * NU, rKp = rUs + NU, rFs = rKp + NU,
+                       rUs = rLuu + NU * NU, rKp = rUs + (QP ? NU : 0), rFs = rKp + (QP ? NU : 0),
                        ROWS = rFs + (GAPS ? NDX : 0), STAGE = ROWS * P;
   // scratch, per scenario: Vxx (column r written by lane r), Vx, w, the
   // exchanged FuTVxx (then the unsymmetrized V), Qu, Quu and K
@@ -122,8 +136,10 @@ __device__ inline void stage_knot(const BoxSweep<S>& a, S* dst, long long t, int
   stage_rows<L, V>(dst + L::rLxx * L::P, a.Lxx, L::rLxu - L::rLxx, t, TB, b0, tid);
   stage_rows<L, V>(dst + L::rLxu * L::P, a.Lxu, L::rLuu - L::rLxu, t, TB, b0, tid);
   stage_rows<L, V>(dst + L::rLuu * L::P, a.Luu, L::rUs - L::rLuu, t, TB, b0, tid);
-  stage_rows<L, V>(dst + L::rUs * L::P, a.us, L::rKp - L::rUs, t, TB, b0, tid);
-  if (a.kprev) stage_rows<L, V>(dst + L::rKp * L::P, a.kprev, L::rFs - L::rKp, t, TB, b0, tid);
+  if constexpr (L::BOXQP) {
+    stage_rows<L, V>(dst + L::rUs * L::P, a.us, L::rKp - L::rUs, t, TB, b0, tid);
+    if (a.kprev) stage_rows<L, V>(dst + L::rKp * L::P, a.kprev, L::rFs - L::rKp, t, TB, b0, tid);
+  }
   if constexpr (L::ROWS > L::rFs)
     stage_rows<L, V>(dst + L::rFs * L::P, a.fs, L::ROWS - L::rFs, t, TB, b0, tid);
 }
@@ -135,9 +151,9 @@ __device__ inline void stage(const BoxSweep<S>& a, S* dst, long long t, int b0, 
   __pipeline_commit();
 }
 
-template <class S, int NDX, int NU, int G, bool GAPS>
+template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
 __device__ inline void box_sweep(const BoxSweep<S>& a) {
-  using L = Sweep<S, NDX, NU, G, GAPS>;
+  using L = Sweep<S, NDX, NU, G, GAPS, QP>;
   extern __shared__ __align__(16) unsigned char sweep_smem[];
   S* const stages = reinterpret_cast<S*>(sweep_smem);
   const int tid = threadIdx.x, s = tid / G;
@@ -157,10 +173,11 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
 
   const S reg = a.reg[bc];
   S lo[NU], hi[NU];
-  for (int j = 0; j < NU; ++j) {
-    lo[j] = a.lb[j * TB + bc];
-    hi[j] = a.ub[j * TB + bc];
-  }
+  if constexpr (QP)
+    for (int j = 0; j < NU; ++j) {
+      lo[j] = a.lb[j * TB + bc];
+      hi[j] = a.ub[j * TB + bc];
+    }
   // terminal node: Vxx = tLxx + reg I (row r, stored as given: tLxx need
   // not be symmetric), Vx = tLx (K5: + w_T, w_T = Vxx fs_T)
   S vrow[NDX];
@@ -267,25 +284,29 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
       }
     }
 
-    // box QP on du in (lb - u, ub - u), warm-started from -kprev
-    S low[NU], up[NU], du[NU], free[NU];
-    for (int j = 0; j < NU; ++j) {
-      const S u_t = in(L::rUs + j);
-      low[j] = lo[j] - u_t;
-      up[j] = hi[j] - u_t;
-      du[j] = a.kprev ? -in(L::rKp + j) : S(0);
-    }
-    S Lf[NU][NU];
-    boxqp_group<S, NU>(grp, Quu, Qu, low, up, a.qp_iters, du, free, Lf);
-    S k[NU];
-    for (int j = 0; j < NU; ++j) k[j] = -du[j];
-
-    // column r of the free-subspace gains: masked solve with row r of Qxu
-    S kc[NU];
-    {
+    S k[NU], kc[NU];
+    if constexpr (QP) {
+      // box QP on du in (lb - u, ub - u), warm-started from -kprev
+      S low[NU], up[NU], du[NU], free[NU];
+      for (int j = 0; j < NU; ++j) {
+        const S u_t = in(L::rUs + j);
+        low[j] = lo[j] - u_t;
+        up[j] = hi[j] - u_t;
+        du[j] = a.kprev ? -in(L::rKp + j) : S(0);
+      }
+      S Lf[NU][NU];
+      boxqp_group<S, NU>(grp, Quu, Qu, low, up, a.qp_iters, du, free, Lf);
+      for (int j = 0; j < NU; ++j) k[j] = -du[j];
+      // column r of the free-subspace gains: masked solve with row r of Qxu
       S rhs[NU];
       for (int i = 0; i < NU; ++i) rhs[i] = qxu[i] * free[i];
       chol_solve<S, NU, true>(Lf, rhs, kc);
+    } else {
+      // k = Quu^-1 Qu; column r of K = Quu^-1 (row r of Qxu)
+      S Lf[NU][NU];
+      chol<S, NU, kCholSkip0>(Quu, Lf);
+      chol_solve<S, NU, kCholSkip0>(Lf, Qu, k);
+      chol_solve<S, NU, kCholSkip0>(Lf, qxu, kc);
     }
     if (own)
       for (int i = 0; i < NU; ++i) ks[i * NDX + r] = kc[i];
@@ -383,23 +404,35 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   }
 }
 
-// two entry kernels over one body, so that a profile tells K2 from K5
+// three entry kernels over one body, so that a profile tells K2, K4 and K5
+// apart
 template <class S, int NDX, int NU, int G>
 __global__ void __launch_bounds__(kSweepThreads) riccati_box_kernel(const BoxSweep<S> a) {
-  box_sweep<S, NDX, NU, G, false>(a);
+  box_sweep<S, NDX, NU, G, false, true>(a);
 }
 
 template <class S, int NDX, int NU, int G>
 __global__ void __launch_bounds__(kSweepThreads) riccati_boxfddp_kernel(const BoxSweep<S> a) {
-  box_sweep<S, NDX, NU, G, true>(a);
+  box_sweep<S, NDX, NU, G, true, true>(a);
 }
 
-template <class S, int NDX, int NU, bool GAPS>
+template <class S, int NDX, int NU, int G>
+__global__ void __launch_bounds__(kSweepThreads) riccati_fddp_kernel(const BoxSweep<S> a) {
+  box_sweep<S, NDX, NU, G, true, false>(a);
+}
+
+template <class S, int NDX, int NU, bool GAPS, bool QP>
 static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
   constexpr int G = NDX;
-  using L = Sweep<S, NDX, NU, G, GAPS>;
+  using L = Sweep<S, NDX, NU, G, GAPS, QP>;
   const int grid = (a.B + L::SPB - 1) / L::SPB;
-  if constexpr (GAPS) {
+  if constexpr (!QP) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        riccati_fddp_kernel<S, NDX, NU, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    riccati_fddp_kernel<S, NDX, NU, G><<<grid, kSweepThreads, L::BYTES, stream>>>(a);
+  } else if constexpr (GAPS) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         riccati_boxfddp_kernel<S, NDX, NU, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)L::BYTES);
@@ -415,33 +448,61 @@ static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// 16-byte copies where the batch stride and every staged input allow them
+template <class S>
+static void set_vec(BoxSweep<S>& a) {
+  const void* in[] = {a.Fx, a.Fu, a.Lx, a.Lu, a.Lxx, a.Lxu, a.Luu, a.us, a.kprev, a.fs};
+  a.vec = a.B % (16 / (int)sizeof(S)) == 0;
+  for (const void* p : in) a.vec = a.vec && aligned16(p);
+}
+
 // gaps = 0: K2 (fs, w, dgg, dqg unused); gaps = 1: K5. kprev may be null
 // (cold QPs from 0).
 template <class S>
 static int launch_riccati_box(int ndx, int nu, int gaps, BoxSweep<S> a, void* stream) {
   if (ndx != 8 || (nu != 4 && !(gaps && nu == 2))) return -1;
-  const void* in[] = {a.Fx, a.Fu, a.Lx, a.Lu, a.Lxx, a.Lxu, a.Luu, a.us, a.kprev, a.fs};
-  a.vec = a.B % (16 / (int)sizeof(S)) == 0;
-  for (const void* p : in) a.vec = a.vec && aligned16(p);
+  set_vec(a);
   cudaStream_t st = (cudaStream_t)stream;
-  if (!gaps) return launch_shape<S, 8, 4, false>(a, st);
-  return nu == 2 ? launch_shape<S, 8, 2, true>(a, st) : launch_shape<S, 8, 4, true>(a, st);
+  if (!gaps) return launch_shape<S, 8, 4, false, true>(a, st);
+  if (nu == 2) return launch_shape<S, 8, 2, true, true>(a, st);
+  return launch_shape<S, 8, 4, true, true>(a, st);
+}
+
+// K4: us, kprev, lb, ub null
+template <class S>
+static int launch_riccati_fddp(int ndx, int nu, BoxSweep<S> a, void* stream) {
+  if (ndx != 8 || (nu != 2 && nu != 4)) return -1;
+  set_vec(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nu == 2) return launch_shape<S, 8, 2, true, false>(a, st);
+  return launch_shape<S, 8, 4, true, false>(a, st);
 }
 
 template <class S>
-static int sweep_bytes(int nu, int gaps) {
-  if (!gaps) return nu == 4 ? (int)Sweep<S, 8, 4, 8, false>::BYTES : -1;
-  if (nu == 2) return (int)Sweep<S, 8, 2, 8, true>::BYTES;
-  return nu == 4 ? (int)Sweep<S, 8, 4, 8, true>::BYTES : -1;
+static int sweep_bytes(int nu, int gaps, int qp) {
+  if (!qp) {
+    if (nu == 2) return (int)Sweep<S, 8, 2, 8, true, false>::BYTES;
+    return nu == 4 ? (int)Sweep<S, 8, 4, 8, true, false>::BYTES : -1;
+  }
+  if (!gaps) return nu == 4 ? (int)Sweep<S, 8, 4, 8, false, true>::BYTES : -1;
+  if (nu == 2) return (int)Sweep<S, 8, 2, 8, true, true>::BYTES;
+  return nu == 4 ? (int)Sweep<S, 8, 4, 8, true, true>::BYTES : -1;
 }
 
 }  // namespace aslr
 
 // the dynamic shared memory of one block of the (ndx 8, nu, gaps)
-// instantiation for 4- or 8-byte scalars, in bytes; -1 if there is none
+// instantiation of the box kernel (K2, K5) for 4- or 8-byte scalars, in
+// bytes; -1 if there is none
 extern "C" int aslr_riccati_box_smem(int nu, int gaps, int itemsize) {
-  if (itemsize == 4) return aslr::sweep_bytes<float>(nu, gaps);
-  return itemsize == 8 ? aslr::sweep_bytes<double>(nu, gaps) : -1;
+  if (itemsize == 4) return aslr::sweep_bytes<float>(nu, gaps, 1);
+  return itemsize == 8 ? aslr::sweep_bytes<double>(nu, gaps, 1) : -1;
+}
+
+// the same for K4 at (ndx 8, nu)
+extern "C" int aslr_riccati_fddp_smem(int nu, int itemsize) {
+  if (itemsize == 4) return aslr::sweep_bytes<float>(nu, 1, 0);
+  return itemsize == 8 ? aslr::sweep_bytes<double>(nu, 1, 0) : -1;
 }
 
 #define ASLR_RICCATI_BOX_ENTRY(NAME, S)                                                       \
@@ -457,5 +518,19 @@ extern "C" int aslr_riccati_box_smem(int nu, int gaps, int itemsize) {
     return aslr::launch_riccati_box<S>(ndx, nu, gaps, a, stream);                             \
   }
 
+#define ASLR_RICCATI_FDDP_ENTRY(NAME, S)                                                      \
+  extern "C" int NAME(int ndx, int nu, const S* Fx, const S* Fu, const S* Lx, const S* Lu,    \
+                      const S* Lxx, const S* Lxu, const S* Luu, const S* tLx, const S* tLxx,  \
+                      const S* fs, const S* reg, int T, int B, S* k, S* K, S* w, S* dg,       \
+                      S* dq, S* stop, S* dgg, S* dqg, bool* ok, bool* retryable,              \
+                      void* stream) {                                                         \
+    aslr::BoxSweep<S> a{Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, nullptr, nullptr,       \
+                        nullptr, nullptr, reg, T, B, 0, false, k, K, w, dg, dq, stop, dgg,    \
+                        dqg, ok, retryable};                                                  \
+    return aslr::launch_riccati_fddp<S>(ndx, nu, a, stream);                                  \
+  }
+
 ASLR_RICCATI_BOX_ENTRY(aslr_riccati_box_f32, float)
 ASLR_RICCATI_BOX_ENTRY(aslr_riccati_box_f64, double)
+ASLR_RICCATI_FDDP_ENTRY(aslr_riccati_fddp_f32, float)
+ASLR_RICCATI_FDDP_ENTRY(aslr_riccati_fddp_f64, double)

@@ -6,10 +6,10 @@ PyTorch counterpart of ``aslr_to_tpu/pallas/riccati.py``
 ``_riccati_fddp_kernel`` through ``prepare_riccati_fddp_backward_lanes``
 and ``prepare_riccati_boxfddp_backward_lanes``). Each wrapper takes lane
 tensors (batch innermost, unpadded): on a CUDA tensor it launches its
-kernel (K2 and K5: the box kernel of ``csrc/riccati_box.cu``, without and
-with gaps; K4: ``csrc/riccati_fddp.cu``) or raises; on a
-CPU tensor it runs the plain version below, which follows the kernel's
-order of operations. The plain versions are elementwise (broadcast
+kernel (the group kernel of ``csrc/riccati_box.cu``: K2 and K5 with BoxQP
+gains, without and with gaps; K4 with Cholesky gains and gaps) or raises;
+on a CPU tensor it runs the plain version below, which follows the
+kernel's order of operations. The plain versions are elementwise (broadcast
 products and sums, no ``torch.matmul``), so no TF32 path can touch them
 on the card. ``riccati_batch_major`` calls them from the per-scenario
 solver's batch-major tensors.

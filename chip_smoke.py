@@ -6,20 +6,20 @@ Phases, each printed with its result and time:
   1. device: a CUDA card must be present (else exit 2); its name and power
      limit as nvidia-smi reports them;
   2. build: one nvcc per aslr_to_tpu_torch/csrc/*.cu for sm_90a, all at
-     once (-Xptxas -v), then the link; the box kernel's and each rollout
-     instantiation's dynamic shared memory, and the rollouts' registers and
-     spills;
+     once (-Xptxas -v), then the link; for every instantiation of K1, of the
+     Riccati group kernel (K2, K4, K5) and of the rollouts (K3, K6) its
+     registers, stack frame, spills and dynamic shared memory;
   3. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes (T=100, B=4096): float64 to a relative error of 1e-9
-     with equal flags, float32 reported; K3 and K6 to the bit in both, and
-     K6 equal to K3's first trial at the same step length; kernel and plain
-     times from CUDA events after a warm-up; the least time the card could
-     take for the same work (bytes over 3.35 TB/s against arithmetic
-     operations over 67 TFLOP/s f32). K1 runs its VSA and SEA variants, K3
-     and K6 their box, unbounded and SEA-gap variants, K4 the SEA shape with
-     gaps, K5 the VSA shape; K2, K5 (one box kernel), K3 and K6 (one
-     rollout kernel) also time f32 at B=16384, kernel only, to show whether
-     they fill the card;
+     with equal flags, float32 reported; K1, K3, K4 and K6 to the bit in
+     both, and K6 equal to K3's first trial at the same step length; kernel
+     and plain times from CUDA events after a warm-up; the least time the
+     card could take for the same work (bytes over 3.35 TB/s against
+     arithmetic operations over 67 TFLOP/s f32). K1 runs its VSA and SEA
+     variants, K3 and K6 their box, unbounded and SEA-gap variants, K4 the
+     SEA (nu 2) and VSA (nu 4) shapes with gaps, K5 the VSA shape; K1, K2,
+     K4, K5, K3 and K6 also time f32 at B=16384, kernel only, to show
+     whether they fill the card;
      probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
      2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
      version, with its time, GFLOP/s and bound;
@@ -87,7 +87,7 @@ KERNELS = {
                         replaces="aslr_to_tpu/pallas/riccati.py:200"),
     "rollout2": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
                      replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
-    "riccati_fddp": dict(source="aslr_to_tpu_torch/csrc/riccati_fddp.cu",
+    "riccati_fddp": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
                          replaces="aslr_to_tpu/pallas/riccati.py:294"),
     "riccati_boxfddp": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
                             replaces="aslr_to_tpu/pallas/riccati.py:294"),
@@ -104,6 +104,10 @@ ROW_CASE = ("linearize[vsa]", "riccati_box[vsa]", "rollout2[vsa box]", "riccati_
 ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp",
             "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp",
             "rollout1": "fast_boxddp", "probe": "probe"}
+# the cases also timed at B_FILL
+FILL_CASE = ROW_CASE + ("linearize[sea]", "riccati_fddp[vsa]")
+# kernels held to their plain versions to the bit (the others to 1e-9 in f64)
+BIT_EXACT = ("linearize", "riccati_fddp", "rollout2", "rollout1")
 PROBE_ROW = dict(B=1048576, ilp=1, mode="mul_add")
 NO_LIBRARY = ("no single PyTorch call computes this function (a serial per-scenario "
               "recursion); no stand-in timed")
@@ -113,7 +117,7 @@ T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 REG = 1e-9
-B_FILL = 16384                     # the box kernel's and the rollouts' batch-filling variant
+B_FILL = 16384                     # the kernels' batch-filling variant
 
 
 def log(msg):
@@ -250,29 +254,39 @@ def build_phase():
     for line in build.build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry", "== ")):
             log(f"  ptxas: {line.strip()}")
-    smem = build.lib().aslr_riccati_box_smem
-    for label, nu, gaps in (("K2", 4, 0), ("K5", 4, 1), ("K5", 2, 1)):
-        log(f"  box kernel {label} (ndx 8, nu {nu}): dynamic shared memory a block of 128 "
-            f"threads, f32 {smem(nu, gaps, 4)} bytes, f64 {smem(nu, gaps, 8)} bytes")
-    for line in rollout_ptxas(build.build_log, build.lib().aslr_rollout_smem):
-        log(f"  rollout {line}")
+    for line in kernel_ptxas(build.build_log, build.lib()):
+        log(f"  {line}")
 
 
-def rollout_ptxas(build_log, smem):
-    """One line per instantiation of the rollouts (K3 and K6): registers,
-    stack frame and spills from ptxas, and the block's dynamic shared
-    memory."""
-    entry = re.compile(r"Compiling entry function '\w*rollout([12])_kernelI([fd])Li2ELb([01])"
-                       r"ELb([01])ELb([01])E")
+def kernel_ptxas(build_log, lib):
+    """One line per instantiation of K1, of the Riccati group kernel (K2, K4,
+    K5) and of the rollouts (K3, K6): registers, stack frame and spills from
+    ptxas, and a block's dynamic shared memory."""
+    def box(kind, s, nu, g):
+        size = 4 if s == "f" else 8
+        smem = (lib.aslr_riccati_fddp_smem(int(nu), size) if kind == "fddp" else
+                lib.aslr_riccati_box_smem(int(nu), int(kind == "boxfddp"), size))
+        return f"{dict(box='K2', boxfddp='K5', fddp='K4')[kind]} {{}} (ndx 8, nu {nu}, {g} " \
+               f"lanes a scenario)", smem
+
+    def roll(nt, s, sea, boxed, gaps):
+        return (f"{'K3' if nt == '2' else 'K6'} {{}} {'SEA' if sea == '1' else 'VSA'}"
+                f"{' box' if boxed == '1' else ''}{' gaps' if gaps == '1' else ''}",
+                lib.aslr_rollout_smem(int(nt), int(sea), int(gaps), 4 if s == "f" else 8))
+
+    kinds = [(r"linearize_kernelI([fd])Li2ELb([01])E",
+              lambda s, sea: (f"K1 {{}} {'SEA' if sea == '1' else 'VSA'}", 0), 0),
+             (r"riccati_(box|boxfddp|fddp)_kernelI([fd])Li8ELi(\d+)ELi(\d+)E", box, 1),
+             (r"rollout([12])_kernelI([fd])Li2ELb([01])ELb([01])ELb([01])E", roll, 1)]
     lines, name, frame = [], None, ""
     for line in build_log.splitlines():
-        m = entry.search(line)
-        if m:
-            nt, s, sea, boxed, gaps = m.groups()
-            name = (f"{'K3' if nt == '2' else 'K6'} {'f32' if s == 'f' else 'f64'} "
-                    f"{'SEA' if sea == '1' else 'VSA'}{' box' if boxed == '1' else ''}"
-                    f"{' gaps' if gaps == '1' else ''}",
-                    smem(int(nt), int(sea), int(gaps), 4 if s == "f" else 8))
+        if "Compiling entry function" in line:
+            name = None
+            for pattern, describe, at in kinds:
+                m = re.search(pattern, line)
+                if m:
+                    label, smem = describe(*m.groups())
+                    name = label.format("f32" if m.group(at + 1) == "f" else "f64"), smem
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "Used" in line:
@@ -338,6 +352,10 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
             cases["riccati_box[vsa]"] = (lambda a=box_args: rk.riccati_box_backward(*a),
                                          lambda a=box_args: rk.riccati_box_plain(*a),
                                          dict(warm=True), "riccati_box", 8, nu)
+            fd_args = derivs + (fs, reg)
+            cases["riccati_fddp[vsa]"] = (lambda a=fd_args: rk.riccati_fddp_backward(*a),
+                                          lambda a=fd_args: rk.riccati_fddp_plain(*a),
+                                          dict(), "riccati_fddp", 8, nu)
             bf_args = derivs + (fs, us, kprev, lb, ub, reg, 2)
             cases["riccati_boxfddp[vsa]"] = (
                 lambda a=bf_args: rk.riccati_boxfddp_backward(*a),
@@ -422,14 +440,18 @@ def kernels_phase(report):
             torch.cuda.synchronize()
             if build.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"{label}: the wrapper did not launch its kernel")
-            rel, err = compare(label, got, plain(), tol)
+            want = plain()
+            rel, err = compare(label, got, want, tol)
             log(f"  {label} {tag}: kernel vs plain max rel err {rel:.3e}, max abs err "
                 f"{err:.3e}" + (f" (limit {tol:g}, flags equal)" if tol else ""))
-            if name in ("rollout2", "rollout1"):
-                if err != 0.0:
-                    raise AssertionError(f"{label} {tag}: the rollout differs from its plain "
-                                         f"version by {err:.3e}; it is built to equal it to "
-                                         f"the bit")
+            if name in BIT_EXACT:
+                want_f = flat(want)
+                differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
+                if differ:
+                    raise AssertionError(f"{label} {tag}: {differ} differ from the plain "
+                                         f"version (max abs err {err:.3e}); the kernel is "
+                                         f"built to equal it to the bit")
+                log(f"  {label} {tag}: equal to the plain version to the bit")
                 if name == "rollout1":
                     check_k6_is_k3_first_trial(label, tag, kern, got)
             target = (report[name] if label in ROW_CASE else
@@ -449,14 +471,14 @@ def kernels_phase(report):
                 log(f"  {label} f32 time: kernel {target['ms']:.4f} ms, plain "
                     f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
                     f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
-    # the box kernel and the rollouts at four times the batch, kernel only;
-    # their operations scale with B (elementwise per scenario)
-    for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(torch.float32, B_FILL,
-                                                               ("vsa",)).items():
-        if label not in ROW_CASE or name == "linearize":
+    # the kernels at four times the batch, kernel only; their operations
+    # scale with B (elementwise per scenario)
+    for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(torch.float32, B_FILL).items():
+        if label not in FILL_CASE:
             continue
         ms = cuda_ms(kern, 10)
-        bms, by, _ = bound(report[name]["ops"] * (B_FILL // B_PATH),
+        ops = (report[name] if label in ROW_CASE else report[name]["variants"][label])["ops"]
+        bms, by, _ = bound(ops * (B_FILL // B_PATH),
                            *io_values(name, T_PATH, ndx, nu, **io_kw), B_FILL, 4)
         report[name].setdefault("variants", {})[f"{label} B={B_FILL}"] = dict(
             ms=ms, bound_ms=bms, bound_by=by)

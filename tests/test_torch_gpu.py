@@ -8,9 +8,10 @@ variants; K4 on the SEA arm with gaps; the box kernel (K2, and K5 at nu 4
 and 2) on ragged batches, warm and cold, and with one NaN scenario among
 healthy ones in its warp; K6 in its box,
 SEA-gap and unbounded variants, also against K3's first trial; K3 and K6
-in every variant on ragged batches, to the bit; the fast
-path of the per-scenario solver against its plain backend; P against its
-plain version:
+in every variant on ragged batches, to the bit; K1 (VSA, SEA) and K4 (nu 2
+and 4) on ragged batches to the bit, and K4 with one NaN scenario in its
+warp; the fast path of the per-scenario solver against its plain backend;
+P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -380,6 +381,70 @@ def test_rollouts_match_plain_version_to_the_bit(cuda, variant, batch, dtype):
     _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6_args))
     first, _ = vsa_kernels.rollout2(*k6_args[:7], 0.5 * k6_args[6], *k6_args[7:])
     _assert_same_bits(one, first)
+
+
+def _k1_k4_args(case, dtype, device, B):
+    """(kernel wrapper, plain version, args): K1 on the VSA or the SEA arm,
+    K4 at nu 2 (the SEA arm) or nu 4 (the VSA arm) with gaps and a tenth of
+    the lanes at a negative reg."""
+    if case == "linearize_sea":
+        return _sea_calls("linearize", dtype, device, B)
+    if case == "riccati_fddp_nu2":
+        return _sea_calls("riccati_fddp", dtype, device, B)
+    inp = _inputs(dtype, device, B=B)
+    args = (inp["spec"], inp["xs"], inp["us"], inp["wterm"])
+    if case == "linearize_vsa":
+        return vsa_kernels.linearize, vsa_kernels.linearize_plain, args
+    lin = vsa_kernels.linearize_plain(*args)
+    derivs = _bw_args(inp, lin)[:9]
+    return (riccati.riccati_fddp_backward, riccati.riccati_fddp_plain,
+            derivs + (_gaps(inp, lin), inp["reg"]))
+
+
+def _tensors(out):
+    """Every tensor of a kernel's output (a Linearization's dicts opened)."""
+    for v in out:
+        if isinstance(v, dict):
+            yield from v.values()
+        else:
+            yield v
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("case", ["linearize_vsa", "linearize_sea", "riccati_fddp_nu2",
+                                  "riccati_fddp_nu4"])
+def test_linearize_and_fddp_match_plain_version_to_the_bit(cuda, case, batch, dtype):
+    """K1 (a group of lanes a knot and scenario) and K4 (four scenarios a
+    warp) on ragged batches equal their plain versions to the bit."""
+    fn, plain, args = _k1_k4_args(case, dtype, cuda, batch)
+    name = "linearize" if case.startswith("linearize") else "riccati_fddp"
+    before = build.LAUNCHES[name]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    for g, w in zip(_tensors(got), _tensors(plain(*args))):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+    if name == "riccati_fddp" and batch > 1:    # lanes 0 and 10 at a negative reg
+        assert not bool(got.ok.all()) and bool(got.ok.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["riccati_fddp_nu2", "riccati_fddp_nu4"])
+def test_fddp_kernel_keeps_a_scenario_in_its_group(cuda, case, dtype):
+    """K4 with scenario 25's derivatives NaN: it fails alone, and the other
+    scenarios of its warp (24, 26, 27) keep ok and equal the plain version."""
+    fn, plain, args = _k1_k4_args(case, dtype, cuda, B)
+    args = list(args)
+    for i in range(9):
+        args[i] = args[i].clone()
+        args[i][..., 25] = float("nan")
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want)
+    assert not bool(got.ok[25])
+    assert bool(got.ok[[24, 26, 27]].all())
 
 
 def test_fast_path_kernels_match_plain_on_card(cuda):

@@ -1,4 +1,5 @@
-"""The box kernel (K2 and K5, ``csrc/riccati_box.cu``) run on the CPU.
+"""The group kernel of ``csrc/riccati_box.cu`` (K2 and K5 with BoxQP gains,
+K4 with Cholesky gains) run on the CPU.
 
 The CUDA source compiles with g++ against the stand-ins of
 ``tests/cuda_on_cpu``: one thread per CUDA thread, the block and warp
@@ -6,8 +7,9 @@ primitives at a barrier over the block, cp.async as a copy, and shared
 memory refilled with NaN bytes before each block, so an unstaged read
 shows. The wrappers, pointed at that library, are held against their plain
 versions on ragged batches (one 16-scenario block and a partial one; B=15
-and B=33 take the one-element copies, B=40 the 16-byte ones), warm and
-cold, with lanes at a negative reg and one NaN scenario. That checks the
+and B=33 take the one-element copies, B=40 the 16-byte ones), K2 and K5
+warm and cold, K4 at nu 2 (the SEA arm) and 4 (the VSA arm), with lanes at
+a negative reg and one NaN scenario. That checks the
 group mapping, the exchanges, the staging and the ragged block without a
 card.
 
@@ -57,10 +59,11 @@ def box_lib(tmp_path_factory):
                     str(d / "riccati_box.cpp"), str(d / "smem.cpp"),
                     str(HERE / "cuda_on_cpu" / "runtime.cpp")], check=True)
     handle = ctypes.CDLL(str(lib))
-    for suffix in ("_f32", "_f64"):
-        fn = getattr(handle, "aslr_riccati_box" + suffix)
-        fn.argtypes = build._SIGNATURES["aslr_riccati_box"]
-        fn.restype = ctypes.c_int
+    for base in ("aslr_riccati_box", "aslr_riccati_fddp"):
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(handle, base + suffix)
+            fn.argtypes = build._SIGNATURES[base]
+            fn.restype = ctypes.c_int
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(riccati, "_route", lambda t: "kernel")
@@ -76,8 +79,9 @@ def _ieee_sqrt(x):
 
 
 def _args(kernel, nu, B, warm, dtype, seed=0):
-    """K2 (VSA, nu 4) or K5 (VSA nu 4, or the SEA arm, nu 2, in a box) on a
-    random trajectory with gaps; every tenth lane at a negative reg."""
+    """K2 (VSA, nu 4), K5 (VSA nu 4, or the SEA arm, nu 2, in a box) or K4
+    (the same arms, no box) on a random trajectory with gaps; every tenth
+    lane at a negative reg."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -107,6 +111,8 @@ def _args(kernel, nu, B, warm, dtype, seed=0):
     if kernel == "riccati_box":
         return riccati.riccati_box_backward, riccati.riccati_box_plain, derivs + tail
     fs = torch.cat([torch.full_like(xs[:1], 0.01), lin.xnext - xs[1:]], dim=0)
+    if kernel == "riccati_fddp":
+        return riccati.riccati_fddp_backward, riccati.riccati_fddp_plain, derivs + (fs, reg)
     return riccati.riccati_boxfddp_backward, riccati.riccati_boxfddp_plain, derivs + (fs,) + tail
 
 
@@ -131,7 +137,22 @@ def test_box_kernel_on_cpu_matches_plain_version(box_lib, kernel, nu, batch, war
     assert bool(got.retryable.any()) and not bool(got.retryable.all())
 
 
-@pytest.mark.parametrize("kernel", ["riccati_box", "riccati_boxfddp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [15, 33, 40])
+@pytest.mark.parametrize("nu", [2, 4])
+def test_fddp_kernel_on_cpu_matches_plain_version(box_lib, nu, batch, dtype):
+    """K4, the Cholesky instance of the group kernel, at the SEA (nu 2) and
+    VSA (nu 4) shapes."""
+    fn, plain, args = _args("riccati_fddp", nu, batch, False, dtype)
+    before = build.LAUNCHES["riccati_fddp"]
+    got = fn(*args)
+    assert build.LAUNCHES["riccati_fddp"] == before + 1
+    _assert_same_bits(got, plain(*args))
+    assert not bool(got.ok.all()) and bool(got.ok.any())
+    assert bool(got.retryable.any()) and not bool(got.retryable.all())
+
+
+@pytest.mark.parametrize("kernel", ["riccati_box", "riccati_boxfddp", "riccati_fddp"])
 def test_box_kernel_on_cpu_keeps_a_scenario_in_its_group(box_lib, kernel):
     """Scenario 25's inputs NaN: it fails alone; the other scenarios of its
     warp (24, 26, 27) keep ok and equal the plain version."""
