@@ -1,11 +1,12 @@
 """aslr_to_tpu_torch — the PyTorch and CUDA port of ``aslr_to_tpu``.
 
 Batched trajectory optimization for articulated soft robots on an NVIDIA
-H100: the 2-DoF VSA and SEA arms' DDP, FDDP, BoxDDP and BoxFDDP solves,
-by the generic per-scenario solver (the reference), its fast path, or the
-lane solver, with their hot kernels (linearization, the Box, FDDP and
-BoxFDDP Riccati backwards, the two-trial and one-trial rollouts) and a
-multiply-add probe written by hand in CUDA C++ for ``sm_90a`` (``csrc/``).
+H100: the 2-DoF VSA and SEA arms' DDP, FDDP, BoxDDP and BoxFDDP solves
+and the 3- and 7-DoF SEA arms' FDDP solves, by the generic per-scenario
+solver (the reference), its fast path, or the lane solver, with their hot
+kernels (linearization, the Box, FDDP and BoxFDDP Riccati backwards, the
+two-trial and one-trial rollouts) and a multiply-add probe written by hand
+in CUDA C++ for ``sm_90a`` (``csrc/``).
 The JAX package ``aslr_to_tpu`` stays the reference that the port is
 tested against. Presets and solves run on the card unless the caller
 builds the problem on another device.
@@ -44,7 +45,7 @@ from .solvers.ddp import (
     solve,
 )
 from .solvers.problem import ShootingProblem
-from .workloads.presets import two_dof_sea, two_dof_vsa_boxddp
+from .workloads.presets import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
 from .parallel.batch import convergence_summary, make_batched_solver
 
 __all__ = [name for name in dir() if not name.startswith("_")]

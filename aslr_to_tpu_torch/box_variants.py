@@ -67,10 +67,16 @@ VARIANTS = {
     "chol_skip0": [("riccati_box.cu", "constexpr bool kCholSkip0 = false;",
                     "constexpr bool kCholSkip0 = true;")],
     "fma": [],
-    "group16": [("riccati_box.cu", "  constexpr int G = NDX;", "  constexpr int G = 16;")],
-    "group32": [("riccati_box.cu", "  constexpr int G = NDX;", "  constexpr int G = 32;")],
+    # 16 or 32 lanes a scenario (K4's (28, 7) keeps its warp)
+    "group16": [("riccati_box.cu", "  constexpr int G = kSweepGroup<NDX>;",
+                 "  constexpr int G = NDX > 16 ? 32 : 16;")],
+    "group32": [("riccati_box.cu", "  constexpr int G = kSweepGroup<NDX>;",
+                 "  constexpr int G = 32;")],
     "threads64": _threads(64),
-    "threads256": _threads(256),
+    # K4's (28, 7) does not fit a block of 256 threads (8 scenarios' scratch)
+    "threads256": _threads(256) + [
+        ("riccati_box.cu",
+         "  if (ndx == 28 && nu == 7) return launch_shape<S, 28, 7, true, false>(a, st);\n", "")],
 }
 
 

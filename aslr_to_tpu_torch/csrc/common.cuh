@@ -182,6 +182,13 @@ __host__ VSAParams<NL> unpack_params(const double* flat) {
 }
 
 constexpr int kBlock = 128;
+// a launcher's answer for a shape or variant it has no instance of
+constexpr int kNoInstance = -1;
+// the dynamic shared memory a block may have on an H100 (232,448 bytes)
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// the least power of two at or above n
+constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
 
 inline int grid_for(long long n) { return (int)((n + kBlock - 1) / kBlock); }
 

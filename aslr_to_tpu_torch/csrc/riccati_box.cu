@@ -40,13 +40,19 @@
 //     __all_sync / __ballot_sync on that mask, never the whole warp's.
 //     Wider groups (16, 32 lanes) run slower: the work every lane of a
 //     group repeats (the QP, the Cholesky) then serves fewer scenarios a
-//     warp instruction. At ndx = 28 the group is a whole warp;
+//     warp instruction. K4's n-DoF shapes take the next power of two at or
+//     above ndx: 16 lanes at (12, 3), a whole warp at (28, 7); the lanes
+//     past ndx own no row but meet every barrier, vote and shuffle of their
+//     group;
 //   - stages each knot's inputs in shared memory with cp.async, coalesced
 //     along the batch axis ([rows, scenarios] tiles, 16-byte copies where
 //     the batch stride and the pointers allow, else one element a copy),
 //     double-buffered: knot t-1's copy is in flight while knot t computes,
 //     so no global load sits on the dependent chain. K4 stages no controls,
-//     warm start or box;
+//     warm start or box. At (28, 7) in f64 two stages and the scratch
+//     would take 253.5 KB of the 227 KB a block may have: that instance
+//     stages one knot at a time, copied after every lane is done with the
+//     knot before (Sweep's NST);
 //   - runs the factor and the solves redundantly on every lane of the group
 //     (a SIMT instruction costs the same on one lane or eight); the BoxQP's
 //     five Armijo trials on five lanes (accepted in order by a ballot, the
@@ -85,13 +91,15 @@ struct BoxSweep {
 constexpr int kSweepThreads = 128;
 constexpr bool kCholSkip0 = false;  // K4's Cholesky skips zero dividends (boxqp.cuh::div0)
 
-// The block's shared memory: two stages of knot inputs, each a [rows, P]
-// tile (P = scenarios a block plus 16 bytes, which spreads a warp's four
-// scenarios over the banks), then one scratch region a scenario.
-template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
+// The block's shared memory: NST stages of knot inputs (2: double-buffered;
+// 1 where two do not fit), each a [rows, P] tile (P = scenarios a block plus
+// 16 bytes, which spreads a warp's scenarios over the banks), then one
+// scratch region a scenario.
+template <class S, int NDX, int NU, int G, bool GAPS, bool QP, int NST>
 struct Sweep {
-  static constexpr int SPB = kSweepThreads / G;
-  static constexpr int VEC = 16 / (int)sizeof(S);
+  static constexpr int SPB = kSweepThreads / G, NSTAGE = NST;
+  // 16-byte copies, or narrower where a block holds fewer scenarios
+  static constexpr int VEC = 16 / (int)sizeof(S) < SPB ? 16 / (int)sizeof(S) : SPB;
   static constexpr int P = SPB + VEC;
   static constexpr bool BOXQP = QP;
   static_assert(G >= NDX, "a lane a row");
@@ -109,8 +117,20 @@ struct Sweep {
                        oQu = oX + NDX * NDX, oQuu = oQu + NU, oK = oQuu + NU * NU,
                        USED = oK + NU * NDX;
   static constexpr int SC = (USED + 31) / 32 * 32 + 8;  // four scenarios of a warp, 8 banks apart
-  static constexpr size_t BYTES = (size_t)(2 * STAGE + SPB * SC) * sizeof(S);
+  static constexpr size_t BYTES = (size_t)(NST * STAGE + SPB * SC) * sizeof(S);
+  static constexpr bool FITS = BYTES <= kMaxSmem;
 };
+
+// two stages where they fit in a block's shared memory (every shape but
+// (28, 7) in f64, whose two stages and scratch take 253.5 KB), else one
+template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
+using SweepOf = Sweep<S, NDX, NU, G, GAPS, QP,
+                      Sweep<S, NDX, NU, G, GAPS, QP, 2>::FITS ? 2 : 1>;
+
+// lanes a scenario: lane r owns row r, so the next power of two at or above
+// ndx (8, 16 and 32 at ndx 8, 12 and 28; lanes past ndx own no row)
+template <int NDX>
+constexpr int kSweepGroup = pow2_at_least(NDX);
 
 // copy knot t of an array [T, rows, B] into a stage tile [rows, P], the
 // block's scenarios b0 .. b0 + SPB, V elements a copy
@@ -153,7 +173,7 @@ __device__ inline void stage(const BoxSweep<S>& a, S* dst, long long t, int b0, 
 
 template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
 __device__ inline void box_sweep(const BoxSweep<S>& a) {
-  using L = Sweep<S, NDX, NU, G, GAPS, QP>;
+  using L = SweepOf<S, NDX, NU, G, GAPS, QP>;
   extern __shared__ __align__(16) unsigned char sweep_smem[];
   S* const stages = reinterpret_cast<S*>(sweep_smem);
   const int tid = threadIdx.x, s = tid / G;
@@ -164,12 +184,12 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   const long long TB = a.B, b = b0 + s;
   const bool live = b < TB;
   const long long bc = live ? b : TB - 1;  // where an out-of-range group reads
-  S* const my = stages + 2 * L::STAGE + s * L::SC;
+  S* const my = stages + L::NSTAGE * L::STAGE + s * L::SC;
   S *const vxx = my + L::oVxx, *const vx = my + L::oVx, *const ws = my + L::oW;
   S *const xs = my + L::oX, *const qus = my + L::oQu, *const quus = my + L::oQuu;
   S* const ks = my + L::oK;
 
-  if (a.T > 0) stage<L>(a, stages + ((a.T - 1) & 1) * L::STAGE, a.T - 1, b0, tid);
+  if (a.T > 0) stage<L>(a, stages + ((a.T - 1) % L::NSTAGE) * L::STAGE, a.T - 1, b0, tid);
 
   const S reg = a.reg[bc];
   S lo[NU], hi[NU];
@@ -215,8 +235,8 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   for (int t = a.T - 1; t >= 0; --t) {
     __pipeline_wait_prior(0);
     __syncthreads();  // knot t staged; every lane done with knot t+1's stage
-    if (t > 0) stage<L>(a, stages + ((t - 1) & 1) * L::STAGE, t - 1, b0, tid);
-    const S* const st = stages + (t & 1) * L::STAGE + s;
+    if (L::NSTAGE == 2 && t > 0) stage<L>(a, stages + ((t - 1) & 1) * L::STAGE, t - 1, b0, tid);
+    const S* const st = stages + (t % L::NSTAGE) * L::STAGE + s;
     auto in = [&](int row) { return st[row * L::P]; };
     const long long kt = t;
 
@@ -387,6 +407,10 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
       dgg = dgg - s1;
       dqg = dqg + s2;
     }
+    if (L::NSTAGE == 1 && t > 0) {  // one stage: knot t - 1's copy waits for knot t's reads
+      __syncthreads();
+      stage<L>(a, stages, t - 1, b0, tid);
+    }
   }
   grp.sync();
   bool ok = finite(dg) && finite(stop) && (GAPS || finite(dq));
@@ -423,8 +447,9 @@ __global__ void __launch_bounds__(kSweepThreads) riccati_fddp_kernel(const BoxSw
 
 template <class S, int NDX, int NU, bool GAPS, bool QP>
 static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
-  constexpr int G = NDX;
-  using L = Sweep<S, NDX, NU, G, GAPS, QP>;
+  constexpr int G = kSweepGroup<NDX>;
+  using L = SweepOf<S, NDX, NU, G, GAPS, QP>;
+  static_assert(L::FITS, "the stages and scratch fit in a block's shared memory");
   const int grid = (a.B + L::SPB - 1) / L::SPB;
   if constexpr (!QP) {
     static const cudaError_t attr = cudaFuncSetAttribute(
@@ -460,7 +485,7 @@ static void set_vec(BoxSweep<S>& a) {
 // (cold QPs from 0).
 template <class S>
 static int launch_riccati_box(int ndx, int nu, int gaps, BoxSweep<S> a, void* stream) {
-  if (ndx != 8 || (nu != 4 && !(gaps && nu == 2))) return -1;
+  if (ndx != 8 || (nu != 4 && !(gaps && nu == 2))) return kNoInstance;
   set_vec(a);
   cudaStream_t st = (cudaStream_t)stream;
   if (!gaps) return launch_shape<S, 8, 4, false, true>(a, st);
@@ -468,25 +493,37 @@ static int launch_riccati_box(int ndx, int nu, int gaps, BoxSweep<S> a, void* st
   return launch_shape<S, 8, 4, true, true>(a, st);
 }
 
-// K4: us, kprev, lb, ub null
+// K4 at (ndx, nu) = (8, 2) and (8, 4) (the 2-DoF SEA and VSA arms), (12, 3)
+// and (28, 7) (the 3- and 7-DoF SEA arms); us, kprev, lb, ub null
 template <class S>
 static int launch_riccati_fddp(int ndx, int nu, BoxSweep<S> a, void* stream) {
-  if (ndx != 8 || (nu != 2 && nu != 4)) return -1;
   set_vec(a);
   cudaStream_t st = (cudaStream_t)stream;
-  if (nu == 2) return launch_shape<S, 8, 2, true, false>(a, st);
-  return launch_shape<S, 8, 4, true, false>(a, st);
+  if (ndx == 8 && nu == 2) return launch_shape<S, 8, 2, true, false>(a, st);
+  if (ndx == 8 && nu == 4) return launch_shape<S, 8, 4, true, false>(a, st);
+  if (ndx == 12 && nu == 3) return launch_shape<S, 12, 3, true, false>(a, st);
+  if (ndx == 28 && nu == 7) return launch_shape<S, 28, 7, true, false>(a, st);
+  return kNoInstance;
+}
+
+template <class S, int NDX, int NU, bool GAPS, bool QP>
+constexpr int sweep_bytes_of() {
+  return (int)SweepOf<S, NDX, NU, kSweepGroup<NDX>, GAPS, QP>::BYTES;
 }
 
 template <class S>
-static int sweep_bytes(int nu, int gaps, int qp) {
+static int sweep_bytes(int ndx, int nu, int gaps, int qp) {
   if (!qp) {
-    if (nu == 2) return (int)Sweep<S, 8, 2, 8, true, false>::BYTES;
-    return nu == 4 ? (int)Sweep<S, 8, 4, 8, true, false>::BYTES : -1;
+    if (ndx == 8 && nu == 2) return sweep_bytes_of<S, 8, 2, true, false>();
+    if (ndx == 8 && nu == 4) return sweep_bytes_of<S, 8, 4, true, false>();
+    if (ndx == 12 && nu == 3) return sweep_bytes_of<S, 12, 3, true, false>();
+    if (ndx == 28 && nu == 7) return sweep_bytes_of<S, 28, 7, true, false>();
+    return kNoInstance;
   }
-  if (!gaps) return nu == 4 ? (int)Sweep<S, 8, 4, 8, false, true>::BYTES : -1;
-  if (nu == 2) return (int)Sweep<S, 8, 2, 8, true, true>::BYTES;
-  return nu == 4 ? (int)Sweep<S, 8, 4, 8, true, true>::BYTES : -1;
+  if (ndx != 8) return kNoInstance;
+  if (!gaps) return nu == 4 ? sweep_bytes_of<S, 8, 4, false, true>() : kNoInstance;
+  if (nu == 2) return sweep_bytes_of<S, 8, 2, true, true>();
+  return nu == 4 ? sweep_bytes_of<S, 8, 4, true, true>() : kNoInstance;
 }
 
 }  // namespace aslr
@@ -495,14 +532,14 @@ static int sweep_bytes(int nu, int gaps, int qp) {
 // instantiation of the box kernel (K2, K5) for 4- or 8-byte scalars, in
 // bytes; -1 if there is none
 extern "C" int aslr_riccati_box_smem(int nu, int gaps, int itemsize) {
-  if (itemsize == 4) return aslr::sweep_bytes<float>(nu, gaps, 1);
-  return itemsize == 8 ? aslr::sweep_bytes<double>(nu, gaps, 1) : -1;
+  if (itemsize == 4) return aslr::sweep_bytes<float>(8, nu, gaps, 1);
+  return itemsize == 8 ? aslr::sweep_bytes<double>(8, nu, gaps, 1) : aslr::kNoInstance;
 }
 
-// the same for K4 at (ndx 8, nu)
-extern "C" int aslr_riccati_fddp_smem(int nu, int itemsize) {
-  if (itemsize == 4) return aslr::sweep_bytes<float>(nu, 1, 0);
-  return itemsize == 8 ? aslr::sweep_bytes<double>(nu, 1, 0) : -1;
+// the same for K4 at (ndx, nu)
+extern "C" int aslr_riccati_fddp_smem(int ndx, int nu, int itemsize) {
+  if (itemsize == 4) return aslr::sweep_bytes<float>(ndx, nu, 1, 0);
+  return itemsize == 8 ? aslr::sweep_bytes<double>(ndx, nu, 1, 0) : aslr::kNoInstance;
 }
 
 #define ASLR_RICCATI_BOX_ENTRY(NAME, S)                                                       \

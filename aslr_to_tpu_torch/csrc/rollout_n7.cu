@@ -1,0 +1,8 @@
+// K3 and K6 at nl = 7: the 7-DoF SEA arm, unboxed, with gaps (the kernel:
+// rollout.cuh).
+#include "rollout.cuh"
+
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n7_f32, float, 7)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n7_f64, double, 7)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n7_f32, float, 7)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n7_f64, double, 7)

@@ -1,16 +1,22 @@
 """Build, load and count the port's CUDA kernels.
 
-The sources ``aslr_to_tpu_torch/csrc/*.cu`` have a plain C interface. At
-first use, one ``nvcc`` per source, all started together, compiles them for
-``sm_90a``, and a last ``nvcc`` links the objects into one shared library
-under ``build/aslr_to_tpu_torch/`` beside the package (git-ignored), named
-by a hash of the sources and flags so that an edit rebuilds; ``ctypes``
-loads it. Pointers and the stream pass as ``c_void_p``, integers as
+The sources ``aslr_to_tpu_torch/csrc/*.cu`` have a plain C interface; the
+kernels' templates sit in ``csrc/*.cuh``, and a kernel built at several
+chain lengths has a source per length (``linearize.cu`` at nl = 2,
+``linearize_n3.cu`` and ``linearize_n7.cu`` at 3 and 7, each with its own C
+entries, ``aslr_linearize_n7_f32`` and so on). At first use, one ``nvcc``
+per source, all started together, compiles them for ``sm_90a``, and a last
+``nvcc`` links the objects into one shared library under
+``build/aslr_to_tpu_torch/`` beside the package (git-ignored), named by a
+hash of the sources and flags so that an edit rebuilds; ``ctypes`` loads
+it. Pointers and the stream pass as ``c_void_p``, integers as
 ``c_int``; every entry returns ``cudaGetLastError()`` of its launch, and
 :func:`check` raises when it is not 0.
 
 ``LAUNCHES`` holds one plain integer per kernel, raised by the wrapper
-each time it launches its kernel and nowhere else.
+each time it launches its kernel and nowhere else. ``INSTANCES`` lists the
+shapes and variants each kernel is built for; a wrapper asked for another
+raises (:func:`require`) and names them.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +39,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"linearize": 0, "riccati_box": 0, "rollout2": 0, "riccati_fddp": 0,
             "riccati_boxfddp": 0, "rollout1": 0, "probe": 0}
+
+# what each kernel is built for: K1 at nl (chain length) and actuation; K3
+# and K6 at nl, actuation, box and gaps; the Riccati group kernel at (ndx,
+# nu). Above nl = 2 only the SEA arm's unboxed FDDP path is instantiated.
+_ROLLOUT_INSTANCES = tuple(
+    f"nl=2 {arm}{box}{gaps}" for arm in ("vsa", "sea") for box in ("", " box")
+    for gaps in ("", " gaps")) + ("nl=3 sea gaps", "nl=7 sea gaps")
+INSTANCES = {
+    "linearize": ("nl=2 vsa", "nl=2 sea", "nl=3 sea", "nl=7 sea"),
+    "rollout2": _ROLLOUT_INSTANCES,
+    "rollout1": _ROLLOUT_INSTANCES,
+    "riccati_box": ("ndx=8 nu=4",),
+    "riccati_boxfddp": ("ndx=8 nu=2", "ndx=8 nu=4"),
+    "riccati_fddp": ("ndx=8 nu=2", "ndx=8 nu=4", "ndx=12 nu=3", "ndx=28 nu=7"),
+}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -54,21 +77,39 @@ _SIGNATURES = {
     "aslr_probe": [_P, _P, _I, _I, _I, _I, _I, _P],
     # nu, gaps, itemsize: the box kernel's dynamic shared memory a block
     "aslr_riccati_box_smem": [_I, _I, _I],
-    # nu, itemsize: K4's dynamic shared memory a block
-    "aslr_riccati_fddp_smem": [_I, _I],
-    # ntrials, sea, gaps, itemsize: the rollout's dynamic shared memory a block
-    "aslr_rollout_smem": [_I, _I, _I, _I],
+    # ndx, nu, itemsize: K4's dynamic shared memory a block
+    "aslr_riccati_fddp_smem": [_I, _I, _I],
+    # nl, ntrials, sea, gaps, itemsize: the rollout's dynamic shared memory a block
+    "aslr_rollout_smem": [_I, _I, _I, _I, _I],
 }
 _SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",),
              "aslr_riccati_fddp_smem": ("",), "aslr_rollout_smem": ("",)}
 
 _lib = None
 build_log = ""
+build_seconds = {}      # each source's nvcc time in the last build
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def chains(base: str) -> list[int]:
+    """The chain lengths above 2 at which the C entry ``base`` (e.g.
+    "aslr_linearize") is built, from ``INSTANCES``: each has a source of its
+    own and entries ``<base>_n<nl>_f32`` and ``_f64``."""
+    return sorted({int(i.split()[0][3:]) for i in INSTANCES.get(base.removeprefix("aslr_"), ())
+                   if i.startswith("nl=")} - {2})
+
+
+def require(name: str, instance: str):
+    """Raise unless kernel ``name`` is built for ``instance`` (a key of
+    ``INSTANCES``, e.g. "nl=7 sea" or "ndx=28 nu=7"), naming what it is
+    built for."""
+    if instance not in INSTANCES[name]:
+        raise NotImplementedError(f"{name}: no kernel instance for {instance}; its instances: "
+                                  f"{', '.join(INSTANCES[name])}")
 
 
 def _nvcc():
@@ -98,7 +139,7 @@ def build(force: bool = False) -> Path:
     """Compile the kernels if the library for these sources is missing;
     returns its path. Each source compiles in its own ``nvcc`` process, all
     at once; the compilers' output (``-Xptxas -v``: registers, spills) is
-    kept in ``build_log``."""
+    kept in ``build_log``, and each one's seconds in ``build_seconds``."""
     global build_log
     out = library_path()
     if out.exists() and not force:
@@ -110,13 +151,19 @@ def build(force: bool = False) -> Path:
     objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+        def compile_one(cu, obj):
+            t0 = time.perf_counter()
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for cu, obj in zip(cus, objs)]
+            return proc, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+            done = list(pool.map(compile_one, cus, objs))
         logs, failed = [], []
-        for cu, proc in zip(cus, procs):
-            text, _ = proc.communicate()
-            logs.append(f"== {cu.name}\n{text}")
+        build_seconds.clear()
+        for cu, (proc, seconds) in zip(cus, done):
+            build_seconds[cu.name] = seconds
+            logs.append(f"== {cu.name} ({seconds:.1f} s)\n{proc.stdout}")
             if proc.returncode != 0:
                 failed.append(f"{cu.name} ({proc.returncode})")
         build_log = "".join(logs)
@@ -140,16 +187,19 @@ def lib():
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         for base, argtypes in _SIGNATURES.items():
-            for suffix in _SUFFIXES.get(base, ("_f32", "_f64")):
-                fn = getattr(handle, base + suffix)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            for name in [base] + [f"{base}_n{nl}" for nl in chains(base)]:
+                for suffix in _SUFFIXES.get(base, ("_f32", "_f64")):
+                    fn = getattr(handle, name + suffix)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
         _lib = handle
     return _lib
 
 
-def entry(base: str, dtype):
-    """The C entry of ``base`` for a float32 or float64 tensor dtype."""
+def entry(base: str, dtype, nl: int = 2):
+    """The C entry of ``base`` for a float32 or float64 tensor dtype, at the
+    chain length ``nl`` where the kernel has one source per length (a
+    wrapper checks the instance first, with :func:`require`)."""
     import torch
 
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
@@ -157,13 +207,16 @@ def entry(base: str, dtype):
     if suffix not in allowed:
         names = " or ".join({"_f32": "float32", "_f64": "float64"}[a] for a in allowed)
         raise TypeError(f"{base}: {names} tensors only, got {dtype}")
-    return getattr(lib(), base + suffix)
+    return getattr(lib(), base + ("" if nl == 2 else f"_n{nl}") + suffix)
 
 
-def check(name: str, code: int):
-    """Raise unless a launch returned cudaSuccess; count it otherwise."""
+def check(name: str, code: int, instance: str = ""):
+    """Raise unless a launch returned cudaSuccess; count it otherwise.
+    ``instance`` names the shape asked for (a key of ``INSTANCES``)."""
     if code == -1:
-        raise NotImplementedError(f"{name}: no kernel instantiated for this shape")
+        raise NotImplementedError(f"{name}: the launcher has no instance for "
+                                  f"{instance or 'this shape'}; its instances: "
+                                  f"{', '.join(INSTANCES.get(name, ()))}")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
     LAUNCHES[name] += 1

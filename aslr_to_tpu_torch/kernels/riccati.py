@@ -335,6 +335,7 @@ def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, l
     _check_lanes(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu, tLx=tLx, tLxx=tLxx,
                  fs=fs, us=us, kprev=kprev, lb=lb, ub=ub, reg=reg)
     T, NDX, NU, B = Fu.shape
+    _build.require(name, f"ndx={NDX} nu={NU}")
     dt = Fx.dtype
     out = _empty_out(T, NDX, NU, B, dt, Fx.device, gaps=fs is not None)
     p = _build.ptr
@@ -346,7 +347,7 @@ def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, l
         NDX, NU, int(fs is not None), p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu),
         p(tLx), p(tLxx), opt(fs), p(us), opt(kprev), p(lb), p(ub), p(reg), T, B, qp_iters,
         *(opt(v) for v in out), _build.stream_of(Fx))
-    _build.check(name, code)
+    _build.check(name, code, f"ndx={NDX} nu={NU}")
     return out
 
 
@@ -360,13 +361,14 @@ def riccati_fddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs,
     _check_lanes(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu, tLx=tLx, tLxx=tLxx,
                  fs=fs, reg=reg)
     T, NDX, NU, B = Fu.shape
+    _build.require("riccati_fddp", f"ndx={NDX} nu={NU}")
     dt = Fx.dtype
     out = _empty_out(T, NDX, NU, B, dt, Fx.device)
     p = _build.ptr
     code = _build.entry("aslr_riccati_fddp", dt)(
         NDX, NU, p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu), p(tLx), p(tLxx), p(fs),
         p(reg), T, B, *(p(v) for v in out), _build.stream_of(Fx))
-    _build.check("riccati_fddp", code)
+    _build.check("riccati_fddp", code, f"ndx={NDX} nu={NU}")
     return out
 
 

@@ -505,6 +505,7 @@ def linearize(spec: VSASpec, xs, us, wterm) -> Linearization:
     T, NDX, B = us.shape[0], spec.ndx, xs.shape[-1]
     NU = spec.nu
     dt, dev = xs.dtype, xs.device
+    _build.require("linearize", f"nl={spec.nl} {spec.variant}")
     _check_lane("xs", xs, (T + 1, NDX, B), dt, dev)
     _check_lane("us", us, (T, NU, B), dt, dev)
     _check_lane("wterm", wterm, (B,), dt, dev)
@@ -519,12 +520,12 @@ def linearize(spec: VSASpec, xs, us, wterm) -> Linearization:
     tcost, tok = e(B), e(B, dtype=torch.bool)
     params, pp = _params_ptr(spec)
     p = _build.ptr
-    code = _build.entry("aslr_linearize", dt)(
+    code = _build.entry("aslr_linearize", dt, spec.nl)(
         pp, spec.nl, p(xs), p(us), p(wterm), T, B,
         *[p(run[k]) for k in ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")],
         p(xnext), p(cost_t), p(ok_t), p(term["Lx"]), p(term["Lxx"]), p(tcost), p(tok),
         _build.stream_of(xs))
-    _build.check("linearize", code)
+    _build.check("linearize", code, f"nl={spec.nl} {spec.variant}")
     return Linearization(cost=cost_t.sum(0) + tcost, run=run, term=term, xnext=xnext,
                          ok=ok_t.all(0) & tok)
 
@@ -600,9 +601,16 @@ def rollout1_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=Non
                           fs, infeas)[0]
 
 
-def _rollout_checks(spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, infeas):
+def _rollout_instance(spec, lb, fs):
+    """The key of ``build.INSTANCES`` for K3 and K6 on these inputs."""
+    return (f"nl={spec.nl} {spec.variant}{'' if lb is None else ' box'}"
+            f"{'' if fs is None else ' gaps'}")
+
+
+def _rollout_checks(name, spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, infeas):
     if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
         raise ValueError("lb and ub, and fs and infeas, come in pairs")
+    _build.require(name, _rollout_instance(spec, lb, fs))
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     checks = [("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
               ("k", k, (T, NU, B)), ("K", K, (T, NU, NDX, B)),
@@ -628,8 +636,8 @@ def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
     if _route(xs) == "plain":
         return rollout2_plain(spec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
                               fs, infeas)
-    _rollout_checks(spec, xs, us, k, K, x0, [("alpha_a", alpha_a), ("alpha_b", alpha_b)],
-                    wterm, lb, ub, fs, infeas)
+    _rollout_checks("rollout2", spec, xs, us, k, K, x0,
+                    [("alpha_a", alpha_a), ("alpha_b", alpha_b)], wterm, lb, ub, fs, infeas)
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     dt, dev = xs.dtype, xs.device
     outs = [torch.empty(s, dtype=dt, device=dev)
@@ -640,11 +648,11 @@ def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
     def opt(t):
         return None if t is None else p(t)
 
-    code = _build.entry("aslr_rollout2", dt)(
+    code = _build.entry("aslr_rollout2", dt, spec.nl)(
         pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha_a), p(alpha_b), p(wterm),
         opt(lb), opt(ub), opt(fs), opt(infeas), T, B, *[p(o) for o in outs],
         _build.stream_of(xs))
-    _build.check("rollout2", code)
+    _build.check("rollout2", code, _rollout_instance(spec, lb, fs))
     return Trial(*outs[:3]), Trial(*outs[3:])
 
 
@@ -660,7 +668,8 @@ def rollout1(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
         raise ValueError("lb and ub, and fs and infeas, come in pairs")
     if _route(xs) == "plain":
         return rollout1_plain(spec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas)
-    _rollout_checks(spec, xs, us, k, K, x0, [("alpha", alpha)], wterm, lb, ub, fs, infeas)
+    _rollout_checks("rollout1", spec, xs, us, k, K, x0, [("alpha", alpha)], wterm, lb, ub,
+                    fs, infeas)
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     dt, dev = xs.dtype, xs.device
     out = Trial(torch.empty((T + 1, NDX, B), dtype=dt, device=dev),
@@ -672,10 +681,10 @@ def rollout1(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
     def opt(t):
         return None if t is None else p(t)
 
-    code = _build.entry("aslr_rollout1", dt)(
+    code = _build.entry("aslr_rollout1", dt, spec.nl)(
         pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha), p(wterm), opt(lb), opt(ub),
         opt(fs), opt(infeas), T, B, *[p(o) for o in out], _build.stream_of(xs))
-    _build.check("rollout1", code)
+    _build.check("rollout1", code, _rollout_instance(spec, lb, fs))
     return out
 
 

@@ -1,18 +1,22 @@
-"""Time source variants of the linearization (K1, ``csrc/linearize.cu``) on
-the card, to see what each part of its design is worth.
+"""Time source variants of the linearization (K1, ``csrc/linearize.cuh``)
+on the card, to see what each part of its design is worth.
 
     python -m aslr_to_tpu_torch.linearize_variants [--batch 4096 16384]
+    python -m aslr_to_tpu_torch.linearize_variants --arms sea7 --only group1 group4
 
-Each variant is the kernel's source (with ``lanes.cuh`` and ``common.cuh``)
-after a few text substitutions, compiled by its own ``nvcc`` (all at once)
-into a library under ``build/aslr_to_tpu_torch/variants/``; a substitution
-that no longer matches the source raises. K1 runs in float32 at T=100 on
-the inputs of ``chip_smoke.py``'s kernel phase (x0 = 0.05 randn, seed 0, at
-every knot; zero controls on the VSA arm, the quasi-static ones on the SEA
-arm), timed with CUDA events over 10 launches after a warm-up, two rounds
-of every variant in turn. Each variant's outputs are compared with the
-unmodified kernel's: the exact ones must equal it to the bit. Each
-variant's registers, stack frame and spills, from ptxas, are printed per
+Each variant is the kernel's source (``linearize.cuh`` with ``lanes.cuh``
+and ``common.cuh``; built through ``linearize.cu``, and ``linearize_n7.cu``
+where the 7-DoF arm is asked for) after a few text substitutions, compiled
+by its own ``nvcc`` (all at once) into a library under
+``build/aslr_to_tpu_torch/variants/``; a substitution that no longer matches
+the source raises. K1 runs in float32 at T=100 on the inputs of
+``chip_smoke.py``'s kernel phase (x0 = 0.05 randn, seed 0, at every knot;
+zero controls on the VSA arm, the quasi-static ones on the SEA arms: the
+2-DoF ``sea`` and the 7-DoF ``sea7``), timed with CUDA events over 10
+launches after a warm-up, two rounds of every variant in turn. Each
+variant's outputs are compared with the unmodified kernel's: the exact ones
+must equal it to the bit. Each variant's registers, stack frame and spills,
+from ptxas, are printed per
 instantiation.
 
   base         the source as it is: a (knot, scenario) on 2 lanes, the
@@ -44,7 +48,7 @@ import torch
 from .box_variants import cuda_ms, same_bits
 from .kernels import build
 
-FILES = ("linearize.cu", "lanes.cuh", "common.cuh")
+FILES = ("linearize.cu", "linearize_n7.cu", "linearize.cuh", "lanes.cuh", "common.cuh")
 INEXACT = ("fma", "no_stores", "group4_no_stores")
 
 
@@ -63,7 +67,7 @@ def _unroll(f, src):
 def _no_stores(f, src):
     """Each output added to a per-lane sum, which is stored only if it equals
     a value it never takes."""
-    if f != "linearize.cu":
+    if f != "linearize.cuh":
         return src
     for old, new in (("  auto store = [&](bool cond, int e, S* dst, S v) {",
                       "  S sink = S(0);\n  auto store = [&](bool cond, int e, S* dst, S v) {"),
@@ -77,7 +81,7 @@ def _no_stores(f, src):
 
 
 # each variant a list of steps: (declaration, value) sets one constexpr of
-# linearize.cu; a function (file, text) -> text rewrites any file
+# linearize.cuh; a function (file, text) -> text rewrites any file
 VARIANTS = {
     "base": [],
     "group1": [("int kLinGroup", "1")],
@@ -100,7 +104,7 @@ def variant_source(name, f):
         if callable(step):
             src = step(f, src)
             continue
-        if f != "linearize.cu":
+        if f != "linearize.cuh":
             continue
         decl, value = step
         pattern = re.escape(f"constexpr {decl} = ") + r"[^;]*;"
@@ -112,13 +116,14 @@ def variant_source(name, f):
 
 def ptxas_lines(out):
     """One line per kernel instantiation: registers, stack frame, spills."""
-    entry = re.compile(r"Compiling entry function '\w*?(\w+_kernel)I([fd])\w*?Lb([01])E")
+    entry = re.compile(r"Compiling entry function '\w*?(\w+_kernel)I([fd])Li(\d+)ELb([01])E")
     lines, name, frame = [], None, ""
     for line in out.splitlines():
         m = entry.search(line)
         if m:
-            kernel, s, sea = m.groups()
-            name = f"{kernel} {'f32' if s == 'f' else 'f64'} {'SEA' if sea == '1' else 'VSA'}"
+            kernel, s, nl, sea = m.groups()
+            name = (f"{kernel} {'f32' if s == 'f' else 'f64'} nl {nl} "
+                    f"{'SEA' if sea == '1' else 'VSA'}")
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "Used" in line:
@@ -127,8 +132,9 @@ def ptxas_lines(out):
     return lines
 
 
-def build_variants(names):
-    """{name: loaded library}; one nvcc per variant, all at once."""
+def build_variants(names, n7=False):
+    """{name: loaded library}; one nvcc per variant, all at once; ``n7``
+    adds the 7-DoF instance (``linearize_n7.cu``)."""
     root = build.BUILD_DIR / "variants"
     procs = {}
     for name in names:
@@ -139,8 +145,9 @@ def build_variants(names):
             (d / f).write_text(variant_source(name, f))
         flags = [x for x in build.NVCC_FLAGS if x != "-fmad=false"]
         flags.append("-fmad=true" if name == "fma" else "-fmad=false")
+        units = [str(d / "linearize.cu")] + ([str(d / "linearize_n7.cu")] if n7 else [])
         procs[name] = subprocess.Popen(
-            [build._nvcc(), *flags, "-shared", "-o", str(d / "lib.so"), str(d / "linearize.cu")],
+            [build._nvcc(), *flags, "-shared", "-o", str(d / "lib.so"), *units],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -150,27 +157,30 @@ def build_variants(names):
         for line in ptxas_lines(out):
             print(f"built {name}: {line}", flush=True)
         lib = ctypes.CDLL(str(root / f"linearize_{name}" / "lib.so"))
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, "aslr_linearize" + suffix)
-            fn.argtypes = build._SIGNATURES["aslr_linearize"]
-            fn.restype = ctypes.c_int
+        for entry in ["aslr_linearize"] + (["aslr_linearize_n7"] if n7 else []):
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, entry + suffix)
+                fn.argtypes = build._SIGNATURES["aslr_linearize"]
+                fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def lin_inputs(B, T=100, dtype=torch.float32):
-    """{case: args of vsa_kernels.linearize}: the VSA and SEA arms on the
-    inputs of chip_smoke's kernel phase."""
-    from . import two_dof_sea, two_dof_vsa_boxddp
+def lin_inputs(B, arms, T=100, dtype=torch.float32):
+    """{case: args of vsa_kernels.linearize}: the arms (vsa, sea, sea7) on
+    the inputs of chip_smoke's kernel phase."""
+    from . import seven_dof_sea, two_dof_sea, two_dof_vsa_boxddp
     from .kernels import vsa_kernels as vk
     from .measure import x0_batch
 
-    xs = x0_batch(B, dtype, seed=0).T.contiguous().expand(T + 1, 8, B).contiguous()
+    presets = dict(vsa=two_dof_vsa_boxddp, sea=two_dof_sea, sea7=seven_dof_sea)
     cases = {}
-    for arm in ("vsa", "sea"):
-        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T, dtype=dtype)
+    for arm in arms:
+        w = presets[arm](T=T, dtype=dtype)
         spec = vk.extract_vsa_spec(w.problem, w.bounds)
-        if arm == "sea":
+        x0 = x0_batch(B, dtype, seed=0, nx=spec.ndx).T.contiguous()
+        xs = x0.expand(T + 1, spec.ndx, B).contiguous()
+        if arm != "vsa":
             us = w.problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
         else:
             us = torch.zeros(T, spec.nu, B, dtype=dtype, device="cuda")
@@ -189,6 +199,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[4096, 16384])
     ap.add_argument("--only", nargs="+", choices=list(VARIANTS), help="variants to build")
+    ap.add_argument("--arms", nargs="+", choices=["vsa", "sea", "sea7"], default=["vsa", "sea"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on the card")
@@ -197,12 +208,12 @@ def main(argv=None):
     print(f"card: {card}", flush=True)
     names = ["base"] + [n for n in (args.only or VARIANTS) if n != "base"]
     t0 = time.perf_counter()
-    libs = build_variants(names)
+    libs = build_variants(names, n7="sea7" in args.arms)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     own = build._lib
     try:
         for B in args.batch:
-            for case, kargs in lin_inputs(B).items():
+            for case, kargs in lin_inputs(B, args.arms).items():
                 build._lib = libs["base"]
                 want = _flat(vk.linearize(*kargs))
                 for name, lib in libs.items():

@@ -4,9 +4,10 @@ batch sizes and a ``torch.profiler`` breakdown of one solve).
 
     python -m aslr_to_tpu_torch.measure --path sea_warm --batch 1024 4096 16384
     python -m aslr_to_tpu_torch.measure --path boxddp boxfddp --batch 4096 --profile
+    python -m aslr_to_tpu_torch.measure --path sevendof --profile
 
 Paths (T=100, float32, x0s = 0.05 randn from a CUDA generator seeded per
-path, ``SEEDS``):
+path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
 
   boxddp    BoxDDP on two_dof_vsa_boxddp, cold, maxiter=20, th_stop=1e-5,
             boxqp_warm_iters=2 (the benchmark's primary metric);
@@ -20,7 +21,13 @@ path, ``SEEDS``):
             (``use_fast_path=True``: K1, K2, K6), same preset, seed and
             settings;
   fast_sea  the sea_warm path's cold solve (seed 1, maxiter=60,
-            th_stop=1e-5) through the fast path (K1, K4, K6).
+            th_stop=1e-5) through the fast path (K1, K4, K6);
+  sevendof  FDDP on seven_dof_sea (nx=28, nu=7), B=1024, warm-started
+            from the quasi-static controls, maxiter=20, th_stop=1e-5 (the
+            benchmark's 7-DoF metric, bench.py:231-252): K1, K4 and K3 at
+            nl = 7;
+  fast_sevendof  the sevendof solve through the fast path (K1, K4, K6 at
+            nl = 7), same seed and settings.
 
 The lane paths run two trials a line-search round through K3; the fast
 paths one trial a round through K6, with a relayout between the solver's
@@ -52,9 +59,12 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea")
-SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1)
+PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", "sevendof",
+         "fast_sevendof")
+SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, sevendof=3,
+             fast_sevendof=3)
 T_PATH, B_PATH = 100, 4096
+B_SEVENDOF = 1024       # bench.py's BENCH_7DOF_BATCH
 WARM_OFFSET = 1e-4
 KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_boxfddp_kernel",
                 "riccati_fddp_kernel", "rollout2_kernel", "rollout1_kernel")
@@ -70,16 +80,30 @@ class Path(NamedTuple):
     maxiter: int
 
 
-def x0_batch(B, dtype, seed):
-    """x0s = 0.05 randn [B, 8] from a seeded CUDA generator, drawn in
+def x0_batch(B, dtype, seed, nx=8):
+    """x0s = 0.05 randn [B, nx] from a seeded CUDA generator, drawn in
     float64 so that both dtypes see the same states."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return (0.05 * torch.randn(B, 8, generator=g, device="cuda", dtype=torch.float64)).to(dtype)
+    return (0.05 * torch.randn(B, nx, generator=g, device="cuda", dtype=torch.float64)).to(dtype)
 
 
-def build_path(name, B=B_PATH, T=T_PATH, dtype=torch.float32):
-    from . import SolverSettings, make_batched_solver, two_dof_sea, two_dof_vsa_boxddp
+def path_batch(name):
+    """The path's own batch: 1024 for the 7-DoF paths, else 4096."""
+    return B_SEVENDOF if name.endswith("sevendof") else B_PATH
 
+
+def build_path(name, B=None, T=T_PATH, dtype=torch.float32):
+    from . import SolverSettings, make_batched_solver, seven_dof_sea, two_dof_sea
+    from . import two_dof_vsa_boxddp
+
+    B = B or path_batch(name)
+    if name in ("sevendof", "fast_sevendof"):
+        w = seven_dof_sea(T=T, dtype=dtype)
+        x0s = x0_batch(B, dtype, SEEDS[name], nx=w.problem.state.nx)
+        solve = make_batched_solver(w.problem, SolverSettings(maxiter=20, th_stop=1e-5),
+                                    use_gaps=True, bounds=None, warm_start=True,
+                                    use_fast_path=True if name == "fast_sevendof" else "lanes")
+        return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
     x0s = x0_batch(B, dtype, SEEDS[name])
     if name in ("sea_warm", "fast_sea"):
         w = two_dof_sea(T=T, dtype=dtype)
@@ -163,7 +187,8 @@ def profile_solve(solve, inputs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=PATHS, nargs="+", required=True)
-    ap.add_argument("--batch", type=int, nargs="+", default=[B_PATH])
+    ap.add_argument("--batch", type=int, nargs="+",
+                    help="batch sizes (default: each path's own, 4096 or 1024)")
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--save-lanes", metavar="FILE")
@@ -179,7 +204,8 @@ def main(argv=None):
     build.build()
     build.lib()
     record = dict(card=card, runs=[])
-    for path, B in ((p, b) for p in args.path for b in args.batch):
+    batches = {p: args.batch or [path_batch(p)] for p in args.path}
+    for path, B in ((p, b) for p in args.path for b in batches[p]):
         p = build_path(path, B)
         prep = p.setup()
         times = []
@@ -190,7 +216,7 @@ def main(argv=None):
             res = p.solve(*inputs)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            if i == 0 and args.save_lanes and path == "sea_warm" and B == args.batch[0]:
+            if i == 0 and args.save_lanes and path == "sea_warm" and B == batches[path][0]:
                 save_lanes(args.save_lanes, inputs, res, p.maxiter)
         summ = summary(res)
         run = dict(path=path, B=B, seconds=times, solves_per_s=[B / t for t in times], **summ)

@@ -1,7 +1,10 @@
-"""Robot models: serial-chain builder and the 2-DoF soft arm.
+"""Robot models: the serial-chain builder, the 2-DoF soft arm, the 7-DoF
+arm, and a name registry.
 
-PyTorch counterpart of ``aslr_to_tpu/models/robots.py`` (``make_chain`` and
-``asr_twodof``; the other robots come with later slices).
+PyTorch counterpart of ``aslr_to_tpu/models/robots.py`` (``make_chain``,
+``asr_twodof``, ``seven_dof_arm`` and ``load``; ``double_pendulum`` comes
+with the rigid-arm models, and until then ``load`` refuses its name as it
+refuses any unknown one).
 """
 from __future__ import annotations
 
@@ -9,6 +12,16 @@ import numpy as np
 import torch
 
 from ..ops.rigid_body import RobotModel
+
+
+def _rot_x(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+
+
+def _rot_y(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
 
 
 def make_chain(name, joint_pos, joint_rot, axes, masses, coms, inertias,
@@ -65,3 +78,40 @@ def asr_twodof(dtype=torch.float64, device=None) -> RobotModel:
         dtype=dtype,
         device=device,
     )
+
+
+def seven_dof_arm(dtype=torch.float64, device=None) -> RobotModel:
+    """7-DoF serial arm with mixed axes and offsets ('seven_dof_arm', the
+    JAX package's stand-in for the reference's ``talos_arm``): a deeper
+    chain with non-planar axes, the robot of the 7-DoF SEA reach."""
+    eye = np.eye(3)
+    return make_chain(
+        name="seven_dof_arm",
+        joint_pos=[[0.0, 0.0, 0.15], [0.02, 0.0, 0.1], [0.0, 0.02, 0.12], [0.1, 0.0, 0.02],
+                   [0.0, 0.0, 0.12], [0.08, 0.01, 0.0], [0.0, 0.0, 0.08]],
+        joint_rot=[eye, _rot_x(0.1), eye, _rot_y(-0.15), eye, _rot_x(0.05), eye],
+        axes=[[0, 0, 1], [0, 1, 0], [1, 0, 0], [0, 1, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]],
+        masses=[2.0, 1.5, 1.2, 1.0, 0.8, 0.5, 0.3],
+        coms=[[0.0, 0.01, 0.06], [0.03, 0.0, 0.05], [0.0, 0.01, 0.06], [0.05, 0.0, 0.01],
+              [0.0, 0.0, 0.06], [0.04, 0.0, 0.0], [0.0, 0.0, 0.04]],
+        inertias=[[8e-3, 8e-3, 3e-3], [6e-3, 6e-3, 2e-3], [5e-3, 5e-3, 2e-3],
+                  [4e-3, 4e-3, 1.5e-3], [3e-3, 3e-3, 1e-3], [1.5e-3, 1.5e-3, 6e-4],
+                  [8e-4, 8e-4, 4e-4]],
+        frames=[("gripper", 6, np.eye(3), [0.0, 0.0, 0.08])],
+        dtype=dtype,
+        device=device,
+    )
+
+
+_REGISTRY = {
+    "asr_twodof": asr_twodof,
+    "seven_dof_arm": seven_dof_arm,
+}
+
+
+def load(name: str, dtype=torch.float64, device=None) -> RobotModel:
+    """Load a named robot (the reference's ``example_robot_data.load``)."""
+    try:
+        return _REGISTRY[name](dtype=dtype, device=device)
+    except KeyError:
+        raise KeyError(f"unknown robot '{name}'; available: {sorted(_REGISTRY)}") from None

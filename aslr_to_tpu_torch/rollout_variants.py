@@ -44,13 +44,13 @@ import torch
 from .box_variants import cuda_ms, same_bits
 from .kernels import build
 
-FILES = ("rollout.cu", "lanes.cuh", "common.cuh")
+FILES = ("rollout.cu", "rollout.cuh", "lanes.cuh", "common.cuh")
 INEXACT = ("fma",)
 
 
 def _set(*pairs):
-    """Substitutions that set ``constexpr`` values of rollout.cu."""
-    return [("rollout.cu", f"constexpr {decl} = ", value) for decl, value in pairs]
+    """Substitutions that set ``constexpr`` values of rollout.cuh."""
+    return [("rollout.cuh", f"constexpr {decl} = ", value) for decl, value in pairs]
 
 
 VARIANTS = {

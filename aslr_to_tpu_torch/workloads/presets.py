@@ -1,10 +1,13 @@
-"""The 2-DoF soft-arm reach workloads as declarative configs.
+"""The soft-arm reach workloads as declarative configs.
 
-PyTorch counterpart of ``two_dof_sea``, ``_two_dof_vsa`` and
-``two_dof_vsa_boxddp`` in ``aslr_to_tpu/workloads/presets.py``: the
-reference ``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the
-benchmark's warm re-solve headline) and ``examples/two_dof_vsa_boxddp.py``
-(u in [-100, 100]^2 x [0, 100]^2; the benchmark's primary metric).
+PyTorch counterpart of ``two_dof_sea``, ``three_dof_sea``,
+``seven_dof_sea``, ``_two_dof_vsa`` and ``two_dof_vsa_boxddp`` in
+``aslr_to_tpu/workloads/presets.py``: the reference
+``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the benchmark's
+warm re-solve headline), the same SEA reach on a 3-DoF chain and on the
+7-DoF arm (the benchmark's 7-DoF metric, ``bench.py:231-252``), and
+``examples/two_dof_vsa_boxddp.py`` (u in [-100, 100]^2 x [0, 100]^2; the
+benchmark's primary metric).
 
 The presets build on the card (``device="cuda"``) unless the caller names
 another device; without a CUDA device that default raises, as torch does.
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models import robots
@@ -30,6 +34,7 @@ from ..models.costs import (
 from ..models.dynamics import DifferentialSEADynamics, DifferentialVSADynamics
 from ..models.integrator import IntegratedActionEuler
 from ..models.state import StateASR
+from ..ops.rigid_body import frame_placement
 from ..ops.se3 import SE3
 from ..solvers.ddp import Bounds
 from ..solvers.problem import ShootingProblem
@@ -88,6 +93,77 @@ def two_dof_sea(T: int = 100, dt: float = 1e-2, dtype=torch.float64, device="cud
     return Workload(
         name="two_dof_sea", problem=problem, bounds=None, solver="fddp",
         maxiter=100, th_stop=1e-7, warm_start=True, ee_frame=ee, target=target)
+
+
+def _sea_reach(name, model, q_tgt, T, dt, dtype, device) -> Workload:
+    """The n-DoF SEA reach (JAX ``three_dof_sea`` and ``seven_dof_sea``):
+    FDDP, no box, quasi-static warm start; the goal is the gripper pose at
+    the bent posture ``q_tgt``, the spring K = I and the motor inertia B =
+    0.01 I."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    model = model.with_gravity([0.0, 0.0, -9.81])
+    state = StateASR(model)
+    act = ASRActuation(state)
+    nu, nq = act.nu, model.nq
+    ee = model.frame_id("gripper")
+    tgt = frame_placement(model, t(q_tgt), ee)
+
+    frame_res = ResidualModelFramePlacementASR(state, ee, SE3(tgt.rot, tgt.trans), nu)
+    goal = CostModelResidual(state, ActivationModelQuad(), frame_res)
+    xact = ActivationModelWeightedQuad(t([1.0] * nq + [0.0] * nq + [1.0] * nq + [0.0] * nq))
+    xreg = CostModelResidual(state, xact, ResidualModelState(state, state.zero(), nu))
+    ureg = CostModelResidual(state, ActivationModelQuad(), ResidualModelControl(state, nu))
+
+    running_costs = (
+        CostModelSum(state, nu)
+        .add_cost("gripperPose", goal, 1e-1)
+        .add_cost("xReg", xreg, 1e-3)
+        .add_cost("uReg", ureg, 1e-2)
+    )
+    terminal_costs = CostModelSum(state, nu).add_cost("gripperPose", goal, 1e4)
+
+    K = 1.0 * torch.eye(nq, dtype=dtype, device=device)
+    B = 0.01 * torch.eye(nq, dtype=dtype, device=device)
+    running = IntegratedActionEuler(DifferentialSEADynamics(state, act, running_costs, K, B), dt)
+    terminal = IntegratedActionEuler(
+        DifferentialSEADynamics(state, act, terminal_costs, K, B), 0.0)
+
+    problem = ShootingProblem(x0=torch.zeros(state.nx, dtype=dtype, device=device),
+                              running=running, terminal=terminal, T=T)
+    return Workload(
+        name=name, problem=problem, bounds=None, solver="fddp", maxiter=100, th_stop=1e-7,
+        warm_start=True, ee_frame=ee, target=tgt.trans)
+
+
+def three_dof_sea(T: int = 100, dt: float = 1e-2, dtype=torch.float64,
+                  device="cuda") -> Workload:
+    """3-DoF SEA arm reach, the smallest chain above 2 DoF (ndx=12, nu=3):
+    the 7-DoF reach's code at a size the CPU tests afford."""
+    eye = np.eye(3)
+    model = robots.make_chain(
+        name="three_dof_sea",
+        joint_pos=[[0.0, 0.0, 0.12], [0.02, 0.0, 0.1], [0.0, 0.01, 0.11]],
+        joint_rot=[eye, robots._rot_x(0.1), robots._rot_y(-0.1)],
+        axes=[[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [1.0, 0.0, 0.0]],
+        masses=[1.5, 1.0, 0.6],
+        coms=[[0.0, 0.01, 0.05], [0.04, 0.0, 0.04], [0.0, 0.0, 0.05]],
+        inertias=[[2e-3, 2e-3, 1e-3], [1.5e-3, 1.5e-3, 8e-4], [8e-4, 8e-4, 4e-4]],
+        frames=[("gripper", 2, eye, [0.0, 0.0, 0.1])],
+        dtype=dtype,
+        device=device,
+    )
+    return _sea_reach("three_dof_sea", model, [0.4, -0.5, 0.3], T, dt, dtype, device)
+
+
+def seven_dof_sea(T: int = 100, dt: float = 1e-2, dtype=torch.float64,
+                  device="cuda") -> Workload:
+    """7-DoF SEA arm reach on ``robots.seven_dof_arm`` (nx=28, nu=7): the
+    reference's ``talos_arm`` generality at the solve level, and the
+    benchmark's 7-DoF metric."""
+    return _sea_reach("seven_dof_sea", robots.seven_dof_arm(dtype=dtype, device=device),
+                      [0.4, -0.5, 0.3, -0.8, 0.2, 0.6, -0.3], T, dt, dtype, device)
 
 
 def _two_dof_vsa(T: int, dt: float, stiffness_cost: bool, k_lb: float,

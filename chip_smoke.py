@@ -23,6 +23,12 @@ Phases, each printed with its result and time:
      probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
      2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
      version, with its time, GFLOP/s and bound;
+     n-DoF kernels: K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms'
+     instances (nl 3 and 7; K4 at (12, 3) and (28, 7); the rollouts
+     unboxed with gaps) against their plain versions to the bit in f64 and
+     f32 at T=20, B=1024 (the plain versions are slow at nl = 7), then
+     timed in f32 at T=100 and B=1024 and 4096, with the plain version's
+     time at T=100, B=1024 and the bound;
   4. main path: BoxDDP, make_batched_solver(..., use_fast_path="lanes") on
      two_dof_vsa_boxddp, T=100, B=4096, float32, maxiter=20;
   5. SEA warm: FDDP on two_dof_sea, T=100, B=4096, float32, maxiter=60,
@@ -41,13 +47,21 @@ Phases, each printed with its result and time:
   8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
      and the quasi-static-warm T=100 SEA FDDP solve against
      tests/golden/sea_T100.npz, both float64 through the kernels;
-  9. fast path: the per-scenario solver's fused route,
+  9. 7-DoF: FDDP on seven_dof_sea (nx=28, nu=7), B=1024, T=100, float32,
+     warm-started from the quasi-static controls, maxiter=20, th_stop=1e-5
+     (bench.py:231-252): the lane route (K1, K4, K3 at nl = 7), two timed
+     solves with solves/s and the convergence accounting beside the TPU's
+     converged fraction; the fast route (K1, K4, K6) on the same inputs,
+     within 3 points (1.5 mean iterations) of the lane route; the generic
+     route in float64 at T=10, B=16, maxiter=3 against both (at least B-1
+     lanes agree);
+ 10. fast path: the per-scenario solver's fused route,
      make_batched_solver(..., use_fast_path=True) (K1, the Riccati kernel,
      K6 one trial a line-search round), on the BoxDDP main path's inputs
      and on the SEA cold solve's (measure.py paths fast_boxddp, fast_sea),
      T=100, B=4096, f32; its convergence statistics must land within 3
      points (1.5 mean iterations) of the lane path's on the same inputs;
- 10. generic: the generic solver (use_fast_path=False, the reference),
+ 11. generic: the generic solver (use_fast_path=False, the reference),
      the fast path and the lane path in float64 at T=40, B=64, maxiter=20
      (BoxDDP in the tight box with cold QPs, SEA FDDP), at least B-1 lanes
      equal in iterations and flags with cost within rtol 1e-8 (a lane
@@ -79,7 +93,8 @@ from torch.overrides import TorchFunctionMode
 # the TPU's f32 statistics (the JAX package's benchmark record
 # BENCH_r05.json), printed beside the card's for reference only
 TPU_REFERENCE = dict(boxddp=dict(converged_frac=0.0, diverged_frac=0.211, mean_iterations=18.4),
-                     sea_warm=dict(converged_frac=0.9998))
+                     sea_warm=dict(converged_frac=0.9998),
+                     sevendof=dict(converged_frac=0.9316, solves_per_s_on_tpu=1984.58))
 KERNELS = {
     "linearize": dict(source="aslr_to_tpu_torch/csrc/linearize.cu",
                       replaces="aslr_to_tpu/pallas/vsa_kernels.py:797"),
@@ -95,6 +110,16 @@ KERNELS = {
                      replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
     "probe": dict(source="aslr_to_tpu_torch/csrc/probe.cu",
                   replaces="scripts/probe_sublane.py:40"),
+    # the 7-DoF SEA arm's instances (nl = 7; K4 at (28, 7)); the 3-DoF ones
+    # are their rows' variants
+    "linearize_n7": dict(source="aslr_to_tpu_torch/csrc/linearize_n7.cu",
+                         replaces="aslr_to_tpu/pallas/vsa_kernels.py:797"),
+    "riccati_fddp_n7": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                            replaces="aslr_to_tpu/pallas/riccati.py:294"),
+    "rollout2_n7": dict(source="aslr_to_tpu_torch/csrc/rollout_n7.cu",
+                        replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
+    "rollout1_n7": dict(source="aslr_to_tpu_torch/csrc/rollout_n7.cu",
+                        replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
 }
 # the case each kernel's row is timed on, and the path its launches come
 # from; the other cases of a kernel are reported as its variants
@@ -103,7 +128,15 @@ ROW_CASE = ("linearize[vsa]", "riccati_box[vsa]", "rollout2[vsa box]", "riccati_
 # P is on no solver path: its launches are those of the probe phase
 ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp",
             "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp",
-            "rollout1": "fast_boxddp", "probe": "probe"}
+            "rollout1": "fast_boxddp", "probe": "probe", "linearize_n7": "sevendof",
+            "riccati_fddp_n7": "sevendof", "rollout2_n7": "sevendof",
+            "rollout1_n7": "fast_sevendof"}
+# the launch counter (build.LAUNCHES) of each row, and the paths that run
+# the 7-DoF instances
+ROW_KERNEL = {row: row.removesuffix("_n7") for row in ROW_PATH}
+NDOF_PATHS = ("sevendof", "fast_sevendof")
+B_NDOF = 1024                      # the 7-DoF path's batch (measure.B_SEVENDOF)
+T_NDOF_GENERIC, B_NDOF_GENERIC, MAXITER_NDOF_GENERIC = 10, 16, 3
 # the cases also timed at B_FILL
 FILL_CASE = ROW_CASE + ("linearize[sea]", "riccati_fddp[vsa]")
 # kernels held to their plain versions to the bit (the others to 1e-9 in f64)
@@ -250,7 +283,8 @@ def build_phase():
     t0 = time.perf_counter()
     path = build.build(force=True)
     build.lib()
-    log(f"built {path.name} in {time.perf_counter() - t0:.3f} s")
+    log(f"built {path.name} in {time.perf_counter() - t0:.3f} s; nvcc seconds by source: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in build.build_seconds.items()))
     for line in build.build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry", "== ")):
             log(f"  ptxas: {line.strip()}")
@@ -262,22 +296,23 @@ def kernel_ptxas(build_log, lib):
     """One line per instantiation of K1, of the Riccati group kernel (K2, K4,
     K5) and of the rollouts (K3, K6): registers, stack frame and spills from
     ptxas, and a block's dynamic shared memory."""
-    def box(kind, s, nu, g):
+    def box(kind, s, ndx, nu, g):
         size = 4 if s == "f" else 8
-        smem = (lib.aslr_riccati_fddp_smem(int(nu), size) if kind == "fddp" else
+        smem = (lib.aslr_riccati_fddp_smem(int(ndx), int(nu), size) if kind == "fddp" else
                 lib.aslr_riccati_box_smem(int(nu), int(kind == "boxfddp"), size))
-        return f"{dict(box='K2', boxfddp='K5', fddp='K4')[kind]} {{}} (ndx 8, nu {nu}, {g} " \
-               f"lanes a scenario)", smem
+        return f"{dict(box='K2', boxfddp='K5', fddp='K4')[kind]} {{}} (ndx {ndx}, nu {nu}, " \
+               f"{g} lanes a scenario)", smem
 
-    def roll(nt, s, sea, boxed, gaps):
-        return (f"{'K3' if nt == '2' else 'K6'} {{}} {'SEA' if sea == '1' else 'VSA'}"
+    def roll(nt, s, nl, sea, boxed, gaps):
+        return (f"{'K3' if nt == '2' else 'K6'} {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}"
                 f"{' box' if boxed == '1' else ''}{' gaps' if gaps == '1' else ''}",
-                lib.aslr_rollout_smem(int(nt), int(sea), int(gaps), 4 if s == "f" else 8))
+                lib.aslr_rollout_smem(int(nl), int(nt), int(sea), int(gaps),
+                                      4 if s == "f" else 8))
 
-    kinds = [(r"linearize_kernelI([fd])Li2ELb([01])E",
-              lambda s, sea: (f"K1 {{}} {'SEA' if sea == '1' else 'VSA'}", 0), 0),
-             (r"riccati_(box|boxfddp|fddp)_kernelI([fd])Li8ELi(\d+)ELi(\d+)E", box, 1),
-             (r"rollout([12])_kernelI([fd])Li2ELb([01])ELb([01])ELb([01])E", roll, 1)]
+    kinds = [(r"linearize_kernelI([fd])Li(\d+)ELb([01])E",
+              lambda s, nl, sea: (f"K1 {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}", 0), 0),
+             (r"riccati_(box|boxfddp|fddp)_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E", box, 1),
+             (r"rollout([12])_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])E", roll, 1)]
     lines, name, frame = [], None, ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -305,25 +340,26 @@ def tight_box(dtype):
     return Bounds(t([-2.0, -2.0, 0.0, 0.0]), t([2.0, 2.0, 3.0, 3.0]))
 
 
-def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
+def kernel_cases(dtype, B=None, arms=("vsa", "sea"), T=None):
     """{row: (kernel call, plain call, io_values kwargs, name, ndx, nu)} at
-    the paths' shapes (T=100, B=4096 unless given)."""
-    from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
+    the paths' shapes (T=100, B=4096 unless given). Arms: the 2-DoF VSA and
+    SEA arms, and the 3- and 7-DoF SEA arms (sea3, sea7)."""
+    from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
     from aslr_to_tpu_torch.kernels import riccati as rk
     from aslr_to_tpu_torch.kernels import vsa_kernels as vk
-    from aslr_to_tpu_torch.measure import B_PATH
-    from aslr_to_tpu_torch.measure import T_PATH as T
-    from aslr_to_tpu_torch.measure import x0_batch
+    from aslr_to_tpu_torch.measure import B_PATH, T_PATH, x0_batch
 
-    B = B or B_PATH
+    B, T = B or B_PATH, T or T_PATH
+    presets = dict(vsa=two_dof_vsa_boxddp, sea=two_dof_sea, sea3=three_dof_sea,
+                   sea7=seven_dof_sea)
     cases = {}
     for arm in arms:
-        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T, dtype=dtype)
+        w = presets[arm](T=T, dtype=dtype)
         spec = vk.extract_vsa_spec(w.problem, w.bounds)
-        nu = spec.nu
-        x0 = x0_batch(B, dtype, seed=0).T.contiguous()
-        xs = x0.expand(T + 1, 8, B).contiguous()
-        if arm == "sea":        # the warm start's quasi-static controls
+        nu, ndx = spec.nu, spec.ndx
+        x0 = x0_batch(B, dtype, seed=0, nx=ndx).T.contiguous()
+        xs = x0.expand(T + 1, ndx, B).contiguous()
+        if arm != "vsa":        # the warm start's quasi-static controls
             us = w.problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
         else:
             us = torch.zeros(T, nu, B, dtype=dtype, device="cuda")
@@ -342,7 +378,7 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
         lin_args = (spec, xs, us, wterm)
         cases[f"linearize[{arm}]"] = (lambda a=lin_args: vk.linearize(*a),
                                       lambda a=lin_args: vk.linearize_plain(*a),
-                                      dict(), "linearize", 8, nu)
+                                      dict(), "linearize", ndx, nu)
         if arm == "vsa":
             lb = torch.as_tensor(spec.lb, dtype=dtype, device="cuda")[:, None].expand(nu, B)
             ub = torch.as_tensor(spec.ub, dtype=dtype, device="cuda")[:, None].expand(nu, B)
@@ -377,9 +413,9 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
                                 dict(boxed=label.endswith("box]")), "rollout1", 8, nu)
         else:
             fd_args = derivs + (fs, reg)
-            cases["riccati_fddp[sea]"] = (lambda a=fd_args: rk.riccati_fddp_backward(*a),
-                                          lambda a=fd_args: rk.riccati_fddp_plain(*a),
-                                          dict(), "riccati_fddp", 8, nu)
+            cases[f"riccati_fddp[{arm}]"] = (lambda a=fd_args: rk.riccati_fddp_backward(*a),
+                                             lambda a=fd_args: rk.riccati_fddp_plain(*a),
+                                             dict(), "riccati_fddp", ndx, nu)
             bw = rk.riccati_fddp_plain(*fd_args)
             k = torch.where(bw.ok, bw.k, 0.0)
             K = torch.where(bw.ok, bw.K, 0.0)
@@ -387,13 +423,13 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea")):
             infeas = (torch.arange(B, device="cuda") % 2).to(dtype)
             roll_args = (spec, xs, us, k, K, x0, ones, 0.5 * ones, wterm, None, None,
                          fs, infeas)
-            cases["rollout2[sea gaps]"] = (lambda a=roll_args: vk.rollout2(*a),
-                                           lambda a=roll_args: vk.rollout2_plain(*a),
-                                           dict(gaps=True), "rollout2", 8, nu)
+            cases[f"rollout2[{arm} gaps]"] = (lambda a=roll_args: vk.rollout2(*a),
+                                              lambda a=roll_args: vk.rollout2_plain(*a),
+                                              dict(gaps=True), "rollout2", ndx, nu)
             r1 = roll_args[:6] + roll_args[7:]
-            cases["rollout1[sea gaps]"] = (partial(vk.rollout1, *r1),
-                                           partial(vk.rollout1_plain, *r1),
-                                           dict(gaps=True), "rollout1", 8, nu)
+            cases[f"rollout1[{arm} gaps]"] = (partial(vk.rollout1, *r1),
+                                              partial(vk.rollout1_plain, *r1),
+                                              dict(gaps=True), "rollout1", ndx, nu)
     return cases
 
 
@@ -485,6 +521,84 @@ def kernels_phase(report):
         log(f"  {label} f32 time at B={B_FILL}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
+@phase("n-DoF kernels")
+def ndof_kernels_phase(report):
+    """K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms' instances, at the
+    7-DoF path's shape (T=100, B_NDOF): to the bit against their plain
+    versions in f64 and f32 (K6 also against K3's first trial), and in f32
+    the kernel's time, the plain version's time (the call that was
+    compared), its operations and the bound; then the kernel's time and
+    bound at 4 B_NDOF. The 7-DoF instances are their kernels' rows
+    ``<name>_n7``, the 3-DoF ones variants of those rows."""
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import T_PATH
+
+    def target(label, name):
+        row = report[f"{name}_n7"]
+        return row if "sea7" in label else row.setdefault("variants", {}).setdefault(label, {})
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        cases = kernel_cases(dtype, B_NDOF, ("sea3", "sea7"), T=T_PATH)
+        for label, (kern, plain, io_kw, name, ndx, nu) in cases.items():
+            before = build.LAUNCHES[name]
+            got = kern()
+            torch.cuda.synchronize()
+            if build.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{label}: the wrapper did not launch its kernel")
+            want, plain_ms = timed_once(plain)
+            rel, err = compare(label, got, want, 1e-9 if tag == "f64" else None)
+            want_f = flat(want)
+            differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
+            if differ:
+                raise AssertionError(f"{label} {tag}: {differ} differ from the plain version "
+                                     f"(max abs err {err:.3e}); the kernel is built to equal it "
+                                     f"to the bit")
+            if name == "rollout1":
+                check_k6_is_k3_first_trial(label, tag, kern, got)
+            del got, want, want_f
+            log(f"  {label} {tag} T={T_PATH} B={B_NDOF}: equal to the plain version to "
+                f"the bit (max abs err {err:.3e})")
+            t = target(label, name)
+            t["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+            if tag == "f64":
+                continue
+            t["ms"], t["plain_ms"] = cuda_ms(kern, 10), plain_ms
+            # K6's plain version runs two trials and keeps one
+            t["ops"] = count_ops(plain) // (2 if name == "rollout1" else 1)
+            n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
+            t["bound_ms"], t["bound_by"], nbytes = bound(t["ops"], n_in, n_out, n_flags,
+                                                         B_NDOF, 4)
+            t["bytes"] = nbytes
+            log(f"  {label} f32 T={T_PATH} B={B_NDOF}: kernel {t['ms']:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{nbytes} bytes, {t['ops']} ops)")
+        del cases
+    # the kernels at four times the batch, kernel only; their operations
+    # scale with B (elementwise per scenario)
+    B = 4 * B_NDOF
+    for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(
+            torch.float32, B, ("sea3", "sea7"), T=T_PATH).items():
+        t = report[f"{name}_n7"].setdefault("variants", {}).setdefault(f"{label} B={B}", {})
+        t["ms"] = cuda_ms(kern, 10)
+        ops = target(label, name)["ops"] * (B // B_NDOF)
+        t["bound_ms"], t["bound_by"], nbytes = bound(
+            ops, *io_values(name, T_PATH, ndx, nu, **io_kw), B, 4)
+        log(f"  {label} f32 T={T_PATH} B={B}: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} bytes, {ops} ops)")
+
+
+def timed_once(fn):
+    """``fn()`` and the milliseconds of that one call, by CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def same_bits(a, b):
     """Equal to the bit, NaN where the other has NaN."""
     return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0),
@@ -541,17 +655,18 @@ def drive(path, report, fn, expect):
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
-    for name, n in launches.items():
-        report[name].setdefault("launches_by_path", {})[path] = n
-        if ROW_PATH[name] == path:
-            report[name]["launches"] = n
+    for row, kernel in ROW_KERNEL.items():
+        if row.endswith("_n7") == (path in NDOF_PATHS):     # the row's instances ran there
+            report[row].setdefault("launches_by_path", {})[path] = launches[kernel]
+        if ROW_PATH[row] == path:
+            report[row]["launches"] = launches[kernel]
     return out, seconds
 
 
-def summarize(res, B, T, nu, label, tpu=None):
+def summarize(res, B, T, nu, label, tpu=None, nx=8):
     from aslr_to_tpu_torch.measure import summary
 
-    assert res.xs.shape == (B, T + 1, 8) and res.us.shape == (B, T, nu)
+    assert res.xs.shape == (B, T + 1, nx) and res.us.shape == (B, T, nu)
     live = ~res.diverged
     if not bool(torch.isfinite(res.cost[live]).all()):
         raise AssertionError(f"{label}: non-finite cost in a lane that did not diverge")
@@ -565,25 +680,25 @@ def summarize(res, B, T, nu, label, tpu=None):
     return summ
 
 
-def solve_path(name, report, card, expect, nu, n_timed, tpu=None):
-    """Drive the path ``name`` of measure.py at T=100, B=4096, f32: its
-    set-up (the SEA cold solve) where it has one, then ``n_timed`` solves.
-    Returns the convergence summaries: the set-up's (or None) and the last
-    solve's."""
-    from aslr_to_tpu_torch.measure import B_PATH, T_PATH, build_path
+def solve_path(name, report, card, expect, nu, n_timed, tpu=None, nx=8):
+    """Drive the path ``name`` of measure.py at T=100 and its batch (4096,
+    or 1024 for the 7-DoF paths), f32: its set-up (the SEA cold solve)
+    where it has one, then ``n_timed`` solves. Returns the convergence
+    summaries: the set-up's (or None) and the last solve's."""
+    from aslr_to_tpu_torch.measure import T_PATH, build_path, path_batch
 
-    p = build_path(name)
+    p, B = build_path(name), path_batch(name)
     prep = setup_summ = None
     if name == "sea_warm":
         prep, t = drive("sea_cold", report, p.setup, expect)
         log(f"  cold solve: {t:.4f} s")
-        setup_summ = summarize(prep, B_PATH, T_PATH, nu, "SEA cold, f32")
+        setup_summ = summarize(prep, B, T_PATH, nu, "SEA cold, f32")
     for i in range(n_timed):
         inputs = p.args(i, prep)
         res, t = drive(name, report, lambda: p.solve(*inputs), expect)
-        log(f"  solve {i}: {t:.4f} s, {B_PATH / t:.2f} solves/s on {card} "
-            f"(T={T_PATH}, B={B_PATH}, f32, maxiter={p.maxiter})")
-    return setup_summ, summarize(res, B_PATH, T_PATH, nu, f"{name}, last solve, f32", tpu)
+        log(f"  solve {i}: {t:.4f} s, {B / t:.2f} solves/s on {card} "
+            f"(T={T_PATH}, B={B}, f32, maxiter={p.maxiter})")
+    return setup_summ, summarize(res, B, T_PATH, nu, f"{name}, last solve, f32", tpu, nx)
 
 
 @phase("main path")
@@ -601,6 +716,35 @@ def sea_warm_phase(report, card):
 @phase("BoxFDDP")
 def boxfddp_phase(report, card):
     solve_path("boxfddp", report, card, ("linearize", "riccati_boxfddp", "rollout2"), 4, 1)
+
+
+@phase("7-DoF")
+def sevendof_phase(report, card):
+    """The 7-DoF SEA reach through the lane route (K1, K4, K3 at nl = 7)
+    and the fast route (K1, K4, K6), and the generic route in f64 against
+    both at a small size."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, seven_dof_sea
+    from aslr_to_tpu_torch.measure import x0_batch
+
+    lanes = solve_path("sevendof", report, card, ("linearize", "riccati_fddp", "rollout2"), 7,
+                       2, TPU_REFERENCE["sevendof"], nx=28)[1]
+    fast = solve_path("fast_sevendof", report, card, ("linearize", "riccati_fddp", "rollout1"),
+                      7, 1, nx=28)[1]
+    close_to_lanes("fast 7-DoF", fast, lanes)
+    w = seven_dof_sea(T=T_NDOF_GENERIC, dtype=torch.float64)
+    settings = SolverSettings(maxiter=MAXITER_NDOF_GENERIC, th_stop=1e-5)
+    x0s = x0_batch(B_NDOF_GENERIC, torch.float64, 3, nx=28)
+    res = {}
+    for route in (False, True, "lanes"):
+        t0 = time.perf_counter()
+        res[route] = make_batched_solver(w.problem, settings, use_gaps=True, bounds=None,
+                                         warm_start=True, use_fast_path=route)(x0s)
+        torch.cuda.synchronize()
+        log(f"  7-DoF f64 T={T_NDOF_GENERIC} B={B_NDOF_GENERIC} maxiter={MAXITER_NDOF_GENERIC} "
+            f"use_fast_path={route!r}: {time.perf_counter() - t0:.3f} s")
+    lanes_equal("7-DoF lanes against generic", res["lanes"], res[False], B_NDOF_GENERIC, x0s)
+    lanes_equal("7-DoF fast against generic", res[True], res[False], B_NDOF_GENERIC, x0s)
+    return lanes
 
 
 def close_to_lanes(label, fast, lanes):
@@ -856,9 +1000,11 @@ def main():
                          library_note=NO_LIBRARY) for name, meta in KERNELS.items()}
     kernels_phase(report)
     probe_phase(report)
+    ndof_kernels_phase(report)
     lanes_boxddp = main_path_phase(report, smi)
     lanes_sea_cold = sea_warm_phase(report, smi)
     boxfddp_phase(report, smi)
+    sevendof_phase(report, smi)
     fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
     parity_phase()
     golden_phase()

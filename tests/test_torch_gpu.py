@@ -10,7 +10,10 @@ healthy ones in its warp; K6 in its box,
 SEA-gap and unbounded variants, also against K3's first trial; K3 and K6
 in every variant on ragged batches, to the bit; K1 (VSA, SEA) and K4 (nu 2
 and 4) on ragged batches to the bit, and K4 with one NaN scenario in its
-warp; the fast path of the per-scenario solver against its plain backend;
+warp; K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms' instances on ragged
+batches to the bit, and the launchers' refusal of a shape they are not
+built for; the fast path of the per-scenario solver against its plain
+backend;
 P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -25,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch import SolverSettings, make_batched_solver, seven_dof_sea, three_dof_sea
+from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
 from aslr_to_tpu_torch import probe
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
 
@@ -496,3 +500,81 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         vsa_kernels.linearize(spec, xs, us[:, :, :-1].contiguous(), wterm)
     with pytest.raises(TypeError, match="float32 or float64"):
         vsa_kernels.linearize(spec, xs.half(), us.half(), wterm.half())
+
+
+def _ndof_inputs(nl, dtype, device, B, seed=0):
+    """The 3- or 7-DoF SEA arm: (spec, xs, us, wterm, the derivatives of
+    the linearization, fs, reg with every tenth lane negative)."""
+    w = (three_dof_sea if nl == 3 else seven_dof_sea)(T=T, dtype=dtype, device=device)
+    spec = vsa_kernels.extract_vsa_spec(w.problem, None)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    xs = t(0.3 * rng.standard_normal((T + 1, 4 * nl, B)))
+    us = t(3.0 * rng.standard_normal((T, nl, B)))
+    wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=device)
+    lin = vsa_kernels.linearize_plain(spec, xs, us, wterm)
+    r = lin.run
+    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"], lin.term["Lx"],
+              lin.term["Lxx"])
+    fs = torch.cat([torch.full_like(xs[:1], 0.01), lin.xnext - xs[1:]], dim=0)
+    reg = t(np.where(np.arange(B) % 10 == 0, -0.05, 1e-9))
+    return spec, xs, us, wterm, derivs, fs, reg
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("nl", [3, 7])
+def test_ndof_kernels_match_plain_version_to_the_bit(cuda, nl, batch, dtype):
+    """K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms' instances (nl 3 and
+    7; K4 at (12, 3) and (28, 7), the rollouts unboxed with gaps) on ragged
+    batches equal their plain versions to the bit, and K6 equals K3's first
+    trial."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(nl, dtype, cuda, batch)
+    before = dict(build.LAUNCHES)
+    lin = vsa_kernels.linearize(spec, xs, us, wterm)
+    bw = riccati.riccati_fddp_backward(*derivs, fs, reg)
+    torch.cuda.synchronize()
+    for g, w in zip(_tensors(lin), _tensors(vsa_kernels.linearize_plain(spec, xs, us, wterm))):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+    _assert_same_bits(bw, riccati.riccati_fddp_plain(*derivs, fs, reg))
+    if batch > 1:
+        assert not bool(bw.ok.all()) and bool(bw.ok.any())
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    ones = torch.ones(batch, dtype=dtype, device=cuda)
+    infeas = (torch.arange(batch, device=cuda) % 2).to(dtype)
+    args = (spec, xs, us, k, K, xs[0], ones, 0.5 * ones, wterm, None, None, fs, infeas)
+    k6_args = args[:6] + args[7:]
+    got = vsa_kernels.rollout2(*args)
+    one = vsa_kernels.rollout1(*k6_args)
+    torch.cuda.synchronize()
+    for name in ("linearize", "riccati_fddp", "rollout2", "rollout1"):
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6_args))
+    first, _ = vsa_kernels.rollout2(*k6_args[:7], 0.5 * k6_args[6], *k6_args[7:])
+    _assert_same_bits(one, first)
+
+
+def test_launchers_refuse_what_they_have_no_instance_for(cuda):
+    """Asked for a chain length or an actuation they are not built for, the
+    C launchers return -1 and ``build.check`` raises naming the shape; the
+    wrappers raise before that and list the instances."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(3, torch.float64, cuda, 8)
+    params = vsa_kernels.pack_params(spec)
+    p = build.ptr
+    outs = [torch.empty(1, device=cuda) for _ in range(14)]
+    code = build.entry("aslr_linearize", torch.float64, 3)(
+        params.ctypes.data_as(build.ctypes.c_void_p), 7, p(xs), p(us), p(wterm), T, 8,
+        *[p(o) for o in outs], build.stream_of(xs))
+    with pytest.raises(NotImplementedError, match="no instance for nl=7 sea"):
+        build.check("linearize", code, "nl=7 sea")
+    with pytest.raises(NotImplementedError, match="nl=5 sea; its instances"):
+        build.require("linearize", "nl=5 sea")
+    with pytest.raises(NotImplementedError, match="nl=3 vsa; its instances"):
+        vsa_kernels.linearize(spec._replace(variant="vsa", nu=6), xs,
+                              torch.zeros(T, 6, 8, dtype=torch.float64, device=cuda), wterm)

@@ -9,7 +9,10 @@ is held against its plain version on the VSA and SEA arms at B=1, 15 and
 terminal knot of some scenarios beside the running knots of others), the
 terminal knot included. Scenario 7 sits at a goal rotation of pi at
 every knot, where ``log3`` takes its branch near pi and its sanitized
-tangents.
+tangents. The 3-DoF SEA arm's instance runs the same cases (T=6; B=1, 15
+and 33, a NaN scenario) and the 7-DoF arm's one at T=4, B=9, with scenario
+7 at one posture and the goal target turned so that its residual is a
+rotation by pi.
 
 The kernel performs its plain version's operations in the same order, so
 the two agree to the bit, NaNs included, in f64 and f32: the kernel builds
@@ -19,28 +22,19 @@ and atan2 and a correctly rounded square root in place of PyTorch's CPU
 kernels, whose vectorized loops round some results differently in the last
 bit.
 """
-import ctypes
 import math
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch.ops.rigid_body import frame_placement
 from aslr_to_tpu_torch.kernels import build, vsa_kernels
-from test_torch_rollout_cpu import _ieee_sqrt, _libm
+from cuda_on_cpu.gxx import gxx_library, ieee_sqrt, libm
 
 T = 6
 PI_SCENARIO = 7
-HERE = Path(__file__).resolve().parent
-SMEM = """#include "cuda_runtime.h"
-namespace aslr { alignas(16) unsigned char lin_smem[cpu_cuda::kSharedBytes]; }
-unsigned char* cpu_cuda::shared_memory = aslr::lin_smem;
-"""
 
 
 @pytest.fixture(scope="module")
@@ -48,33 +42,17 @@ def lin_lib(tmp_path_factory):
     """linearize.cu built for the CPU; the wrapper launches it on CPU
     tensors, and the plain version takes the C library's transcendentals,
     while the fixture lasts."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("linearize_kernel")
-    src = (build.CSRC / "linearize.cu").read_text()
-    # kernel<<<grid, block, smem, stream>>>(args) -> cpu_cuda::launch(...)
-    src = re.sub(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"::cpu_cuda::launch(\2, \1, ", src)
-    (d / "linearize.cpp").write_text(src)
-    (d / "smem.cpp").write_text(SMEM)
-    lib = d / "liblinearize.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-builtin", "-fPIC",
-                    "-shared", "-pthread", f"-I{HERE / 'cuda_on_cpu'}", f"-I{build.CSRC}",
-                    "-o", str(lib), str(d / "linearize.cpp"), str(d / "smem.cpp"),
-                    str(HERE / "cuda_on_cpu" / "runtime.cpp")], check=True)
-    handle = ctypes.CDLL(str(lib))
-    for suffix in ("_f32", "_f64"):
-        fn = getattr(handle, "aslr_linearize" + suffix)
-        fn.argtypes = build._SIGNATURES["aslr_linearize"]
-        fn.restype = ctypes.c_int
+    handle = gxx_library(tmp_path_factory.mktemp("linearize_kernel"),
+                         ["linearize.cu", "linearize_n3.cu", "linearize_n7.cu"], "lin_smem",
+                         ["aslr_linearize"])
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(vsa_kernels, "_route", lambda t: "kernel")
     mp.setattr(build, "stream_of", lambda t: None)
-    mp.setattr(torch, "sqrt", _ieee_sqrt)
-    mp.setattr(torch, "sin", _libm("sin", 1))
-    mp.setattr(torch, "cos", _libm("cos", 1))
-    mp.setattr(torch, "atan2", _libm("atan2", 2))
+    mp.setattr(torch, "sqrt", ieee_sqrt)
+    mp.setattr(torch, "sin", libm("sin", 1))
+    mp.setattr(torch, "cos", libm("cos", 1))
+    mp.setattr(torch, "atan2", libm("atan2", 2))
     yield handle
     mp.undo()
 
@@ -142,3 +120,74 @@ def test_linearize_on_cpu_keeps_a_scenario_in_its_group(lin_lib):
         assert torch.equal(g.isnan(), w.isnan())
         assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
     assert not bool(got.ok[9]) and bool(got.ok[[8, 10, 11, 12, 13, 14, 15]].all())
+
+
+def _ndof_args(nl, B, dtype, T_=T, seed=0):
+    """(spec, xs, us, wterm) on the 3- or 7-DoF SEA arm: random states and
+    motor torques, a terminal weight that differs by lane, and scenario 7
+    (where B allows) at one posture at every knot, with the goal target
+    turned so that its residual rotation there is pi."""
+    rng = np.random.default_rng(seed)
+    w = (three_dof_sea if nl == 3 else seven_dof_sea)(T=T_, dtype=dtype, device="cpu")
+    spec = vsa_kernels.extract_vsa_spec(w.problem, None)
+    xs = 0.3 * rng.standard_normal((T_ + 1, 4 * nl, B))
+    us = 3.0 * rng.standard_normal((T_, nl, B))
+    if B > PI_SCENARIO:
+        q = xs[0, :nl, PI_SCENARIO]
+        xs[:, :nl, PI_SCENARIO] = q
+        model = w.problem.state.robot
+        R = frame_placement(model, torch.tensor(q, dtype=dtype), spec.frame_id).rot.double().numpy()
+        a = np.array([0.3, -0.2, 1.0]) / np.linalg.norm([0.3, -0.2, 1.0])
+        spec = spec._replace(target_rot_inv=(2.0 * np.outer(a, a) - np.eye(3)) @ R.T)
+    wterm = spec.w_goal_term * (1.0 + np.arange(B) % 3)
+
+    def t(v):
+        return torch.tensor(v, dtype=dtype)
+
+    return spec, t(xs), t(us), t(wterm)
+
+
+def _assert_equal_to_plain(got, want):
+    for g, w in zip(_flat(got), _flat(want)):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("nl,batch,dtype", [
+    (3, 1, torch.float64), (3, 15, torch.float64), (3, 33, torch.float64),
+    (3, 33, torch.float32), (7, 9, torch.float64)], ids=lambda v: str(v).replace("torch.", ""))
+def test_ndof_linearize_on_cpu_matches_plain_version(lin_lib, nl, batch, dtype):
+    """K1's 3- and 7-DoF SEA instances (T=6 at nl 3, T=4 at nl 7), the
+    terminal knot and the goal's pi branch included."""
+    args = _ndof_args(nl, batch, dtype, T_=6 if nl == 3 else 4)
+    before = build.LAUNCHES["linearize"]
+    got = vsa_kernels.linearize(*args)
+    assert build.LAUNCHES["linearize"] == before + 1
+    _assert_equal_to_plain(got, vsa_kernels.linearize_plain(*args))
+    assert bool(got.ok.all())
+    if batch > PI_SCENARIO:     # the goal Jacobian at pi is finite and not zero
+        J = got.term["Lxx"][:nl, :nl, PI_SCENARIO]
+        assert bool(torch.isfinite(J).all()) and bool((J != 0).any())
+
+
+def test_ndof_linearize_on_cpu_keeps_a_scenario_in_its_group(lin_lib):
+    """The 3-DoF arm with scenario 9's states at knot 0 NaN: its flag falls
+    alone, and every output equals the plain version's."""
+    spec, xs, us, wterm = _ndof_args(3, 33, torch.float64)
+    xs = xs.clone()
+    xs[0, :, 9] = float("nan")
+    got = vsa_kernels.linearize(spec, xs, us, wterm)
+    _assert_equal_to_plain(got, vsa_kernels.linearize_plain(spec, xs, us, wterm))
+    assert not bool(got.ok[9]) and bool(got.ok[[8, 10, 11, 12, 13, 14, 15]].all())
+
+
+def test_linearize_refuses_an_arm_it_has_no_instance_for(lin_lib):
+    """The VSA arm at nl = 3 has no instance: the wrapper raises before any
+    launch and names the instances there are."""
+    spec, xs, us, wterm = _ndof_args(3, 4, torch.float64)
+    spec = spec._replace(variant="vsa", nu=6)
+    us = torch.zeros((T, 6, 4), dtype=torch.float64)
+    before = build.LAUNCHES["linearize"]
+    with pytest.raises(NotImplementedError, match="nl=3 vsa; its instances: nl=2 vsa, nl=2 sea"):
+        vsa_kernels.linearize(spec, xs, us, wterm)
+    assert build.LAUNCHES["linearize"] == before

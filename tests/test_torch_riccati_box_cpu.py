@@ -9,7 +9,8 @@ shows. The wrappers, pointed at that library, are held against their plain
 versions on ragged batches (one 16-scenario block and a partial one; B=15
 and B=33 take the one-element copies, B=40 the 16-byte ones), K2 and K5
 warm and cold, K4 at nu 2 (the SEA arm) and 4 (the VSA arm), with lanes at
-a negative reg and one NaN scenario. That checks the
+a negative reg and one NaN scenario; K4 also at the 3- and 7-DoF SEA arms'
+shapes (12, 3) and (28, 7). That checks the
 group mapping, the exchanges, the staging and the ragged block without a
 card.
 
@@ -19,63 +20,30 @@ kernel builds with -ffp-contract=off, and the plain versions run here with
 a correctly rounded square root (``torch.sqrt`` on the CPU is not, for
 longer tensors).
 """
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
+from cuda_on_cpu.gxx import gxx_library, ieee_sqrt
 
 T = 6
-HERE = Path(__file__).resolve().parent
-SMEM = """#include "cuda_runtime.h"
-namespace aslr { alignas(16) unsigned char sweep_smem[cpu_cuda::kSharedBytes]; }
-unsigned char* cpu_cuda::shared_memory = aslr::sweep_smem;
-"""
 
 
 @pytest.fixture(scope="module")
 def box_lib(tmp_path_factory):
     """riccati_box.cu built for the CPU; the wrappers launch it on CPU
     tensors while the fixture lasts."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("box_kernel")
-    src = (build.CSRC / "riccati_box.cu").read_text()
-    # kernel<<<grid, block, smem, stream>>>(args) -> cpu_cuda::launch(...)
-    src = re.sub(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"::cpu_cuda::launch(\2, \1, ", src)
-    (d / "riccati_box.cpp").write_text(src)
-    (d / "smem.cpp").write_text(SMEM)
-    lib = d / "libbox.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-pthread", f"-I{HERE / 'cuda_on_cpu'}", f"-I{build.CSRC}", "-o", str(lib),
-                    str(d / "riccati_box.cpp"), str(d / "smem.cpp"),
-                    str(HERE / "cuda_on_cpu" / "runtime.cpp")], check=True)
-    handle = ctypes.CDLL(str(lib))
-    for base in ("aslr_riccati_box", "aslr_riccati_fddp"):
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(handle, base + suffix)
-            fn.argtypes = build._SIGNATURES[base]
-            fn.restype = ctypes.c_int
+    handle = gxx_library(tmp_path_factory.mktemp("box_kernel"), ["riccati_box.cu"],
+                         "sweep_smem", ["aslr_riccati_box", "aslr_riccati_fddp"])
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(riccati, "_route", lambda t: "kernel")
     mp.setattr(build, "stream_of", lambda t: None)
-    mp.setattr(torch, "sqrt", _ieee_sqrt)
+    mp.setattr(torch, "sqrt", ieee_sqrt)
     yield handle
     mp.undo()
-
-
-def _ieee_sqrt(x):
-    with np.errstate(invalid="ignore"):
-        return torch.from_numpy(np.sqrt(x.numpy()))
 
 
 def _args(kernel, nu, B, warm, dtype, seed=0):
@@ -164,3 +132,69 @@ def test_box_kernel_on_cpu_keeps_a_scenario_in_its_group(box_lib, kernel):
     got = fn(*args)
     _assert_same_bits(got, plain(*args))
     assert not bool(got.ok[25]) and bool(got.ok[[24, 26, 27]].all())
+
+
+def _ndof_args(nl, B, dtype, T_, seed=0):
+    """K4 on the 3- or 7-DoF SEA arm: the derivatives of a random trajectory
+    with gaps; every tenth lane at a negative reg."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype)
+
+    w = (three_dof_sea if nl == 3 else seven_dof_sea)(T=T_, dtype=dtype, device="cpu")
+    spec = vsa_kernels.extract_vsa_spec(w.problem, None)
+    xs = t(0.3 * rng.standard_normal((T_ + 1, 4 * nl, B)))
+    us = t(3.0 * rng.standard_normal((T_, nl, B)))
+    lin = vsa_kernels.linearize_plain(spec, xs, us, torch.full((B,), spec.w_goal_term,
+                                                                dtype=dtype))
+    r = lin.run
+    fs = torch.cat([torch.full_like(xs[:1], 0.01), lin.xnext - xs[1:]], dim=0)
+    reg = t(np.where(np.arange(B) % 10 == 0, -0.05, 1e-9))
+    return (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"], lin.term["Lx"],
+            lin.term["Lxx"], fs, reg)
+
+
+@pytest.mark.parametrize("nl,batch,dtype", [
+    (3, 15, torch.float64), (3, 33, torch.float64), (3, 40, torch.float64),
+    (3, 40, torch.float32), (7, 9, torch.float64), (7, 9, torch.float32)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_ndof_fddp_kernel_on_cpu_matches_plain_version(box_lib, nl, batch, dtype):
+    """K4 at (ndx, nu) = (12, 3) (16 lanes a scenario, T=6) and (28, 7) (a
+    warp a scenario, T=4; one stage of shared memory in f64, two in f32):
+    the lanes past ndx own no row and meet every exchange."""
+    args = _ndof_args(nl, batch, dtype, 6 if nl == 3 else 4)
+    before = build.LAUNCHES["riccati_fddp"]
+    got = riccati.riccati_fddp_backward(*args)
+    assert build.LAUNCHES["riccati_fddp"] == before + 1
+    _assert_same_bits(got, riccati.riccati_fddp_plain(*args))
+    assert not bool(got.ok.all()) and bool(got.ok.any())
+    assert bool(got.retryable.any()) and not bool(got.retryable.all())
+
+
+def test_ndof_fddp_kernel_on_cpu_keeps_a_scenario_in_its_group(box_lib):
+    """K4 at (12, 3) with scenario 9's inputs NaN: it fails alone; the other
+    scenarios of its warp (8, 10, 11: two in a warp at 16 lanes) keep ok."""
+    args = list(_ndof_args(3, 33, torch.float64, 6))
+    for i in range(9):
+        args[i] = args[i].clone()
+        args[i][..., 9] = float("nan")
+    got = riccati.riccati_fddp_backward(*args)
+    _assert_same_bits(got, riccati.riccati_fddp_plain(*args))
+    assert not bool(got.ok[9]) and bool(got.ok[[8, 11, 12, 13]].all())
+
+
+def test_fddp_kernel_refuses_a_shape_it_has_no_instance_for(box_lib):
+    """(ndx, nu) = (12, 6) has no instance: the wrapper raises before any
+    launch and names the instances there are."""
+    args = list(_ndof_args(3, 4, torch.float64, 6))
+    T_, B = 6, 4
+    args[1] = torch.zeros((T_, 12, 6, B), dtype=torch.float64)
+    args[3] = torch.zeros((T_, 6, B), dtype=torch.float64)
+    args[5] = torch.zeros((T_, 12, 6, B), dtype=torch.float64)
+    args[6] = torch.zeros((T_, 6, 6, B), dtype=torch.float64)
+    before = build.LAUNCHES["riccati_fddp"]
+    with pytest.raises(NotImplementedError,
+                       match="ndx=12 nu=6; its instances: ndx=8 nu=2, ndx=8 nu=4, ndx=12 nu=3"):
+        riccati.riccati_fddp_backward(*args)
+    assert build.LAUNCHES["riccati_fddp"] == before

@@ -12,7 +12,9 @@ K6, 16 scenarios of two trials for K3). T=6 is not a multiple of the four
 lanes of a group, so the running costs deferred to the group meet a ragged
 tail. Cases: the VSA arm in its box, the VSA arm with gaps in a tight box,
 and the SEA arm with gaps, unbounded; step lengths 1 and below 1, and
-infeasible lanes among feasible ones.
+infeasible lanes among feasible ones. The 3-DoF SEA arm's gap instances run
+at T=6 on the same batches (and one NaN trajectory), the 7-DoF arm's at
+T=5, B=9.
 
 The kernel performs its plain version's operations in the same order, so
 the two agree to the bit, NaNs included, in f64 and f32: the kernel builds
@@ -21,89 +23,36 @@ library's sin, cos and atan2 (and a correctly rounded square root) in place
 of PyTorch's CPU kernels, whose vectorized loops round some results
 differently in the last bit.
 """
-import ctypes
-import ctypes.util
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-from aslr_to_tpu_torch import Bounds, two_dof_sea, two_dof_vsa_boxddp
+from aslr_to_tpu_torch import Bounds, seven_dof_sea, three_dof_sea, two_dof_sea
+from aslr_to_tpu_torch import two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, vsa_kernels
+from cuda_on_cpu.gxx import gxx_library, ieee_sqrt, libm
 
 T = 6
-HERE = Path(__file__).resolve().parent
-SMEM = """#include "cuda_runtime.h"
-namespace aslr { alignas(16) unsigned char roll_smem[cpu_cuda::kSharedBytes]; }
-unsigned char* cpu_cuda::shared_memory = aslr::roll_smem;
-"""
 VARIANTS = ("vsa_box", "vsa_box_gaps", "sea_gaps")
 DTYPES = dict(argnames="dtype", argvalues=[torch.float64, torch.float32], ids=["f64", "f32"])
 
 
-def _libm(name, nargs):
-    """``name`` of the C library as a function of tensors, for f64 (``name``)
-    and f32 (``name`` + f)."""
-    libm = ctypes.CDLL(ctypes.util.find_library("m"))
-    fns = {}
-    for dtype, suffix, ctype in ((torch.float64, "", ctypes.c_double),
-                                 (torch.float32, "f", ctypes.c_float)):
-        fn = getattr(libm, name + suffix)
-        fn.restype, fn.argtypes = ctype, [ctype] * nargs
-        fns[dtype] = np.frompyfunc(fn, nargs, 1)
-
-    def call(*args):
-        dtype = next(a.dtype for a in args if isinstance(a, torch.Tensor))
-        out = fns[dtype](*(torch.as_tensor(a, dtype=dtype).numpy() for a in args))
-        return torch.from_numpy(np.asarray(out, dtype=torch.empty(0, dtype=dtype).numpy().dtype))
-
-    return call
-
-
-def _ieee_sqrt(x):
-    with np.errstate(invalid="ignore"):
-        return torch.from_numpy(np.sqrt(x.numpy()))
-
-
 @pytest.fixture(scope="module")
 def roll_lib(tmp_path_factory):
-    """rollout.cu built for the CPU; the wrappers launch it on CPU tensors,
-    and the plain versions take the C library's transcendentals, while the
-    fixture lasts."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("rollout_kernel")
-    src = (build.CSRC / "rollout.cu").read_text()
-    # kernel<<<grid, block, smem, stream>>>(args) -> cpu_cuda::launch(...)
-    src = re.sub(r"(\w+<[^<>;]*>)<<<(.*?)>>>\(", r"::cpu_cuda::launch(\2, \1, ", src)
-    (d / "rollout.cpp").write_text(src)
-    (d / "smem.cpp").write_text(SMEM)
-    lib = d / "librollout.so"
-    # -fno-builtin: sin and cos of one angle stay two calls of the C library
-    # (the plain version's), not one sincos
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-builtin", "-fPIC",
-                    "-shared", "-pthread", f"-I{HERE / 'cuda_on_cpu'}", f"-I{build.CSRC}",
-                    "-o", str(lib), str(d / "rollout.cpp"), str(d / "smem.cpp"),
-                    str(HERE / "cuda_on_cpu" / "runtime.cpp")], check=True)
-    handle = ctypes.CDLL(str(lib))
-    for base in ("aslr_rollout2", "aslr_rollout1"):
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(handle, base + suffix)
-            fn.argtypes = build._SIGNATURES[base]
-            fn.restype = ctypes.c_int
+    """rollout.cu and its n-DoF units built for the CPU; the wrappers launch
+    them on CPU tensors, and the plain versions take the C library's
+    transcendentals, while the fixture lasts."""
+    handle = gxx_library(tmp_path_factory.mktemp("rollout_kernel"),
+                         ["rollout.cu", "rollout_n3.cu", "rollout_n7.cu"], "roll_smem",
+                         ["aslr_rollout2", "aslr_rollout1"])
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(vsa_kernels, "_route", lambda t: "kernel")
     mp.setattr(build, "stream_of", lambda t: None)
-    mp.setattr(torch, "sqrt", _ieee_sqrt)
-    mp.setattr(torch, "sin", _libm("sin", 1))
-    mp.setattr(torch, "cos", _libm("cos", 1))
-    mp.setattr(torch, "atan2", _libm("atan2", 2))
+    mp.setattr(torch, "sqrt", ieee_sqrt)
+    mp.setattr(torch, "sin", libm("sin", 1))
+    mp.setattr(torch, "cos", libm("cos", 1))
+    mp.setattr(torch, "atan2", libm("atan2", 2))
     yield handle
     mp.undo()
 
@@ -212,3 +161,81 @@ def test_rollout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib, kernel):
         _assert_same_bits(g, w)
         assert bool(g.cost[25].isnan())
         assert bool(torch.isfinite(g.cost[[24, 26, 27, 28, 29, 30, 31]]).all())
+
+
+def _ndof_args(nl, B, dtype, T_, seed=0):
+    """K3's arguments on the 3- or 7-DoF SEA arm with gaps, unboxed (the
+    n-DoF instances): as :func:`_args`, lanes 0, 3, 6, ... infeasible."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype)
+
+    w = (three_dof_sea if nl == 3 else seven_dof_sea)(T=T_, dtype=dtype, device="cpu")
+    spec = vsa_kernels.extract_vsa_spec(w.problem, None)
+    ndx = 4 * nl
+    xs = 0.1 * rng.standard_normal((T_ + 1, ndx, B))
+    us = 3.0 * rng.standard_normal((T_, nl, B))
+    k = 0.5 * rng.standard_normal((T_, nl, B))
+    K = 0.1 * rng.standard_normal((T_, nl, ndx, B))
+    x0 = xs[0] + 0.01 * rng.standard_normal((ndx, B))
+    return (spec, t(xs), t(us), t(k), t(K), t(x0), t(np.ones(B)),
+            t(0.5 ** (1 + np.arange(B) % 3)), torch.full((B,), spec.w_goal_term, dtype=dtype),
+            None, None, t(0.05 * rng.standard_normal((T_ + 1, ndx, B))),
+            t(np.arange(B) % 3 == 0))
+
+
+NDOF_CASES = dict(argnames="nl,batch,dtype", argvalues=[
+    (3, 1, torch.float64), (3, 15, torch.float64), (3, 33, torch.float64),
+    (3, 40, torch.float64), (3, 33, torch.float32), (7, 9, torch.float64)],
+    ids=lambda v: str(v).replace("torch.", ""))
+
+
+@pytest.mark.parametrize(**NDOF_CASES)
+def test_ndof_rollouts_on_cpu_match_plain_version(roll_lib, nl, batch, dtype):
+    """K3 and K6 at the 3- and 7-DoF SEA arms' gap instances (T=6 at nl 3,
+    not a multiple of the group's 4 lanes; T=5 at nl 7), each against its
+    plain version, and K6 against K3's first trial."""
+    args = _ndof_args(nl, batch, dtype, 6 if nl == 3 else 5)
+    got = vsa_kernels.rollout2(*args)
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    assert float(torch.isfinite(got[1].cost).double().mean()) >= 0.5
+    assert not torch.equal(got[0].us, got[1].us)
+    k6 = _k6_args(args)
+    before = build.LAUNCHES["rollout1"]
+    one = vsa_kernels.rollout1(*k6)
+    assert build.LAUNCHES["rollout1"] == before + 1
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6))
+    first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
+    _assert_same_bits(one, first)
+
+
+@pytest.mark.parametrize("kernel", ["rollout2", "rollout1"])
+def test_ndof_rollout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib, kernel):
+    """The 3-DoF arm with scenario 25's gains NaN: its trajectory fails
+    alone; the rest of its warp stays finite and equals the plain version."""
+    args = list(_ndof_args(3, 40, torch.float64, 6))
+    for i in (3, 4):
+        args[i] = args[i].clone()
+        args[i][..., 25] = float("nan")
+    if kernel == "rollout1":
+        args = _k6_args(args)
+    got = getattr(vsa_kernels, kernel)(*args)
+    want = getattr(vsa_kernels, kernel + "_plain")(*args)
+    for g, w in zip(got, want) if kernel == "rollout2" else [(got, want)]:
+        _assert_same_bits(g, w)
+        assert bool(g.cost[25].isnan())
+        assert bool(torch.isfinite(g.cost[[24, 26, 27, 28, 29, 30, 31]]).all())
+
+
+def test_rollout_refuses_a_variant_it_has_no_instance_for(roll_lib):
+    """The 3-DoF arm without gaps has no instance: the wrappers raise before
+    any launch and name the instances there are."""
+    args = _ndof_args(3, 4, torch.float64, 6)[:11]
+    before = dict(build.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="no kernel instance for nl=3 sea;"):
+        vsa_kernels.rollout2(*args)
+    with pytest.raises(NotImplementedError, match="nl=3 sea gaps, nl=7 sea gaps"):
+        vsa_kernels.rollout1(*_k6_args(args))
+    assert build.LAUNCHES == before
