@@ -2,7 +2,8 @@
 
 Batched trajectory optimization for articulated soft robots on an NVIDIA
 H100: the 2-DoF VSA and SEA arms' DDP, FDDP, BoxDDP and BoxFDDP solves
-and the 3- and 7-DoF SEA arms' FDDP solves, by the generic per-scenario
+(shared-model or per-knot problems: a frame target and a control box a
+knot) and the 3- and 7-DoF SEA arms' FDDP solves, by the generic per-scenario
 solver (the reference), its fast path, or the lane solver, with their hot
 kernels (linearization, the Box, FDDP and BoxFDDP Riccati backwards, the
 two-trial and one-trial rollouts) and a multiply-add probe written by hand
@@ -44,8 +45,14 @@ from .solvers.ddp import (
     SolverSettings,
     solve,
 )
-from .solvers.problem import ShootingProblem
-from .workloads.presets import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
+from .solvers.problem import ShootingProblem, stack_knots
+from .workloads.presets import (
+    seven_dof_sea,
+    three_dof_sea,
+    two_dof_sea,
+    two_dof_vsa_boxddp,
+    two_dof_vsa_modified,
+)
 from .parallel.batch import convergence_summary, make_batched_solver
 
 __all__ = [name for name in dir() if not name.startswith("_")]

@@ -32,10 +32,13 @@ def robot_consts_from_numpy(fields) -> RobotConsts:
 
 
 def spec_from_numpy(fields) -> VSASpec:
-    """The port's :class:`VSASpec` from the JAX spec's fields. The spec's
-    constants stay float64 numpy: the kernels take them by value in their
-    parameter block, and the plain versions as Python floats, whatever
-    the dtype and device of the tensors they run on."""
+    """The port's :class:`VSASpec` from the JAX spec's fields, a per-knot
+    spec's ``[T, 3, 3]`` target and ``[T, nu]`` box included (each array
+    keeps its shape; ``workloads/presets.py::with_frame_targets`` builds the
+    matching port problem from the JAX problem's stacked target leaves as
+    numpy). The spec's constants stay float64 numpy: the kernels take them
+    by value in their parameter block, and the plain versions as Python
+    floats, whatever the dtype and device of the tensors they run on."""
     f = dict(_fields(fields))
     out = {}
     for name in VSASpec._fields:

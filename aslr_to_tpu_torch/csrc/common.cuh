@@ -184,6 +184,14 @@ __host__ VSAParams<NL> unpack_params(const double* flat) {
 constexpr int kBlock = 128;
 // a launcher's answer for a shape or variant it has no instance of
 constexpr int kNoInstance = -1;
+
+// how an instance takes a per-knot problem's tables: never (the shared
+// problem's code, with no table branch compiled in), always, or by a
+// uniform branch on a null pointer. A branch compiled into the shared
+// path's instance cost it time and registers where the code is tight (K1
+// and the rollouts at nl = 2, the rollouts at nl = 7; PERF.md, PR 9), so
+// there the tables have instances of their own.
+enum TableMode { kShared = 0, kTables = 1, kEither = 2 };
 // the dynamic shared memory a block may have on an H100 (232,448 bytes)
 constexpr size_t kMaxSmem = 227 * 1024;
 

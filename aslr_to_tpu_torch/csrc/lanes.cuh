@@ -326,18 +326,24 @@ __device__ inline void log6(const Mat3<V>& R, const Vec3<V>& p, V* r6) {
 }
 
 // goal residual r6 = log6(target^-1 * oMf) and its cost 0.5 |r6|^2
-// (vsa_kernels.py::_goal_cost_lanes)
+// (vsa_kernels.py::_goal_cost_lanes) against the target ``row`` of a
+// [T, 12] table (R_inv row by row, then the position;
+// vsa_kernels.py::VSASpec.target_table), or where it is null the
+// parameter block's running or terminal target
 template <class V, int NL>
-__device__ inline V goal_cost(const VSAParams<NL>& P, const V* q_l, bool terminal, V* r6) {
+__device__ inline V goal_cost(const VSAParams<NL>& P, const V* q_l, bool terminal,
+                              const typename scalar_of<V>::type* row, V* r6) {
   Mat3<V> R;
   Vec3<V> p;
   frame_placement<V, NL>(P, q_l, R, p);
-  // the running or the terminal target, entry by entry
+  // the target, entry by entry
   Mat3<typename scalar_of<V>::type> Ri;
   Vec3<typename scalar_of<V>::type> tp;
   for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) Ri.m[i][j] = cst<V>(terminal ? P.term_rinv[i][j] : P.tgt_rinv[i][j]);
-    tp.x[i] = cst<V>(terminal ? P.term_pos[i] : P.tgt_pos[i]);
+    for (int j = 0; j < 3; ++j)
+      Ri.m[i][j] = row ? row[3 * i + j]
+                       : cst<V>(terminal ? P.term_rinv[i][j] : P.tgt_rinv[i][j]);
+    tp.x[i] = row ? row[9 + i] : cst<V>(terminal ? P.term_pos[i] : P.tgt_pos[i]);
   }
   Mat3<V> rM = m_mul(Ri, R);
   Vec3<V> rp = m_vec(Ri, v_sub(p, tp));
@@ -394,12 +400,14 @@ __device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S*
 
 // running cost: w_goal * goal + state/control regularization + stiffness
 // (vsa_kernels.py::_running_cost_lanes); the stiffness cost only where the
-// controls carry stiffnesses (the VSA, not the SEA)
+// controls carry stiffnesses (the VSA, not the SEA); the goal's target: a
+// table's ``row``, or where it is null the parameter block's
 template <class S, int NL, bool SEA>
-__device__ inline S running_cost(const VSAParams<NL>& P, const S* x, const S* u) {
+__device__ inline S running_cost(const VSAParams<NL>& P, const S* x, const S* u,
+                                 const S* row = nullptr) {
   constexpr int NU = Arm<NL, SEA>::NU;
   S r6[6];
-  S c = S(P.w_goal) * goal_cost<S, NL>(P, x, false, r6);
+  S c = S(P.w_goal) * goal_cost<S, NL>(P, x, false, row, r6);
   for (int i = 0; i < 4 * NL; ++i)
     if (P.xw[i] != 0.0) c = c + S(0.5 * P.xw[i]) * x[i] * x[i];
   for (int i = 0; i < NU; ++i)

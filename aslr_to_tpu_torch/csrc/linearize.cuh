@@ -11,7 +11,11 @@
 // template parameter SEA), the Euler chain rule (Fx, Fu, xnext), the goal
 // residual log6 and its Jacobian from NL dual seeds, the Gauss-Newton cost
 // derivatives, and a finiteness flag over the derivative tensors. One
-// launch covers every knot, the terminal knot included as knot T.
+// launch covers every knot, the terminal knot included as knot T. The goal's
+// target is the parameter block's (running or terminal) or, for a per-knot
+// target (vsa_kernels.py::_tgt_at), row t of a [T, 12] table at running
+// knot t: a null table pointer picks the former by a uniform branch, so one
+// instance serves both.
 //
 // What bounds it on the H100: each running VSA knot writes 228 values
 // (Fx 64, Fu 32, Lx 8, Lu 4, Lxx 64, Lxu 32, Luu 16, xnext 8) plus cost and
@@ -82,6 +86,7 @@ constexpr bool kStageOut = false;   // outputs through the block's shared memory
 template <class S>
 struct Lin {
   const S *xs, *us, *wterm;
+  const S* tgt;  // [T, 12] the running knots' targets, row t knot t's; null: P's one
   int T, B;
   S *Fx, *Fu, *Lx, *Lu, *Lxx, *Lxu, *Luu, *xnext, *cost;
   bool* ok;
@@ -121,7 +126,7 @@ __device__ inline S dotn(const S* c, const S* v) {
   return acc;
 }
 
-template <class S, int NL, bool SEA, int G>
+template <class S, int NL, bool SEA, int G, int TAB>
 __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) {
   constexpr int NDX = Arm<NL, SEA>::NDX, NU = Arm<NL, SEA>::NU, NV = 2 * NL;
   constexpr int MG = (NL + G - 1) / G;      // goal seeds a lane
@@ -156,13 +161,17 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
   const S* v_l = x + 2 * NL;
 
   // goal residual and its Jacobian wrt q_l: seed g on lane g mod G (the
-  // values r6 and the cost are the same on every seed)
+  // values r6 and the cost are the same on every seed). The target: the
+  // table's row of a running knot (TAB: always, or where the table is
+  // given), else the parameter block's running or terminal one
+  const bool tab = TAB == kTables || (TAB == kEither && a.tgt != nullptr);
+  const S* const row = tab && !terminal ? a.tgt + t * 12 : nullptr;
   S Jo[MG][6], r6[6], c_goal = S(0);
   for (int m = 0; m < MG; ++m) {
     const int g = (lane + m * G) % NL;
     D qd[NL], rd[6];
     for (int i = 0; i < NL; ++i) qd[i] = D(q_l[i], S(i == g ? 1 : 0));
-    const D cd = goal_cost<D, NL>(P, qd, terminal, rd);
+    const D cd = goal_cost<D, NL>(P, qd, terminal, row, rd);
     for (int k = 0; k < 6; ++k) Jo[m][k] = rd[k].d;
     if (m == 0) {
       c_goal = cd.v;
@@ -413,23 +422,36 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
   }
 }
 
-template <class S, int NL, bool SEA>
+template <class S, int NL, bool SEA, int TAB>
 __global__ void __launch_bounds__(kLinThreads) linearize_kernel(const VSAParams<NL> P,
                                                                 const Lin<S> a) {
-  linearize_group<S, NL, SEA, kLinGroup>(P, a);
+  linearize_group<S, NL, SEA, kLinGroup, TAB>(P, a);
 }
 
-template <class S, int NL, bool SEA>
+template <class S, int NL, bool SEA, int TAB>
 static int launch_arm(const VSAParams<NL>& P, const Lin<S>& a, cudaStream_t stream) {
   using O = LinOut<Arm<NL, SEA>::NDX, Arm<NL, SEA>::NU, kLinGroup>;
   const long long threads = (long long)(a.T + 1) * a.B * kLinGroup;
   const int grid = (int)((threads + kLinThreads - 1) / kLinThreads);
   const int smem = (int)O::BYTES(sizeof(S));
   static const cudaError_t attr = cudaFuncSetAttribute(
-      linearize_kernel<S, NL, SEA>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      linearize_kernel<S, NL, SEA, TAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  linearize_kernel<S, NL, SEA><<<grid, kLinThreads, smem, stream>>>(P, a);
+  linearize_kernel<S, NL, SEA, TAB><<<grid, kLinThreads, smem, stream>>>(P, a);
   return (int)cudaGetLastError();
+}
+
+// at NL = 2 the target table has instances of its own (the shared ones
+// carry no table branch); above, one instance takes either by a uniform
+// branch
+template <class S, int NL, bool SEA>
+static int launch_tables(const VSAParams<NL>& P, const Lin<S>& a, cudaStream_t st) {
+  if constexpr (NL != 2) {
+    return launch_arm<S, NL, SEA, kEither>(P, a, st);
+  } else {
+    if (a.tgt) return launch_arm<S, NL, SEA, kTables>(P, a, st);
+    return launch_arm<S, NL, SEA, kShared>(P, a, st);
+  }
 }
 
 // the launch at the chain length NL of the including unit: the SEA
@@ -440,8 +462,8 @@ static int launch_linearize(const double* params, int nl, const Lin<S>& a, void*
   if (nl != NL) return kNoInstance;
   const VSAParams<NL> P = unpack_params<NL>(params);
   cudaStream_t st = (cudaStream_t)stream;
-  if (P.sea) return launch_arm<S, NL, true>(P, a, st);
-  if constexpr (NL == 2) return launch_arm<S, NL, false>(P, a, st);
+  if (P.sea) return launch_tables<S, NL, true>(P, a, st);
+  if constexpr (NL == 2) return launch_tables<S, NL, false>(P, a, st);
   return kNoInstance;
 }
 
@@ -450,10 +472,10 @@ static int launch_linearize(const double* params, int nl, const Lin<S>& a, void*
 // one C entry a scalar type: NAME launches K1 at the chain length NL
 #define ASLR_LINEARIZE_ENTRY(NAME, S, NL)                                                \
   extern "C" int NAME(const double* params, int nl, const S* xs, const S* us,            \
-                      const S* wterm, int T, int B, S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, \
-                      S* Lxu, S* Luu, S* xnext, S* cost, bool* ok, S* tLx, S* tLxx,     \
-                      S* tcost, bool* tok, void* stream) {                              \
-    aslr::Lin<S> a{xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost, ok, \
-                   tLx, tLxx, tcost, tok};                                              \
+                      const S* wterm, const S* tgt, int T, int B, S* Fx, S* Fu, S* Lx,  \
+                      S* Lu, S* Lxx, S* Lxu, S* Luu, S* xnext, S* cost, bool* ok,       \
+                      S* tLx, S* tLxx, S* tcost, bool* tok, void* stream) {             \
+    aslr::Lin<S> a{xs,  us,  wterm, tgt,   T,    B,  Fx,  Fu,   Lx,  Lu, Lxx,           \
+                   Lxu, Luu, xnext, cost, ok, tLx, tLxx, tcost, tok};                   \
     return aslr::launch_linearize<S, NL>(params, nl, a, stream);                        \
   }

@@ -17,6 +17,10 @@
 //   each a masked Cholesky Newton step and a 5-step Armijo search, then the
 //   free-subspace gains K from a masked Cholesky; K4 k and K from one
 //   Cholesky of Quu;
+//   K2/K5's box is the scenario's own (lanes of lb/ub) or, for a per-knot
+//   problem (riccati.py::_box_at), knot t's row of [T, nu] tables; a null
+//   table pointer picks the former by a uniform branch, so one instance
+//   serves both;
 //   the value update with symmetrization and reg; with GAPS the deflection
 //   w_t = Vxx_t fs_t and Vx += w_t (after the terminal node's own w_T);
 //   the sums dg, dq, stop (with GAPS also dg_gap = -sum Vx.fs, dq_gap =
@@ -52,7 +56,9 @@
 //     warm start or box. At (28, 7) in f64 two stages and the scratch
 //     would take 253.5 KB of the 227 KB a block may have: that instance
 //     stages one knot at a time, copied after every lane is done with the
-//     knot before (Sweep's NST);
+//     knot before (Sweep's NST). With the box tables, knot t's two rows ride
+//     in the same commit into a slot of their own after the scratch (a slot
+//     a stage, allocated only when the tables are given);
 //   - runs the factor and the solves redundantly on every lane of the group
 //     (a SIMT instruction costs the same on one lane or eight); the BoxQP's
 //     five Armijo trials on five lanes (accepted in order by a ballot, the
@@ -82,6 +88,7 @@ namespace aslr {
 template <class S>
 struct BoxSweep {
   const S *Fx, *Fu, *Lx, *Lu, *Lxx, *Lxu, *Luu, *tLx, *tLxx, *fs, *us, *kprev, *lb, *ub, *reg;
+  const S *lbt, *ubt;  // null, or the [T, NU] box tables in place of lb/ub (row t knot t's)
   int T, B, qp_iters;
   bool vec;  // 16-byte copies: the batch stride and every input pointer allow them
   S *k, *K, *w, *dg, *dq, *stop, *dgg, *dqg;
@@ -97,7 +104,7 @@ constexpr bool kCholSkip0 = false;  // K4's Cholesky skips zero dividends (boxqp
 // scratch region a scenario.
 template <class S, int NDX, int NU, int G, bool GAPS, bool QP, int NST>
 struct Sweep {
-  static constexpr int SPB = kSweepThreads / G, NSTAGE = NST;
+  static constexpr int SPB = kSweepThreads / G, NSTAGE = NST, NUS = NU;
   // 16-byte copies, or narrower where a block holds fewer scenarios
   static constexpr int VEC = 16 / (int)sizeof(S) < SPB ? 16 / (int)sizeof(S) : SPB;
   static constexpr int P = SPB + VEC;
@@ -118,7 +125,11 @@ struct Sweep {
                        USED = oK + NU * NDX;
   static constexpr int SC = (USED + 31) / 32 * 32 + 8;  // four scenarios of a warp, 8 banks apart
   static constexpr size_t BYTES = (size_t)(NST * STAGE + SPB * SC) * sizeof(S);
-  static constexpr bool FITS = BYTES <= kMaxSmem;
+  // after the scratch, where the box tables are given: each stage's knot's
+  // rows of them (lb, then ub), copied with the stage
+  static constexpr int oBox = NST * STAGE + SPB * SC;
+  static constexpr size_t BOX_BYTES = QP ? (size_t)NST * 2 * NU * sizeof(S) : 0;
+  static constexpr bool FITS = BYTES + BOX_BYTES <= kMaxSmem;
 };
 
 // two stages where they fit in a block's shared memory (every shape but
@@ -164,10 +175,21 @@ __device__ inline void stage_knot(const BoxSweep<S>& a, S* dst, long long t, int
     stage_rows<L, V>(dst + L::rFs * L::P, a.fs, L::ROWS - L::rFs, t, TB, b0, tid);
 }
 
+// knot t into a stage (and, with the box tables, its rows into the
+// stage's box slot), as one commit
 template <class L, class S>
-__device__ inline void stage(const BoxSweep<S>& a, S* dst, long long t, int b0, int tid) {
+__device__ inline void stage(const BoxSweep<S>& a, S* stages, long long t, int b0, int tid) {
+  S* const dst = stages + (t % L::NSTAGE) * L::STAGE;
   if (a.vec) stage_knot<L, L::VEC>(a, dst, t, b0, tid);
   else stage_knot<L, 1>(a, dst, t, b0, tid);
+  if constexpr (L::BOXQP) {
+    if (a.lbt && tid < 2 * L::NUS) {
+      const S* src = tid < L::NUS ? a.lbt + t * L::NUS + tid
+                                    : a.ubt + t * L::NUS + (tid - L::NUS);
+      __pipeline_memcpy_async(stages + L::oBox + (t % L::NSTAGE) * 2 * L::NUS + tid, src,
+                              sizeof(S));
+    }
+  }
   __pipeline_commit();
 }
 
@@ -189,15 +211,17 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   S *const xs = my + L::oX, *const qus = my + L::oQu, *const quus = my + L::oQuu;
   S* const ks = my + L::oK;
 
-  if (a.T > 0) stage<L>(a, stages + ((a.T - 1) % L::NSTAGE) * L::STAGE, a.T - 1, b0, tid);
+  if (a.T > 0) stage<L>(a, stages, a.T - 1, b0, tid);
 
   const S reg = a.reg[bc];
+  // the scenario's box (lanes of lb/ub), unless the tables give each knot's
   S lo[NU], hi[NU];
   if constexpr (QP)
-    for (int j = 0; j < NU; ++j) {
-      lo[j] = a.lb[j * TB + bc];
-      hi[j] = a.ub[j * TB + bc];
-    }
+    if (!a.lbt)
+      for (int j = 0; j < NU; ++j) {
+        lo[j] = a.lb[j * TB + bc];
+        hi[j] = a.ub[j * TB + bc];
+      }
   // terminal node: Vxx = tLxx + reg I (row r, stored as given: tLxx need
   // not be symmetric), Vx = tLx (K5: + w_T, w_T = Vxx fs_T)
   S vrow[NDX];
@@ -235,7 +259,7 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   for (int t = a.T - 1; t >= 0; --t) {
     __pipeline_wait_prior(0);
     __syncthreads();  // knot t staged; every lane done with knot t+1's stage
-    if (L::NSTAGE == 2 && t > 0) stage<L>(a, stages + ((t - 1) & 1) * L::STAGE, t - 1, b0, tid);
+    if (L::NSTAGE == 2 && t > 0) stage<L>(a, stages, t - 1, b0, tid);
     const S* const st = stages + (t % L::NSTAGE) * L::STAGE + s;
     auto in = [&](int row) { return st[row * L::P]; };
     const long long kt = t;
@@ -306,12 +330,14 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
 
     S k[NU], kc[NU];
     if constexpr (QP) {
-      // box QP on du in (lb - u, ub - u), warm-started from -kprev
+      // box QP on du in (lb - u, ub - u), warm-started from -kprev; knot t's
+      // box from its stage's rows of the tables (a uniform branch)
+      const S* const bx = stages + L::oBox + (t % L::NSTAGE) * 2 * NU;
       S low[NU], up[NU], du[NU], free[NU];
       for (int j = 0; j < NU; ++j) {
         const S u_t = in(L::rUs + j);
-        low[j] = lo[j] - u_t;
-        up[j] = hi[j] - u_t;
+        low[j] = (a.lbt ? bx[j] : lo[j]) - u_t;
+        up[j] = (a.lbt ? bx[NU + j] : hi[j]) - u_t;
         du[j] = a.kprev ? -in(L::rKp + j) : S(0);
       }
       S Lf[NU][NU];
@@ -449,26 +475,29 @@ template <class S, int NDX, int NU, bool GAPS, bool QP>
 static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
   constexpr int G = kSweepGroup<NDX>;
   using L = SweepOf<S, NDX, NU, G, GAPS, QP>;
-  static_assert(L::FITS, "the stages and scratch fit in a block's shared memory");
+  static_assert(L::FITS, "the stages, scratch and box rows fit in a block's shared memory");
   const int grid = (a.B + L::SPB - 1) / L::SPB;
+  // the box rows' slots only where the tables are given
+  const size_t smem = L::BYTES + (a.lbt ? L::BOX_BYTES : 0);
+  const int smem_max = (int)(L::BYTES + L::BOX_BYTES);
   if constexpr (!QP) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         riccati_fddp_kernel<S, NDX, NU, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::BYTES);
+        smem_max);
     if (attr != cudaSuccess) return (int)attr;
-    riccati_fddp_kernel<S, NDX, NU, G><<<grid, kSweepThreads, L::BYTES, stream>>>(a);
+    riccati_fddp_kernel<S, NDX, NU, G><<<grid, kSweepThreads, smem, stream>>>(a);
   } else if constexpr (GAPS) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         riccati_boxfddp_kernel<S, NDX, NU, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::BYTES);
+        smem_max);
     if (attr != cudaSuccess) return (int)attr;
-    riccati_boxfddp_kernel<S, NDX, NU, G><<<grid, kSweepThreads, L::BYTES, stream>>>(a);
+    riccati_boxfddp_kernel<S, NDX, NU, G><<<grid, kSweepThreads, smem, stream>>>(a);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
         riccati_box_kernel<S, NDX, NU, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::BYTES);
+        smem_max);
     if (attr != cudaSuccess) return (int)attr;
-    riccati_box_kernel<S, NDX, NU, G><<<grid, kSweepThreads, L::BYTES, stream>>>(a);
+    riccati_box_kernel<S, NDX, NU, G><<<grid, kSweepThreads, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -546,12 +575,12 @@ extern "C" int aslr_riccati_fddp_smem(int ndx, int nu, int itemsize) {
   extern "C" int NAME(int ndx, int nu, int gaps, const S* Fx, const S* Fu, const S* Lx,       \
                       const S* Lu, const S* Lxx, const S* Lxu, const S* Luu, const S* tLx,    \
                       const S* tLxx, const S* fs, const S* us, const S* kprev, const S* lb,   \
-                      const S* ub, const S* reg, int T, int B, int qp_iters, S* k, S* K,      \
-                      S* w, S* dg, S* dq, S* stop, S* dgg, S* dqg, bool* ok, bool* retryable, \
-                      void* stream) {                                                         \
-    aslr::BoxSweep<S> a{Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,              \
-                        lb, ub, reg, T, B, qp_iters, false, k, K, w, dg, dq, stop, dgg, dqg, \
-                        ok, retryable};                                                       \
+                      const S* ub, const S* lbt, const S* ubt, const S* reg, int T, int B,    \
+                      int qp_iters, S* k, S* K, S* w, S* dg, S* dq, S* stop, S* dgg, S* dqg,  \
+                      bool* ok, bool* retryable, void* stream) {                              \
+    aslr::BoxSweep<S> a{Fx, Fu, Lx, Lu, Lxx,   Lxu,  Luu, tLx, tLxx, fs, us, kprev, lb,      \
+                        ub, reg, lbt, ubt, T, B, qp_iters, false, k, K, w, dg, dq, stop, dgg, \
+                        dqg, ok, retryable};                                                  \
     return aslr::launch_riccati_box<S>(ndx, nu, gaps, a, stream);                             \
   }
 
@@ -561,9 +590,9 @@ extern "C" int aslr_riccati_fddp_smem(int ndx, int nu, int itemsize) {
                       const S* fs, const S* reg, int T, int B, S* k, S* K, S* w, S* dg,       \
                       S* dq, S* stop, S* dgg, S* dqg, bool* ok, bool* retryable,              \
                       void* stream) {                                                         \
-    aslr::BoxSweep<S> a{Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, nullptr, nullptr,       \
-                        nullptr, nullptr, reg, T, B, 0, false, k, K, w, dg, dq, stop, dgg,    \
-                        dqg, ok, retryable};                                                  \
+    aslr::BoxSweep<S> a{Fx,  Fu,  Lx, Lu, Lxx,  Lxu, Luu, tLx,   tLxx, fs, nullptr, nullptr,  \
+                        nullptr, nullptr, reg, nullptr, nullptr, T, B, 0, false, k, K, w, dg, \
+                        dq, stop, dgg, dqg, ok, retryable};                                   \
     return aslr::launch_riccati_fddp<S>(ndx, nu, a, stream);                                  \
   }
 

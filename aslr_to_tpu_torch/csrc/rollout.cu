@@ -12,7 +12,7 @@ extern "C" int aslr_rollout_smem(int nl, int ntrials, int sea, int gaps, int ite
   return itemsize == 8 ? aslr::roll_bytes<double>(nl, ntrials, sea, gaps) : aslr::kNoInstance;
 }
 
-ASLR_ROLLOUT2_ENTRY(aslr_rollout2_f32, float, 2)
-ASLR_ROLLOUT2_ENTRY(aslr_rollout2_f64, double, 2)
-ASLR_ROLLOUT1_ENTRY(aslr_rollout1_f32, float, 2)
-ASLR_ROLLOUT1_ENTRY(aslr_rollout1_f64, double, 2)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_f32, float, 2, aslr::kShared)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_f64, double, 2, aslr::kShared)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_f32, float, 2, aslr::kShared)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_f64, double, 2, aslr::kShared)

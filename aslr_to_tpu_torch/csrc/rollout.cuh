@@ -58,6 +58,18 @@
 //     the Pallas kernel shared its loaded inputs between its trials. K6 is
 //     the same code launched for one trial, so it equals K3's first trial
 //     at the same step length to the bit.
+// Per-knot problems (vsa_kernels.py::_tgt_at, the [T, nu] clip of
+// _rollout_trial_step) give the kernel a [T, 12] target table and [T, NU]
+// box tables in place of the parameter block's target and the lanes' box.
+// Those take instances of their own (template parameter TAB = kTables, in
+// the units rollout*_tables.cu): a branch on the tables compiled into the
+// shared instances cost them spills and up to 28% of their time (PERF.md,
+// PR 9). Within a table instance, null pointers tell which tables a launch
+// gives (a uniform branch). Each knot's rows ride with its stage into a ring of RING
+// slots in shared memory (RollLayout::RING; allocated only when a table is
+// given), so no global load joins the chain: the clip of knot t reads slot
+// t, and the running cost deferred to the group reads the slot of the knot
+// it evaluates (lane l's knot t - G + 1 + l), not the chain's.
 // No division of an exact zero sits on the chain at NL = 2 (the 2x2 solve
 // divides 1 by the determinant), so boxqp.cuh's zero-dividend skip has no
 // use here; the Cholesky above NL = 2 divides by M's factor plainly.
@@ -96,6 +108,9 @@ constexpr bool kShareStage = true;  // K3's trials read one staged copy
 template <class S>
 struct Roll {
   const S *xs, *us, *k, *K, *x0, *alpha_a, *alpha_b, *wterm, *lb, *ub, *fs, *infeas;
+  // per-knot tables, each null or [T, ...] (row t knot t's): the box
+  // [T, NU] in place of lb/ub, the running cost's target [T, 12]
+  const S *lbt, *ubt, *tgt;
   int T, B;
   bool vec;  // 16-byte copies: the batch stride and every staged pointer allow them
   S *xs_a, *us_a, *cost_a, *xs_b, *us_b, *cost_b;
@@ -118,6 +133,13 @@ struct RollLayout {
   static constexpr int rX = 0, rU = NDX, rk = rU + NU, rK = rk + NU, rF = rK + NU * NDX,
                        ROWS = rF + (GAPS ? NDX : 0), STAGE = C * ROWS * P;
   static constexpr size_t BYTES = kStaged ? (size_t)2 * STAGE * sizeof(S) : 0;
+  // after the stages, where a per-knot table is given: a ring of RING knots'
+  // table rows (the target's 12, then the box's NU and NU), knot t in slot t
+  // mod RING. It holds every knot from the oldest whose running cost is
+  // still deferred to the newest in flight: 2 C + G - 1 knots
+  static constexpr int W = 12 + 2 * NU, RING = pow2_at_least(2 * C + G), oT = 0, oLb = 12,
+                       oUb = 12 + NU;
+  static constexpr size_t RING_BYTES = kStaged ? (size_t)RING * W * sizeof(S) : 0;
 };
 
 // copy knot t of an array [T', rows, B] into the tile rows from dst, the
@@ -149,24 +171,50 @@ __device__ inline void stage_knot(const Roll<S>& a, S* tile, long long t, int b0
     stage_rows<L, V, false>(tile + L::rF * L::P, a.fs, L::NDX, t + 1, TB, b0, tid);
 }
 
-// the knots t0 .. t0 + C (those below T) into one stage, as one commit
+// knot t's rows of the tables given into its ring slot, an element a thread
 template <class L, class S>
-__device__ inline void stage_chunk(const Roll<S>& a, S* stage, int t0, int b0, int tid) {
+__device__ inline void stage_table_rows(const Roll<S>& a, S* ring, long long t, int tid) {
+  S* const slot = ring + (t % L::RING) * L::W;
+  const S* src = nullptr;
+  if (tid < 12) src = a.tgt ? a.tgt + t * 12 + tid : nullptr;
+  else if (tid < L::oUb) src = a.lbt ? a.lbt + t * L::NU + (tid - L::oLb) : nullptr;
+  else if (tid < L::W) src = a.ubt ? a.ubt + t * L::NU + (tid - L::oUb) : nullptr;
+  if (src) __pipeline_memcpy_async(slot + tid, src, sizeof(S));
+}
+
+// the knots t0 .. t0 + C (those below T) into one stage, and (an instance
+// that takes the tables, TAB) their table rows into the ring, as one commit
+template <class L, int TAB, class S>
+__device__ inline void stage_chunk(const Roll<S>& a, S* stage, S* ring, int t0, int b0,
+                                   int tid) {
   for (int kk = 0; kk < L::C && t0 + kk < a.T; ++kk) {
     S* const tile = stage + kk * L::ROWS * L::P;
     if (a.vec) stage_knot<L, L::VEC>(a, tile, t0 + kk, b0, tid);
     else stage_knot<L, 1>(a, tile, t0 + kk, b0, tid);
+    if constexpr (TAB != kShared)
+      if (a.tgt || a.lbt) stage_table_rows<L>(a, ring, t0 + kk, tid);
   }
   __pipeline_commit();
 }
 
+// knot tk's row of a table: its ring slot, or (kStaged false) global memory
+template <class L, class S>
+__device__ inline const S* table_row(const Roll<S>& a, const S* ring, const S* table,
+                                     long long tk, int width, int off) {
+  if constexpr (kStaged) return ring + (tk % L::RING) * L::W + off;
+  else return table + tk * width;
+}
+
 // knot t's inputs of one trajectory: its column of the knot's tile, or
-// (kStaged false) global memory
+// (kStaged false) global memory; and knot t's box rows
 template <class L, class S>
 struct KnotIn {
   const S* st;
+  const S* ring;
   const Roll<S>& a;
   long long t, bc;
+  __device__ S lbt(int j) const { return table_row<L>(a, ring, a.lbt, t, L::NU, L::oLb)[j]; }
+  __device__ S ubt(int j) const { return table_row<L>(a, ring, a.ubt, t, L::NU, L::oUb)[j]; }
   __device__ S xref(int i) const {
     if constexpr (kStaged) return st[(L::rX + i) * L::P];
     else return a.xs[(t * L::NDX + i) * a.B + bc];
@@ -199,7 +247,7 @@ __device__ inline S fold(const Group<G>& grp, S cost, S mine, int n) {
   return cost;
 }
 
-template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int NT>
+template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int NT, int TAB>
 __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   constexpr int NDX = Arm<NL, SEA>::NDX, NU = Arm<NL, SEA>::NU;
   using L = RollLayout<S, NDX, NU, GAPS, NT>;
@@ -208,6 +256,7 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   constexpr int MS = (NL + 1 + G - 1) / G;  // RNEA sweeps a lane
   extern __shared__ __align__(16) unsigned char roll_smem[];
   S* const stages = reinterpret_cast<S*>(roll_smem);
+  S* const ring = stages + 2 * L::STAGE;
   const int tid = threadIdx.x, g = tid / G;
   const Group<G> grp;
   const int lane = grp.lane;
@@ -224,18 +273,32 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   const S alpha = first ? a.alpha_a[bc] : a.alpha_b[bc];
   const int nchunks = (a.T + L::C - 1) / L::C;
   if constexpr (kStaged)
-    if (nchunks > 0) stage_chunk<L>(a, stages, 0, b0, tid);
+    if (nchunks > 0) stage_chunk<L, TAB>(a, stages, ring, 0, b0, tid);
+  // which tables this launch reads (a uniform branch; none in the shared
+  // instance, TAB = kShared)
+  const bool tgt_tab = TAB != kShared && a.tgt != nullptr;
+  const bool box_tab = TAB != kShared && a.lbt != nullptr;
 
-  // this lane's feedback rows (lane + m G) mod NU and their box
+  // this lane's feedback rows (lane + m G) mod NU and their box: its own
+  // lanes of lb/ub, or (box_tab) each knot's rows of the tables
   int jr[MU];
   S lo[MU], hi[MU];
   for (int m = 0; m < MU; ++m) {
     jr[m] = (lane + m * G) % NU;
     if constexpr (BOXED) {
-      lo[m] = a.lb[jr[m] * TB + bc];
-      hi[m] = a.ub[jr[m] * TB + bc];
+      if (!box_tab) {
+        lo[m] = a.lb[jr[m] * TB + bc];
+        hi[m] = a.ub[jr[m] * TB + bc];
+      }
     }
   }
+  // knot tk's running cost: against its row of the target table, or the
+  // parameter block's target
+  auto run_cost = [&](const S* xk_, const S* uk_, long long tk) {
+    const S* row = nullptr;
+    if (tgt_tab) row = table_row<L>(a, ring, a.tgt, tk < a.T ? tk : a.T - 1, 12, L::oT);
+    return running_cost<S, NL, SEA>(P, xk_, uk_, row);
+  };
   S gscale = S(0);
   if constexpr (GAPS) gscale = (alpha - S(1)) * a.infeas[bc];
   S x[NDX], xk[NDX], uk[NU];  // (xk, uk): the knot whose running cost this lane takes
@@ -253,12 +316,14 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
       __pipeline_wait_prior(0);
       __syncthreads();  // chunk c staged; every lane done with chunk c - 1's stage
       if (c + 1 < nchunks)
-        stage_chunk<L>(a, stages + ((c + 1) & 1) * L::STAGE, (c + 1) * L::C, b0, tid);
+        stage_chunk<L, TAB>(a, stages + ((c + 1) & 1) * L::STAGE, ring, (c + 1) * L::C, b0,
+                            tid);
     }
     for (int kk = 0; kk < L::C; ++kk) {
       const int t = c * L::C + kk;
       if (t >= a.T) break;
-      const KnotIn<L, S> in{stages + (c & 1) * L::STAGE + kk * L::ROWS * L::P + col, a, t, bc};
+      const KnotIn<L, S> in{stages + (c & 1) * L::STAGE + kk * L::ROWS * L::P + col, ring, a,
+                            t, bc};
 
       // feedback rows: u_j = u_ref_j - (alpha k_j + K_j dx), clipped
       S dx[NDX];
@@ -268,7 +333,10 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
         S fb = in.kff(jr[m]) * alpha;
         for (int i = 0; i < NDX; ++i) fb = fb + in.Kfb(jr[m], i) * dx[i];
         um[m] = in.uref(jr[m]) - fb;
-        if constexpr (BOXED) um[m] = dclip(um[m], lo[m], hi[m]);
+        if constexpr (BOXED) {
+          if (box_tab) um[m] = dclip(um[m], in.lbt(jr[m]), in.ubt(jr[m]));
+          else um[m] = dclip(um[m], lo[m], hi[m]);
+        }
         if (live && lane + m * G < NU) us_o[((long long)t * NU + jr[m]) * TB + b] = um[m];
       }
       S u[NU];
@@ -294,7 +362,7 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
         for (int i = 0; i < NDX; ++i) xk[i] = keep ? x[i] : xk[i];
         for (int j = 0; j < NU; ++j) uk[j] = keep ? u[j] : uk[j];
       } else {
-        cost = cost + running_cost<S, NL, SEA>(P, x, u);
+        cost = cost + run_cost(x, u, t);
       }
       euler<S, NL>(P.dt, x, acc, xn);
       for (int i = 0; i < NDX; ++i) {
@@ -302,77 +370,86 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
         if constexpr (GAPS) x[i] = x[i] + in.fs_next(i) * gscale;
         if (live && i % G == lane) xs_o[((long long)(t + 1) * NDX + i) * TB + b] = x[i];
       }
+      // the G knots t - G + 1 .. t, lane l's the knot t - G + 1 + l
       if constexpr (kDeferCost)
-        if (t % G == G - 1) cost = fold(grp, cost, running_cost<S, NL, SEA>(P, xk, uk), G);
+        if (t % G == G - 1) cost = fold(grp, cost, run_cost(xk, uk, t - (G - 1) + lane), G);
     }
   }
   if constexpr (kDeferCost)
-    if (a.T % G) cost = fold(grp, cost, running_cost<S, NL, SEA>(P, xk, uk), a.T % G);
+    if (a.T % G)
+      cost = fold(grp, cost, run_cost(xk, uk, (long long)(a.T / G) * G + lane), a.T % G);
   S r6[6];
-  const S goal = goal_cost<S, NL>(P, x, true, r6);
+  const S goal = goal_cost<S, NL>(P, x, true, (const S*)nullptr, r6);
   if (live && lane == 0) cost_o[b] = cost + a.wterm[bc] * goal;
 }
 
 // two entry kernels over one body, so that a profile tells K3 from K6
-template <class S, int NL, bool SEA, bool BOXED, bool GAPS>
+template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB>
 __global__ void __launch_bounds__(kRollThreads1) rollout1_kernel(const VSAParams<NL> P,
                                                                 const Roll<S> a) {
-  rollout_group<S, NL, SEA, BOXED, GAPS, 1>(P, a);
+  rollout_group<S, NL, SEA, BOXED, GAPS, 1, TAB>(P, a);
 }
 
-template <class S, int NL, bool SEA, bool BOXED, bool GAPS>
+template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB>
 __global__ void __launch_bounds__(kRollThreads2) rollout2_kernel(const VSAParams<NL> P,
                                                                 const Roll<S> a) {
-  rollout_group<S, NL, SEA, BOXED, GAPS, 2>(P, a);
+  rollout_group<S, NL, SEA, BOXED, GAPS, 2, TAB>(P, a);
 }
 
-template <class S, int NL, int NT, bool SEA, bool BOXED, bool GAPS>
+template <class S, int NL, int NT, int TAB, bool SEA, bool BOXED, bool GAPS>
 static int launch_variant(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t stream) {
   using L = RollLayout<S, Arm<NL, SEA>::NDX, Arm<NL, SEA>::NU, GAPS, NT>;
-  static_assert(L::BYTES <= kMaxSmem, "the stages fit in a block's shared memory");
+  // the ring only in an instance that takes the tables, and only where a
+  // table is given
+  constexpr size_t MAX = L::BYTES + (TAB != kShared ? L::RING_BYTES : 0);
+  static_assert(MAX <= kMaxSmem, "the stages and the ring fit in a block's shared memory");
   const int grid = (a.B + L::SPB - 1) / L::SPB;
+  const size_t smem = TAB != kShared && (a.tgt || a.lbt) ? MAX : L::BYTES;
   if constexpr (NT == 1) {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        rollout1_kernel<S, NL, SEA, BOXED, GAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::BYTES);
+        rollout1_kernel<S, NL, SEA, BOXED, GAPS, TAB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX);
     if (attr != cudaSuccess) return (int)attr;
-    rollout1_kernel<S, NL, SEA, BOXED, GAPS><<<grid, L::THREADS, L::BYTES, stream>>>(P, a);
+    rollout1_kernel<S, NL, SEA, BOXED, GAPS, TAB><<<grid, L::THREADS, smem, stream>>>(P, a);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        rollout2_kernel<S, NL, SEA, BOXED, GAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::BYTES);
+        rollout2_kernel<S, NL, SEA, BOXED, GAPS, TAB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX);
     if (attr != cudaSuccess) return (int)attr;
-    rollout2_kernel<S, NL, SEA, BOXED, GAPS><<<grid, L::THREADS, L::BYTES, stream>>>(P, a);
+    rollout2_kernel<S, NL, SEA, BOXED, GAPS, TAB><<<grid, L::THREADS, smem, stream>>>(P, a);
   }
   return (int)cudaGetLastError();
 }
 
 // ntrials 1 (K6: alpha_b and the b outputs unused) or 2 (K3) at the chain
-// length NL of the including unit; lb/ub null: no box; fs/infeas null: no
-// gaps. Every variant at NL = 2; above it the SEA arm's unboxed FDDP
-// rollout with gaps only (the unboxed DDP family has no backward kernel,
-// kernels/riccati.py::riccati_batch_major); kNoInstance otherwise
-template <class S, int NT, int NL>
+// length NL of the including unit; lb/ub (or lbt/ubt) null: no box;
+// fs/infeas null: no gaps. Every variant at NL = 2; above it the SEA arm's
+// unboxed FDDP rollout with gaps only (the unboxed DDP family has no
+// backward kernel, kernels/riccati.py::riccati_batch_major). TAB: the
+// unit's instances take no tables (kShared), or some (kTables: the rollout
+// units *_tables.cu). kNoInstance otherwise
+template <class S, int NT, int NL, int TAB>
 static int launch_rollout(const double* params, int nl, Roll<S> a, void* stream) {
-  if (nl != NL) return kNoInstance;
+  const bool tables = a.tgt || a.lbt;
+  if (nl != NL || (TAB == kShared && tables) || (TAB == kTables && !tables)) return kNoInstance;
   const VSAParams<NL> P = unpack_params<NL>(params);
   const void* staged[] = {a.xs, a.us, a.k, a.K, a.fs};
   a.vec = a.B % (16 / (int)sizeof(S)) == 0;
   for (const void* p : staged) a.vec = a.vec && aligned16(p);
   cudaStream_t st = (cudaStream_t)stream;
-  const int v = (P.sea ? 4 : 0) + (a.lb ? 2 : 0) + (a.fs ? 1 : 0);
+  const int v = (P.sea ? 4 : 0) + (a.lb || a.lbt ? 2 : 0) + (a.fs ? 1 : 0);
   if constexpr (NL != 2) {
-    return v == 5 ? launch_variant<S, NL, NT, true, false, true>(P, a, st) : kNoInstance;
+    return v == 5 ? launch_variant<S, NL, NT, TAB, true, false, true>(P, a, st) : kNoInstance;
   } else {
     switch (v) {
-      case 0: return launch_variant<S, NL, NT, false, false, false>(P, a, st);
-      case 1: return launch_variant<S, NL, NT, false, false, true>(P, a, st);
-      case 2: return launch_variant<S, NL, NT, false, true, false>(P, a, st);
-      case 3: return launch_variant<S, NL, NT, false, true, true>(P, a, st);
-      case 4: return launch_variant<S, NL, NT, true, false, false>(P, a, st);
-      case 5: return launch_variant<S, NL, NT, true, false, true>(P, a, st);
-      case 6: return launch_variant<S, NL, NT, true, true, false>(P, a, st);
-      default: return launch_variant<S, NL, NT, true, true, true>(P, a, st);
+      case 0: return launch_variant<S, NL, NT, TAB, false, false, false>(P, a, st);
+      case 1: return launch_variant<S, NL, NT, TAB, false, false, true>(P, a, st);
+      case 2: return launch_variant<S, NL, NT, TAB, false, true, false>(P, a, st);
+      case 3: return launch_variant<S, NL, NT, TAB, false, true, true>(P, a, st);
+      case 4: return launch_variant<S, NL, NT, TAB, true, false, false>(P, a, st);
+      case 5: return launch_variant<S, NL, NT, TAB, true, false, true>(P, a, st);
+      case 6: return launch_variant<S, NL, NT, TAB, true, true, false>(P, a, st);
+      default: return launch_variant<S, NL, NT, TAB, true, true, true>(P, a, st);
     }
   }
 }
@@ -405,25 +482,30 @@ static int roll_bytes(int nl, int ntrials, int sea, int gaps) {
 
 }  // namespace aslr
 
-// one C entry a scalar type: NAME launches K3 at the chain length NL
-#define ASLR_ROLLOUT2_ENTRY(NAME, S, NL)                                                   \
+// one C entry a scalar type: NAME launches K3 at the chain length NL, with the
+// instances of table mode TAB
+#define ASLR_ROLLOUT2_ENTRY(NAME, S, NL, TAB)                                              \
   extern "C" int NAME(const double* params, int nl, const S* xs, const S* us, const S* k,   \
                       const S* K, const S* x0, const S* alpha_a, const S* alpha_b,         \
-                      const S* wterm, const S* lb, const S* ub, const S* fs,               \
-                      const S* infeas, int T, int B, S* xs_a, S* us_a, S* cost_a, S* xs_b, \
-                      S* us_b, S* cost_b, void* stream) {                                  \
-    aslr::Roll<S> a{xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, fs, infeas,        \
-                    T, B, false, xs_a, us_a, cost_a, xs_b, us_b, cost_b};                  \
-    return aslr::launch_rollout<S, 2, NL>(params, nl, a, stream);                          \
+                      const S* wterm, const S* lb, const S* ub, const S* lbt,              \
+                      const S* ubt, const S* fs, const S* infeas, const S* tgt, int T,     \
+                      int B, S* xs_a, S* us_a, S* cost_a, S* xs_b, S* us_b, S* cost_b,     \
+                      void* stream) {                                                      \
+    aslr::Roll<S> a{xs,  us,   k,  K,    x0,   alpha_a, alpha_b, wterm, lb,   ub,         \
+                    fs,  infeas, lbt, ubt, tgt, T,       B,       false, xs_a, us_a,       \
+                    cost_a, xs_b, us_b, cost_b};                                           \
+    return aslr::launch_rollout<S, 2, NL, TAB>(params, nl, a, stream);                     \
   }
 
 // the same for K6
-#define ASLR_ROLLOUT1_ENTRY(NAME, S, NL)                                                   \
+#define ASLR_ROLLOUT1_ENTRY(NAME, S, NL, TAB)                                              \
   extern "C" int NAME(const double* params, int nl, const S* xs, const S* us, const S* k,   \
                       const S* K, const S* x0, const S* alpha, const S* wterm,             \
-                      const S* lb, const S* ub, const S* fs, const S* infeas, int T, int B, \
-                      S* xs_o, S* us_o, S* cost_o, void* stream) {                         \
-    aslr::Roll<S> a{xs, us, k, K, x0, alpha, nullptr, wterm, lb, ub, fs, infeas,          \
-                    T, B, false, xs_o, us_o, cost_o, nullptr, nullptr, nullptr};           \
-    return aslr::launch_rollout<S, 1, NL>(params, nl, a, stream);                          \
+                      const S* lb, const S* ub, const S* lbt, const S* ubt, const S* fs,   \
+                      const S* infeas, const S* tgt, int T, int B, S* xs_o, S* us_o,       \
+                      S* cost_o, void* stream) {                                           \
+    aslr::Roll<S> a{xs,  us,     k,   K,   x0,  alpha, nullptr, wterm, lb,   ub,          \
+                    fs,  infeas, lbt, ubt, tgt, T,     B,       false, xs_o, us_o,        \
+                    cost_o, nullptr, nullptr, nullptr};                                    \
+    return aslr::launch_rollout<S, 1, NL, TAB>(params, nl, a, stream);                     \
   }

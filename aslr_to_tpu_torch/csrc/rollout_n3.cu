@@ -2,7 +2,7 @@
 // rollout.cuh).
 #include "rollout.cuh"
 
-ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n3_f32, float, 3)
-ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n3_f64, double, 3)
-ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n3_f32, float, 3)
-ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n3_f64, double, 3)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n3_f32, float, 3, aslr::kShared)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n3_f64, double, 3, aslr::kShared)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n3_f32, float, 3, aslr::kShared)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n3_f64, double, 3, aslr::kShared)

@@ -2,7 +2,7 @@
 // rollout.cuh).
 #include "rollout.cuh"
 
-ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n7_f32, float, 7)
-ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n7_f64, double, 7)
-ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n7_f32, float, 7)
-ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n7_f64, double, 7)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n7_f32, float, 7, aslr::kShared)
+ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n7_f64, double, 7, aslr::kShared)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n7_f32, float, 7, aslr::kShared)
+ASLR_ROLLOUT1_ENTRY(aslr_rollout1_n7_f64, double, 7, aslr::kShared)

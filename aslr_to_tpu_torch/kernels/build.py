@@ -4,7 +4,9 @@ The sources ``aslr_to_tpu_torch/csrc/*.cu`` have a plain C interface; the
 kernels' templates sit in ``csrc/*.cuh``, and a kernel built at several
 chain lengths has a source per length (``linearize.cu`` at nl = 2,
 ``linearize_n3.cu`` and ``linearize_n7.cu`` at 3 and 7, each with its own C
-entries, ``aslr_linearize_n7_f32`` and so on). At first use, one ``nvcc``
+entries, ``aslr_linearize_n7_f32`` and so on; the rollouts' instances that
+take a per-knot problem's tables sit in ``rollout*_tables.cu``, with entries
+``aslr_rollout2_tables_f32`` and so on). At first use, one ``nvcc``
 per source, all started together, compiles them for ``sm_90a``, and a last
 ``nvcc`` links the objects into one shared library under
 ``build/aslr_to_tpu_torch/`` beside the package (git-ignored), named by a
@@ -57,22 +59,28 @@ INSTANCES = {
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # params, nl, xs, us, wterm, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext,
-    # cost, ok, tLx, tLxx, tcost, tok, stream
-    "aslr_linearize": [_P, _I, _P, _P, _P, _I, _I] + [_P] * 14 + [_P],
+    # params, nl, xs, us, wterm, tgt, T, B, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
+    # xnext, cost, ok, tLx, tLxx, tcost, tok, stream (tgt: the [T, 12] target
+    # table or null, as every table below)
+    "aslr_linearize": [_P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 14 + [_P],
     # ndx, nu, gaps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
-    # lb, ub, reg, T, B, qp_iters, k, K, w, dg, dq, stop, dg_gap, dq_gap, ok,
-    # retryable, stream
-    "aslr_riccati_box": [_I, _I, _I] + [_P] * 15 + [_I, _I, _I] + [_P] * 10 + [_P],
-    # params, nl, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, fs,
-    # infeas, T, B, xs_a, us_a, cost_a, xs_b, us_b, cost_b, stream
-    "aslr_rollout2": [_P, _I] + [_P] * 12 + [_I, _I] + [_P] * 6 + [_P],
+    # lb, ub, lb_table, ub_table, reg, T, B, qp_iters, k, K, w, dg, dq, stop,
+    # dg_gap, dq_gap, ok, retryable, stream
+    "aslr_riccati_box": [_I, _I, _I] + [_P] * 17 + [_I, _I, _I] + [_P] * 10 + [_P],
+    # params, nl, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub, lb_table,
+    # ub_table, fs, infeas, tgt, T, B, xs_a, us_a, cost_a, xs_b, us_b, cost_b,
+    # stream
+    "aslr_rollout2": [_P, _I] + [_P] * 15 + [_I, _I] + [_P] * 6 + [_P],
     # ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, T, B, k, K,
     # w, dg, dq, stop, dg_gap, dq_gap, ok, retryable, stream
     "aslr_riccati_fddp": [_I, _I] + [_P] * 11 + [_I, _I] + [_P] * 10 + [_P],
-    # params, nl, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas, T, B,
-    # xs_o, us_o, cost_o, stream
-    "aslr_rollout1": [_P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3 + [_P],
+    # params, nl, xs, us, k, K, x0, alpha, wterm, lb, ub, lb_table, ub_table,
+    # fs, infeas, tgt, T, B, xs_o, us_o, cost_o, stream
+    "aslr_rollout1": [_P, _I] + [_P] * 14 + [_I, _I] + [_P] * 3 + [_P],
+    # K3 and K6 with the per-knot tables (csrc/rollout*_tables.cu): their
+    # instances of their own, the same arguments
+    "aslr_rollout2_tables": [_P, _I] + [_P] * 15 + [_I, _I] + [_P] * 6 + [_P],
+    "aslr_rollout1_tables": [_P, _I] + [_P] * 14 + [_I, _I] + [_P] * 3 + [_P],
     # x, out, n, ilp, fma, steps, loop, stream (float32 only)
     "aslr_probe": [_P, _P, _I, _I, _I, _I, _I, _P],
     # nu, gaps, itemsize: the box kernel's dynamic shared memory a block
@@ -99,7 +107,8 @@ def chains(base: str) -> list[int]:
     """The chain lengths above 2 at which the C entry ``base`` (e.g.
     "aslr_linearize") is built, from ``INSTANCES``: each has a source of its
     own and entries ``<base>_n<nl>_f32`` and ``_f64``."""
-    return sorted({int(i.split()[0][3:]) for i in INSTANCES.get(base.removeprefix("aslr_"), ())
+    kernel = base.removeprefix("aslr_").removesuffix("_tables")
+    return sorted({int(i.split()[0][3:]) for i in INSTANCES.get(kernel, ())
                    if i.startswith("nl=")} - {2})
 
 

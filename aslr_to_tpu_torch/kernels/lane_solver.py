@@ -1,8 +1,10 @@
 """Batched DDP / FDDP / BoxDDP / BoxFDDP solver loop in lane layout.
 
 PyTorch counterpart of ``aslr_to_tpu/pallas/lane_solver.py::
-build_lane_solver`` on a shared model with a shared ``[nu]`` control box or
-none. The loop state lives in lane layout (batch innermost: xs
+build_lane_solver``: a shared model, or a per-knot one whose frame target
+varies (K1 and K3 read its ``[T, 12]`` target table), with a shared
+``[nu]`` control box, a per-knot ``[T, nu]`` one (K2, K3 and K5 read its
+tables) or none. The loop state lives in lane layout (batch innermost: xs
 ``[T+1, ndx, B]``, us ``[T, nu, B]``) and each iteration runs three kernels:
 the linearization (K1), a backward sweep (relaunched by the per-lane
 regularization retry) and the two-trial rollout (K3, once per pair of step
@@ -101,6 +103,7 @@ def build_lane_solver(
     spec = extract_vsa_spec(problem, bounds)
     T, nu, NDX = problem.T, spec.nu, spec.ndx
     boxed = bounds is not None
+    box_pk = spec.per_knot_box
     auto = backend == "auto"
     lin_fn = linearize if auto else linearize_plain
     roll_fn = rollout2 if auto else rollout2_plain
@@ -115,6 +118,9 @@ def build_lane_solver(
     dev = problem.x0.device
 
     def solve_batch(x0s, xs_init=None, us_init=None, wterm_scale=None, box_ub=None):
+        if box_pk and box_ub is not None:
+            raise ValueError("box_ub continuation requires a shared "
+                             "(non-per-knot) control box")
         if wterm_scale is not None or box_ub is not None:
             raise NotImplementedError("wterm_scale / box_ub (homotopy) come with the "
                                       "homotopy slice")
@@ -128,12 +134,18 @@ def build_lane_solver(
         us = (torch.zeros((T, nu, B), dtype=dtype, device=dev) if us_init is None
               else to_lanes(us_init.to(dtype)))
         lb = ub = None
-        if boxed:
+        if box_pk:
+            # the [T, nu] tables, which K2, K3 and K5 read row by row
+            lb, ub = (torch.as_tensor(b, dtype=dtype, device=dev) for b in (spec.lb, spec.ub))
+            # project the warm start into the box (solvers/ddp.py::_solve_impl)
+            us = torch.minimum(torch.maximum(us, lb[:, :, None]), ub[:, :, None])
+        elif boxed:
             lb = torch.as_tensor(spec.lb, dtype=dtype, device=dev)[:, None].expand(nu, B)
             ub = torch.as_tensor(spec.ub, dtype=dtype, device=dev)[:, None].expand(nu, B)
             lb, ub = lb.contiguous(), ub.contiguous()
-            # project the warm start into the box (solvers/ddp.py::_solve_impl)
             us = torch.minimum(torch.maximum(us, lb), ub)
+        tgt = (torch.as_tensor(spec.target_table(T, dtype), device=dev)
+               if spec.per_knot_target else None)
         zeros_fs = (None if use_gaps or boxed
                     else torch.zeros((T + 1, NDX, B), dtype=dtype, device=dev))
         wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=dev)
@@ -152,7 +164,7 @@ def build_lane_solver(
 
         while bool((~done).any()):
             active = ~done
-            lin = lin_fn(spec, xs, us, wterm)
+            lin = lin_fn(spec, xs, us, wterm, tgt)
             run, term = lin.run, lin.term
             # defect gaps fs = diff(xs, [x0; xnext]); the FDDP family uses
             # them all, the others only the feasibility flag
@@ -167,9 +179,9 @@ def build_lane_solver(
 
             def backward(r):
                 if boxed and use_gaps:
-                    return bwd_fn(*derivs, fs, us, kp, lb, ub, r, qp_iters)
+                    return bwd_fn(*derivs, fs, us, kp, lb, ub, r, qp_iters, box_pk)
                 if boxed:
-                    return bwd_fn(*derivs, us, kp, lb, ub, r, qp_iters)
+                    return bwd_fn(*derivs, us, kp, lb, ub, r, qp_iters, box_pk)
                 return bwd_fn(*derivs, fs if use_gaps else zeros_fs, r)
 
             # -- backward pass with per-lane regularization retry ----------
@@ -221,7 +233,7 @@ def build_lane_solver(
                 a0 = alphas[torch.clamp(i, 0, s.n_alphas - 1).long()]
                 a1 = alphas[torch.clamp(i + 1, 0, s.n_alphas - 1).long()]
                 tr0, tr1 = roll_fn(spec, xs, us, bw.k, bw.K, x0_l, a0, a1, wterm, lb, ub,
-                                   *gap_args)
+                                   *gap_args, tgt)
                 acc0 = ls_accept(a0, tr0)
                 # trial 1 counts only for a genuinely new alpha (dedupe at the
                 # ladder's end keeps iteration counts equal to one trial a round)

@@ -166,8 +166,16 @@ def _finite(t, nlead):
     return torch.isfinite(t).flatten(0, nlead - 1).all(0)
 
 
+def _knot_box(lb, ub, t, per_knot_box):
+    """Knot t's box: row t of ``[T, nu]`` tables (broadcast over the lanes),
+    or the ``[nu, B]`` lanes."""
+    if per_knot_box:
+        return lb[t][:, None], ub[t][:, None]
+    return lb, ub
+
+
 def riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, ub, reg,
-                      qp_iters) -> BoxBackwardOut:
+                      qp_iters, per_knot_box=False) -> BoxBackwardOut:
     """Plain PyTorch version of K2 (see :func:`riccati_box_backward`)."""
     T = Fu.shape[0]
     Vx = tLx
@@ -186,7 +194,8 @@ def riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, u
         quu_ok = _finite(Quu, 2)
 
         x0 = -kprev[t] if kprev is not None else torch.zeros_like(us[t])
-        du, free = boxqp_plain(Quu, Qu, lb - us[t], ub - us[t], x0, qp_iters)
+        lo, hi = _knot_box(lb, ub, t, per_knot_box)
+        du, free = boxqp_plain(Quu, Qu, lo - us[t], hi - us[t], x0, qp_iters)
         k = -du
         # free-subspace gains: columns of Qxu^T through the masked factor
         K = _chol_solve(_masked_factor(Quu, free), Qxu.transpose(0, 1) * free[:, None])
@@ -208,16 +217,17 @@ def riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev, lb, u
 
 def riccati_box_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us,
                          kprev: Optional[torch.Tensor], lb, ub, reg,
-                         qp_iters: int) -> BoxBackwardOut:
+                         qp_iters: int, per_knot_box: bool = False) -> BoxBackwardOut:
     """K2 on lane tensors: Fx [T,ndx,ndx,B], Fu [T,ndx,nu,B], Lx [T,ndx,B],
     Lu [T,nu,B], Lxx [T,ndx,ndx,B], Lxu [T,ndx,nu,B], Luu [T,nu,nu,B],
     tLx [ndx,B], tLxx [ndx,ndx,B], us [T,nu,B], kprev [T,nu,B] or None
-    (cold QPs from 0), lb/ub [nu,B], reg [B]."""
+    (cold QPs from 0), lb/ub [nu,B] (``per_knot_box``: [T,nu] tables, row
+    t the box of knot t's QP), reg [B]."""
     if _route(Fx) == "plain":
         return riccati_box_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, us, kprev,
-                                 lb, ub, reg, qp_iters)
+                                 lb, ub, reg, qp_iters, per_knot_box)
     out = _box_launch("riccati_box", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, None, us,
-                      kprev, lb, ub, reg, qp_iters)
+                      kprev, lb, ub, reg, qp_iters, per_knot_box)
     return BoxBackwardOut(k=out.k, K=out.K, dg=out.dg, dq=out.dq, stop=out.stop, ok=out.ok,
                           retryable=out.retryable)
 
@@ -239,7 +249,8 @@ class FddpBackwardOut(NamedTuple):
 
 def _fddp_family_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, box):
     """Plain version of the FDDP-family sweep; ``box`` is None (K4: Cholesky
-    gains) or ``(us, kprev, lb, ub, qp_iters)`` (K5: masked BoxQP gains)."""
+    gains) or ``(us, kprev, lb, ub, qp_iters, per_knot_box)`` (K5: masked
+    BoxQP gains)."""
     T = Fu.shape[0]
     Vxx = _add_diag(tLxx, reg)
     w_T = _matvec(Vxx, fs[T])
@@ -264,9 +275,10 @@ def _fddp_family_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg, box):
             k = _chol_solve(L, Qu)
             K = _chol_solve(L, Qxu.transpose(0, 1))
         else:
-            us, kprev, lb, ub, qp_iters = box
+            us, kprev, lb, ub, qp_iters, per_knot_box = box
             x0 = -kprev[t] if kprev is not None else torch.zeros_like(us[t])
-            du, free = boxqp_plain(Quu, Qu, lb - us[t], ub - us[t], x0, qp_iters)
+            lo, hi = _knot_box(lb, ub, t, per_knot_box)
+            du, free = boxqp_plain(Quu, Qu, lo - us[t], hi - us[t], x0, qp_iters)
             k = -du
             K = _chol_solve(_masked_factor(Quu, free), Qxu.transpose(0, 1) * free[:, None])
 
@@ -296,10 +308,10 @@ def riccati_fddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg) -> Fdd
 
 
 def riccati_boxfddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, lb, ub,
-                          reg, qp_iters) -> FddpBackwardOut:
+                          reg, qp_iters, per_knot_box=False) -> FddpBackwardOut:
     """Plain PyTorch version of K5 (see :func:`riccati_boxfddp_backward`)."""
     return _fddp_family_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, reg,
-                              (us, kprev, lb, ub, qp_iters))
+                              (us, kprev, lb, ub, qp_iters, per_knot_box))
 
 
 def _check_lanes(**lanes):
@@ -309,7 +321,7 @@ def _check_lanes(**lanes):
     shapes = dict(Fx=(T, X, X, B), Fu=(T, X, U, B), Lx=(T, X, B), Lu=(T, U, B),
                   Lxx=(T, X, X, B), Lxu=(T, X, U, B), Luu=(T, U, U, B), tLx=(X, B),
                   tLxx=(X, X, B), fs=(T + 1, X, B), us=(T, U, B), kprev=(T, U, B), lb=(U, B),
-                  ub=(U, B), reg=(B,))
+                  ub=(U, B), lb_table=(T, U), ub_table=(T, U), reg=(B,))
     dt, dev = lanes["Fx"].dtype, lanes["Fx"].device
     for name, t in lanes.items():
         if t is not None:
@@ -329,11 +341,14 @@ def _empty_out(T, NDX, NU, B, dt, dev, gaps=True):
 
 
 def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, lb, ub, reg,
-                qp_iters) -> FddpBackwardOut:
-    """K2 (``fs`` None) or K5: the one box kernel of ``csrc/riccati_box.cu``.
-    K2 leaves ``w``, ``dg_gap`` and ``dq_gap`` unwritten."""
+                qp_iters, per_knot_box) -> FddpBackwardOut:
+    """K2 (``fs`` None) or K5: the one box kernel of ``csrc/riccati_box.cu``,
+    with a box a lane or (``per_knot_box``) the ``[T, nu]`` tables. K2
+    leaves ``w``, ``dg_gap`` and ``dq_gap`` unwritten."""
+    lanes_box, tables = ((None, None), (lb, ub)) if per_knot_box else ((lb, ub), (None, None))
     _check_lanes(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu, tLx=tLx, tLxx=tLxx,
-                 fs=fs, us=us, kprev=kprev, lb=lb, ub=ub, reg=reg)
+                 fs=fs, us=us, kprev=kprev, lb=lanes_box[0], ub=lanes_box[1],
+                 lb_table=tables[0], ub_table=tables[1], reg=reg)
     T, NDX, NU, B = Fu.shape
     _build.require(name, f"ndx={NDX} nu={NU}")
     dt = Fx.dtype
@@ -345,7 +360,8 @@ def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, l
 
     code = _build.entry("aslr_riccati_box", dt)(
         NDX, NU, int(fs is not None), p(Fx), p(Fu), p(Lx), p(Lu), p(Lxx), p(Lxu), p(Luu),
-        p(tLx), p(tLxx), opt(fs), p(us), opt(kprev), p(lb), p(ub), p(reg), T, B, qp_iters,
+        p(tLx), p(tLxx), opt(fs), p(us), opt(kprev), *map(opt, lanes_box + tables), p(reg), T,
+        B, qp_iters,
         *(opt(v) for v in out), _build.stream_of(Fx))
     _build.check(name, code, f"ndx={NDX} nu={NU}")
     return out
@@ -374,14 +390,15 @@ def riccati_fddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs,
 
 def riccati_boxfddp_backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
                              kprev: Optional[torch.Tensor], lb, ub, reg,
-                             qp_iters: int) -> FddpBackwardOut:
+                             qp_iters: int, per_knot_box: bool = False) -> FddpBackwardOut:
     """K5 on lane tensors: K4's inputs plus us [T,nu,B], kprev [T,nu,B] or
-    None (cold QPs from 0), lb/ub [nu,B] and the QP iteration count."""
+    None (cold QPs from 0), lb/ub [nu,B] (``per_knot_box``: [T,nu] tables)
+    and the QP iteration count."""
     if _route(Fx) == "plain":
         return riccati_boxfddp_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev,
-                                     lb, ub, reg, qp_iters)
+                                     lb, ub, reg, qp_iters, per_knot_box)
     return _box_launch("riccati_boxfddp", Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us,
-                       kprev, lb, ub, reg, qp_iters)
+                       kprev, lb, ub, reg, qp_iters, per_knot_box)
 
 
 def riccati_batch_major(run, term, fs, us, kprev, bounds, reg, qp_iters, plain=False):

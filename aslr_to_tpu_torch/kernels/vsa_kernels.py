@@ -15,8 +15,10 @@ dynamics (u = [tau_m, k]) or the SEA dynamics with the ASR actuation (u =
 tau_m, a constant spring matrix K) on a serial revolute chain, the Euler
 integrator, a frame-placement goal plus weighted state and control
 regularizers (and an optional linear stiffness cost), a goal-only terminal
-cost, one shared model for every knot and a shared ``[nu]`` control box or
-none.
+cost, and a shared ``[nu]`` control box or none. A per-knot problem may
+vary its frame target from knot to knot (K1, K3 and K6 then read a ``[T,
+12]`` target table, :meth:`VSASpec.target_table`) and its control box (K2,
+K3, K5 and K6 then read ``[T, nu]`` box tables); nothing else.
 """
 from __future__ import annotations
 
@@ -39,15 +41,15 @@ class VSASpec(NamedTuple):
     dt: float
     binv: np.ndarray            # [nl, nl] inverse motor inertia
     frame_id: int
-    target_rot_inv: np.ndarray  # [3, 3] target inverse rotation
-    target_pos: np.ndarray      # [3] target translation
+    target_rot_inv: np.ndarray  # [3, 3] target inverse rotation ([T, 3, 3] per-knot)
+    target_pos: np.ndarray      # [3] target translation ([T, 3] per-knot)
     w_goal: float
     w_goal_term: float
     xw: np.ndarray              # [4 nl] combined state-reg weights
     uw: np.ndarray              # [nu] combined control-reg weights
     stiff_w: float              # combined linear stiffness weight
     stiff_ref: np.ndarray       # [nl] stiffness reference
-    lb: Optional[np.ndarray]    # [nu] (None: unbounded)
+    lb: Optional[np.ndarray]    # [nu] (None: unbounded; [T, nu] per-knot box)
     ub: Optional[np.ndarray]
     variant: str = "vsa"
     K: Optional[np.ndarray] = None
@@ -60,6 +62,27 @@ class VSASpec(NamedTuple):
     def ndx(self) -> int:
         return 4 * self.nl
 
+    @property
+    def per_knot_target(self) -> bool:
+        return self.target_rot_inv is not None and np.ndim(self.target_rot_inv) == 3
+
+    @property
+    def per_knot_box(self) -> bool:
+        return self.lb is not None and np.ndim(self.lb) == 2
+
+    def target_table(self, T: int, dtype) -> np.ndarray:
+        """[T, 12] per-knot target rows (flattened R_inv | pos), the
+        kernels' table; broadcast when the target is shared. ``dtype`` a
+        numpy or a torch dtype."""
+        if isinstance(dtype, torch.dtype):
+            dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        Ri = np.asarray(self.target_rot_inv, dtype=np.float64)
+        tp = np.asarray(self.target_pos, dtype=np.float64)
+        if not self.per_knot_target:
+            Ri = np.broadcast_to(Ri, (T, 3, 3))
+            tp = np.broadcast_to(tp, (T, 3))
+        return np.concatenate([Ri.reshape(T, 9), tp.reshape(T, 3)], axis=1).astype(dtype)
+
 
 def _np(a):
     if isinstance(a, torch.Tensor):
@@ -68,7 +91,32 @@ def _np(a):
 
 
 def extract_vsa_spec(problem, bounds) -> VSASpec:
-    """Introspect a concrete ShootingProblem built from the VSA preset."""
+    """Introspect a concrete ShootingProblem built from the VSA presets.
+
+    Per-knot problems (``problem.per_knot``) are covered when the
+    knot-to-knot variation is limited to the frame-placement target (a
+    time-varying tracking target) and/or the control box (``[T, nu]``
+    Bounds); any other varying leaf raises TypeError, and the problem runs
+    on the generic route."""
+    per_knot = bool(problem.per_knot)
+    T = problem.T
+
+    def const(leaf, what):
+        """A per-knot leaf (stacked [T, ...] by ``stack_knots``) must be
+        constant across knots: only the frame target and the control box
+        may vary."""
+        a = _np(leaf)
+        if per_knot and a.ndim >= 1 and a.shape[0] == T:
+            if not np.all(a == a[:1]):
+                raise TypeError(f"fast path requires knot-constant {what}; "
+                                "only the frame target and the control box "
+                                "may vary per knot")
+            a = a[0]
+        return a
+
+    if bounds is not None and np.ndim(_np(bounds.lb)) not in (1, 2):
+        raise TypeError("bounds must be [nu] shared or [T, nu] per-knot")
+    from ..models.actuation import ASRActuation
     from ..models.costs import (
         ActivationModelQuad,
         ActivationModelWeightedQuad,
@@ -78,28 +126,26 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
         ResidualModelFramePlacementASR,
         ResidualModelState,
     )
-    from ..models.actuation import ASRActuation
     from ..models.dynamics import DifferentialSEADynamics, DifferentialVSADynamics
 
-    diff = problem.running.differential
-    if bounds is not None and np.ndim(_np(bounds.lb)) != 1:
-        raise NotImplementedError("a per-knot [T, nu] box comes with the per-knot slice")
-    robot = diff.state.robot
+    running = problem.running
+    diff = running.differential
+    robot = problem.knot_model(0).differential.state.robot
     nl = int(robot.nv)
     if isinstance(diff, DifferentialVSADynamics):
         variant, nu, K = "vsa", 2 * nl, None
     elif isinstance(diff, DifferentialSEADynamics):
         if not isinstance(diff.actuation, ASRActuation):
-            raise TypeError("the SEA kernels take the ASR actuation")
-        variant, nu, K = "sea", nl, _np(diff.K)
+            raise TypeError("SEA fast path requires ASRActuation")
+        variant, nu, K = "sea", nl, const(diff.K, "spring matrix")
     else:
-        raise TypeError("the kernels take the VSA or the SEA dynamics")
+        raise TypeError("fast path requires VSA or SEA dynamics")
 
     def act_weights(cost, nr):
         if isinstance(cost.activation, ActivationModelQuad):
             return np.ones(nr)
         if isinstance(cost.activation, ActivationModelWeightedQuad):
-            return _np(cost.activation.weights)
+            return const(cost.activation.weights, "activation weights")
         raise TypeError(f"unsupported activation {type(cost.activation)}")
 
     w_goal = w_goal_term = 0.0
@@ -109,11 +155,11 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
     target_rot, target_pos = np.eye(3), np.zeros(3)
     for it in diff.costs.items:
         c = it.cost
-        w = float(it.weight)
+        w = float(const(it.weight, "cost weight"))
         if isinstance(c, CostModelStiffness):
-            stiff_w += w * float(c.lamda)
+            stiff_w += w * float(const(c.lamda, "stiffness lamda"))
             if c.Kref is not None:
-                stiff_ref = _np(c.Kref)
+                stiff_ref = const(c.Kref, "stiffness reference")
             continue
         if not isinstance(c, CostModelResidual):
             raise TypeError(f"unsupported running cost {type(c)}")
@@ -121,12 +167,16 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
         if isinstance(r, ResidualModelFramePlacementASR):
             w_goal += w
             frame_id = int(r.frame_id)
+            # the only leaves allowed to vary per knot: the frame target
             target_rot, target_pos = _np(r.placement.rot), _np(r.placement.trans)
+            if per_knot and np.all(target_rot == target_rot[:1]) \
+                    and np.all(target_pos == target_pos[:1]):
+                target_rot, target_pos = target_rot[0], target_pos[0]
             if not np.allclose(act_weights(c, 6), 1.0):
                 raise TypeError("goal activation must be plain quad")
         elif isinstance(r, ResidualModelState):
-            if not np.allclose(_np(r.xref), 0.0):
-                raise TypeError("the kernels assume a zero state reference")
+            if not np.allclose(const(r.xref, "state reference"), 0.0):
+                raise TypeError("fast path assumes zero state reference")
             xw += w * act_weights(c, 4 * nl)
         elif isinstance(r, ResidualModelControl):
             uw += w * act_weights(c, nu)
@@ -140,15 +190,29 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
             w_goal_term += float(it.weight)
             term_rot, term_pos = _np(c.residual.placement.rot), _np(c.residual.placement.trans)
         else:
-            raise TypeError("the kernels assume a goal-only terminal cost")
-    if term_rot is not None and np.array_equal(term_rot, target_rot) \
-            and np.array_equal(term_pos, target_pos):
+            raise TypeError("fast path assumes goal-only terminal cost")
+
+    per_knot_target = target_rot.ndim == 3
+    if per_knot_target and target_rot.shape[0] != T:
+        raise TypeError("per-knot target must have one row per knot")
+    # the terminal target apart only where it differs from the running one
+    if term_rot is not None and not per_knot_target and \
+            np.array_equal(term_rot, target_rot) and np.array_equal(term_pos, target_pos):
         term_rot = term_pos = None
+    if per_knot_target and term_rot is None:
+        # no terminal placement cost (w_goal_term = 0): the (weight-0)
+        # terminal goal at the last knot's target
+        term_rot, term_pos = target_rot[-1], target_pos[-1]
+
+    lb = None if bounds is None else _np(bounds.lb)
+    ub = None if bounds is None else _np(bounds.ub)
+    if lb is not None and lb.ndim == 2 and lb.shape[0] != T:
+        raise TypeError("per-knot bounds must be [T, nu]")
 
     return VSASpec(
         rc=RobotConsts(robot),
-        dt=float(problem.running.dt),
-        binv=np.linalg.inv(_np(diff.B)),
+        dt=float(const(running.dt, "time step")),
+        binv=np.linalg.inv(const(diff.B, "motor inertia")),
         frame_id=frame_id,
         target_rot_inv=np.swapaxes(target_rot, -1, -2),
         target_pos=target_pos,
@@ -158,8 +222,8 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
         uw=uw,
         stiff_w=stiff_w,
         stiff_ref=stiff_ref,
-        lb=None if bounds is None else _np(bounds.lb),
-        ub=None if bounds is None else _np(bounds.ub),
+        lb=lb,
+        ub=ub,
         variant=variant,
         K=K,
         nu=nu,
@@ -172,6 +236,14 @@ def extract_vsa_spec(problem, bounds) -> VSASpec:
 def _term_target(spec):
     if spec.term_target_rot_inv is not None:
         return spec.term_target_rot_inv, spec.term_target_pos
+    return spec.target_rot_inv, spec.target_pos
+
+
+def _shared_target(spec):
+    """The parameter block's running target: the shared one, or a per-knot
+    target's first row (the kernels then read the table instead)."""
+    if spec.per_knot_target:
+        return spec.target_rot_inv[0], spec.target_pos[0]
     return spec.target_rot_inv, spec.target_pos
 
 
@@ -189,10 +261,11 @@ def pack_params(spec: VSASpec) -> np.ndarray:
         raise NotImplementedError("the kernels take serial chains (parent of joint i is i-1)")
     fid = spec.frame_id
     term_rinv, term_pos = _term_target(spec)
+    tgt_rinv, tgt_pos = _shared_target(spec)
     parts = [
         [spec.dt], spec.binv, rc.joint_rot, rc.joint_pos, rc.axis, rc.mass, rc.com,
         rc.inertia, rc.gravity, [rc.frame_parents[fid]], rc.frame_rot[fid],
-        rc.frame_pos[fid], spec.target_rot_inv, spec.target_pos, term_rinv, term_pos,
+        rc.frame_pos[fid], tgt_rinv, tgt_pos, term_rinv, term_pos,
         [spec.w_goal], spec.xw, np.pad(spec.uw, (0, 2 * nl - spec.nu)), [spec.stiff_w],
         spec.stiff_ref, [1.0 if sea else 0.0], spec.K if sea else np.zeros((nl, nl)),
     ]
@@ -222,6 +295,11 @@ def to_lanes(x):
 def from_lanes(x):
     """``[..., B]`` -> batch-major ``[B, ...]`` (a copy)."""
     return x.permute(x.dim() - 1, *range(x.dim() - 1)).contiguous()
+
+
+def _opt(t):
+    """A kernel's pointer argument: the tensor's, or null for None."""
+    return None if t is None else _build.ptr(t)
 
 
 def _route(t):
@@ -265,14 +343,33 @@ def _dynamics_lanes(spec, x, u):
     return list(a_l) + a_m, M, tau_c
 
 
-def _goal_cost_lanes(spec, q_l, terminal=False):
-    """0.5 * || log6(target^-1 oMf) ||^2 on lanes, and the residual r6."""
+def _table_target(tab, like, t=None):
+    """(R_inv [3, 3, ...], pos [3, ...]) of a target table ``tab [T, 12]``
+    as constants that broadcast against lanes shaped like ``like``: row
+    ``t`` (one knot's lanes), or every row along the lanes' leading knot
+    axis (``t`` None: lanes ``[T, ...]``)."""
+    lv = lanes.val(like)
+    if t is not None:
+        lead = (1,) * lv.dim()
+        return tab[t, :9].reshape((3, 3) + lead), tab[t, 9:].reshape((3,) + lead)
+    rest = (1,) * (lv.dim() - 1)
+    cols = tab.T                                        # [12, T]
+    return (cols[:9].reshape((3, 3, tab.shape[0]) + rest),
+            cols[9:].reshape((3, tab.shape[0]) + rest))
+
+
+def _goal_cost_lanes(spec, q_l, terminal=False, tgt=None):
+    """0.5 * || log6(target^-1 oMf) ||^2 on lanes, and the residual r6.
+    ``tgt``: the knot's (R_inv, pos) from :func:`_table_target`; None takes
+    the spec's running (or ``terminal``) target."""
     rots, trans = lanes.fk_lanes(spec.rc, q_l)
     R, p = lanes.frame_placement_lanes(spec.rc, rots, trans, spec.frame_id)
-    Ri_np, tp_np = _term_target(spec) if terminal else (spec.target_rot_inv, spec.target_pos)
-    Ri = lanes.const(Ri_np, q_l[0])
+    if tgt is None:
+        Ri_np, tp_np = _term_target(spec) if terminal else _shared_target(spec)
+        tgt = lanes.const(Ri_np, q_l[0]), lanes.const(tp_np, q_l[0])
+    Ri, tp = tgt
     rM = lanes.m_mul(Ri, R)
-    rp = lanes.m_vec(Ri, p - lanes.const(tp_np, q_l[0]))
+    rp = lanes.m_vec(Ri, p - tp)
     r6 = lanes.log6_lanes(rM, rp)
     return 0.5 * sum(ri * ri for ri in r6), r6
 
@@ -290,8 +387,8 @@ def _reg_cost(spec, x, u, c):
     return c
 
 
-def _running_cost_lanes(spec, x, u):
-    c_goal, _ = _goal_cost_lanes(spec, list(x[:spec.nl]))
+def _running_cost_lanes(spec, x, u, tgt=None):
+    c_goal, _ = _goal_cost_lanes(spec, list(x[:spec.nl]), tgt=tgt)
     return _reg_cost(spec, x, u, float(spec.w_goal) * c_goal)
 
 
@@ -314,15 +411,15 @@ class Linearization(NamedTuple):
     ok: torch.Tensor     # [B] bool: every derivative tensor finite
 
 
-def _goal_jacobian(spec, q_l, terminal):
+def _goal_jacobian(spec, q_l, terminal, tgt=None):
     """(c_goal, r6, J) with J[c][k] = d r6_k / d q_l_c from nl jvp seeds."""
-    c_goal, r6 = _goal_cost_lanes(spec, q_l, terminal)
+    c_goal, r6 = _goal_cost_lanes(spec, q_l, terminal, tgt)
 
     J = []
     for j in range(spec.nl):
         qd = [lanes.Dual(q, torch.ones_like(q) if i == j else torch.zeros_like(q))
               for i, q in enumerate(q_l)]
-        J.append([lanes.tangent(r) for r in _goal_cost_lanes(spec, qd, terminal)[1]])
+        J.append([lanes.tangent(r) for r in _goal_cost_lanes(spec, qd, terminal, tgt)[1]])
     return c_goal, r6, J
 
 
@@ -439,11 +536,18 @@ def _all_finite(t, nlead):
     return torch.isfinite(t).flatten(0, nlead - 1).all(0)
 
 
-def linearize_plain(spec: VSASpec, xs, us, wterm) -> Linearization:
+def _need_table(spec, tgt):
+    if spec.per_knot_target and tgt is None:
+        raise ValueError("a per-knot target: pass its table, spec.target_table(T, dtype)")
+
+
+def linearize_plain(spec: VSASpec, xs, us, wterm, tgt=None) -> Linearization:
     """Plain PyTorch version of K1 on lane tensors ``xs [T+1, ndx, B]``,
-    ``us [T, nu, B]``, ``wterm [B]``; the RNEA and goal partials come from
+    ``us [T, nu, B]``, ``wterm [B]``, and the target table ``tgt [T, 12]``
+    (None: the spec's shared target); the RNEA and goal partials come from
     dual numbers (``ops/lanes.py::Dual``). Elementwise only (no matrix
     product)."""
+    _need_table(spec, tgt)
     NDX, NU, NL = spec.ndx, spec.nu, spec.nl
     dt = spec.dt
     # running knots: lanes of shape [T, B]
@@ -451,7 +555,8 @@ def linearize_plain(spec: VSASpec, xs, us, wterm) -> Linearization:
     u = [us[:, j] for j in range(NU)]
     a, M, _ = _dynamics_lanes(spec, x, u)
     cols = _acc_jacobian_cols(spec, x, u, a, M)
-    c_goal, r6, J = _goal_jacobian(spec, x[:NL], terminal=False)
+    knot_tgt = None if tgt is None else _table_target(tgt, x[0])
+    c_goal, r6, J = _goal_jacobian(spec, x[:NL], False, knot_tgt)
     w_goal = float(spec.w_goal)
     cost_t = _reg_cost(spec, x, u, w_goal * c_goal)
     Lx, Lxx, Lu, Lxu, Luu = _cost_derivs(spec, x, u, w_goal, J, r6, terminal=False)
@@ -497,11 +602,14 @@ def linearize_plain(spec: VSASpec, xs, us, wterm) -> Linearization:
                          xnext=xnext, ok=ok_t.all(0) & tok)
 
 
-def linearize(spec: VSASpec, xs, us, wterm) -> Linearization:
+def linearize(spec: VSASpec, xs, us, wterm, tgt=None) -> Linearization:
     """K1 on lane tensors: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. ``tgt [T, 12]``: the target table, which the
+    running knots read row by row (needed for a per-knot target; given for
+    a shared one, it takes the table's branch of the kernel)."""
     if _route(xs) == "plain":
-        return linearize_plain(spec, xs, us, wterm)
+        return linearize_plain(spec, xs, us, wterm, tgt)
+    _need_table(spec, tgt)
     T, NDX, B = us.shape[0], spec.ndx, xs.shape[-1]
     NU = spec.nu
     dt, dev = xs.dtype, xs.device
@@ -509,6 +617,8 @@ def linearize(spec: VSASpec, xs, us, wterm) -> Linearization:
     _check_lane("xs", xs, (T + 1, NDX, B), dt, dev)
     _check_lane("us", us, (T, NU, B), dt, dev)
     _check_lane("wterm", wterm, (B,), dt, dev)
+    if tgt is not None:
+        _check_lane("tgt", tgt, (T, 12), dt, dev)
 
     def e(*shape, dtype=dt):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -521,7 +631,7 @@ def linearize(spec: VSASpec, xs, us, wterm) -> Linearization:
     params, pp = _params_ptr(spec)
     p = _build.ptr
     code = _build.entry("aslr_linearize", dt, spec.nl)(
-        pp, spec.nl, p(xs), p(us), p(wterm), T, B,
+        pp, spec.nl, p(xs), p(us), p(wterm), _opt(tgt), T, B,
         *[p(run[k]) for k in ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")],
         p(xnext), p(cost_t), p(ok_t), p(term["Lx"]), p(term["Lxx"]), p(tcost), p(tok),
         _build.stream_of(xs))
@@ -544,11 +654,14 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _rollout_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas):
+def _rollout_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas, tgt):
     """The trials of ``alpha [n, B]`` advance together as lanes of shape
     ``[n, B]``, one knot at a time, each with the operations of one
-    kernel thread. ``lb``/``ub`` None: no clip; ``fs``/``infeas`` given:
-    the gap contraction."""
+    kernel thread. ``lb``/``ub`` None: no clip, ``[nu, B]``: a box a lane,
+    ``[T, nu]`` (``spec.per_knot_box``): row t clips knot t;
+    ``fs``/``infeas`` given: the gap contraction; ``tgt [T, 12]``: the
+    running cost's target table."""
+    _need_table(spec, tgt)
     T, NDX, NU = us.shape[0], spec.ndx, spec.nu
     n = alpha.shape[0]
     gaps = fs is not None
@@ -567,9 +680,14 @@ def _rollout_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, in
             for i in range(NDX):
                 fb = fb + K[t, j, i] * dx[i]
             u_j = us[t, j] - fb
-            u.append(u_j if lb is None else _clip(u_j, lb[j], ub[j]))
+            if spec.per_knot_box:
+                u_j = _clip(u_j, lb[t, j], ub[t, j])
+            elif lb is not None:
+                u_j = _clip(u_j, lb[j], ub[j])
+            u.append(u_j)
         a, _, _ = _dynamics_lanes(spec, x, u)
-        cost = cost + _running_cost_lanes(spec, x, u)
+        knot_tgt = None if tgt is None else _table_target(tgt, x[0], t)
+        cost = cost + _running_cost_lanes(spec, x, u, knot_tgt)
         x = _euler(spec, x, a)
         if gaps:
             x = [x[i] + fs[t + 1, i] * gscale for i in range(NDX)]
@@ -584,21 +702,21 @@ def _rollout_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, in
 
 
 def rollout2_plain(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
-                   fs=None, infeas=None):
+                   fs=None, infeas=None, tgt=None):
     """Plain PyTorch version of K3: both trials as lanes of shape ``[2, B]``."""
     return _rollout_plain(spec, xs, us, k, K, x0, torch.stack([alpha_a, alpha_b]), wterm,
-                          lb, ub, fs, infeas)
+                          lb, ub, fs, infeas, tgt)
 
 
 def rollout1_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
-                   infeas=None) -> Trial:
+                   infeas=None, tgt=None) -> Trial:
     """Plain PyTorch version of K6: K3's plain version with both trials at
     ``alpha``, the first kept. The CPU's elementwise kernels pick a
     vectorized or a scalar loop by tensor size, and libm's and SLEEF's
     last bits differ; at K3's shapes K6's plain version equals K3's first
     trial to the bit, as the kernels do."""
     return _rollout_plain(spec, xs, us, k, K, x0, torch.stack([alpha, alpha]), wterm, lb, ub,
-                          fs, infeas)[0]
+                          fs, infeas, tgt)[0]
 
 
 def _rollout_instance(spec, lb, fs):
@@ -607,9 +725,8 @@ def _rollout_instance(spec, lb, fs):
             f"{'' if fs is None else ' gaps'}")
 
 
-def _rollout_checks(name, spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, infeas):
-    if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
-        raise ValueError("lb and ub, and fs and infeas, come in pairs")
+def _rollout_checks(name, spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, infeas, tgt):
+    _need_table(spec, tgt)
     _build.require(name, _rollout_instance(spec, lb, fs))
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     checks = [("xs", xs, (T + 1, NDX, B)), ("us", us, (T, NU, B)),
@@ -617,41 +734,63 @@ def _rollout_checks(name, spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, inf
               ("x0", x0, (NDX, B)), ("wterm", wterm, (B,))]
     checks += [(name, a, (B,)) for name, a in alphas]
     if lb is not None:
-        checks += [("lb", lb, (NU, B)), ("ub", ub, (NU, B))]
+        box = (T, NU) if spec.per_knot_box else (NU, B)
+        checks += [("lb", lb, box), ("ub", ub, box)]
     if fs is not None:
         checks += [("fs", fs, (T + 1, NDX, B)), ("infeas", infeas, (B,))]
+    if tgt is not None:
+        checks += [("tgt", tgt, (T, 12))]
     for name, t, shape in checks:
         _check_lane(name, t, shape, xs.dtype, xs.device)
 
 
-def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
-             fs=None, infeas=None):
-    """K3 on lane tensors ``xs [T+1, ndx, B]``, ``us``/``k [T, nu, B]``,
-    ``K [T, nu, ndx, B]``, ``x0 [ndx, B]``, ``alpha_a``/``alpha_b``/``wterm
-    [B]``, ``lb``/``ub [nu, B]`` or None (no box), and for the FDDP gap
-    contraction ``fs [T+1, ndx, B]`` and ``infeas [B]`` (1 on an infeasible
-    lane, 0 on a feasible one); returns the two :class:`Trial`\\ s."""
+def _pairs(spec, lb, ub, fs, infeas):
     if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
         raise ValueError("lb and ub, and fs and infeas, come in pairs")
+    if spec.per_knot_box and lb is None:
+        raise ValueError("a per-knot box: pass its [T, nu] tables as lb and ub")
+
+
+def _rollout_entry(base, spec, tgt):
+    """The rollout's C entry: the shared problem's instances, or those that
+    take the tables (``csrc/rollout*_tables.cu``)."""
+    return base + ("_tables" if tgt is not None or spec.per_knot_box else "")
+
+
+def _box_ptrs(spec, lb, ub):
+    """(lb, ub, lb table, ub table) pointers: a box a lane, or the tables."""
+    if spec.per_knot_box:
+        return None, None, _opt(lb), _opt(ub)
+    return _opt(lb), _opt(ub), None, None
+
+
+def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
+             fs=None, infeas=None, tgt=None):
+    """K3 on lane tensors ``xs [T+1, ndx, B]``, ``us``/``k [T, nu, B]``,
+    ``K [T, nu, ndx, B]``, ``x0 [ndx, B]``, ``alpha_a``/``alpha_b``/``wterm
+    [B]``, ``lb``/``ub [nu, B]`` (a box a lane; ``[T, nu]`` tables where
+    ``spec.per_knot_box``) or None (no box), for the FDDP gap contraction
+    ``fs [T+1, ndx, B]`` and ``infeas [B]`` (1 on an infeasible lane, 0 on a
+    feasible one), and the running cost's target table ``tgt [T, 12]``
+    (needed for a per-knot target; given for a shared one, it takes the
+    table's branch of the kernel); returns the two :class:`Trial`\\ s."""
+    _pairs(spec, lb, ub, fs, infeas)
     if _route(xs) == "plain":
         return rollout2_plain(spec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
-                              fs, infeas)
+                              fs, infeas, tgt)
     _rollout_checks("rollout2", spec, xs, us, k, K, x0,
-                    [("alpha_a", alpha_a), ("alpha_b", alpha_b)], wterm, lb, ub, fs, infeas)
+                    [("alpha_a", alpha_a), ("alpha_b", alpha_b)], wterm, lb, ub, fs, infeas,
+                    tgt)
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     dt, dev = xs.dtype, xs.device
     outs = [torch.empty(s, dtype=dt, device=dev)
             for _ in range(2) for s in ((T + 1, NDX, B), (T, NU, B), (B,))]
     params, pp = _params_ptr(spec)
     p = _build.ptr
-
-    def opt(t):
-        return None if t is None else p(t)
-
-    code = _build.entry("aslr_rollout2", dt, spec.nl)(
+    code = _build.entry(_rollout_entry("aslr_rollout2", spec, tgt), dt, spec.nl)(
         pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha_a), p(alpha_b), p(wterm),
-        opt(lb), opt(ub), opt(fs), opt(infeas), T, B, *[p(o) for o in outs],
-        _build.stream_of(xs))
+        *_box_ptrs(spec, lb, ub), _opt(fs), _opt(infeas), _opt(tgt), T, B,
+        *[p(o) for o in outs], _build.stream_of(xs))
     _build.check("rollout2", code, _rollout_instance(spec, lb, fs))
     return Trial(*outs[:3]), Trial(*outs[3:])
 
@@ -661,15 +800,14 @@ def rollout2(spec: VSASpec, xs, us, k, K, x0, alpha_a, alpha_b, wterm, lb, ub,
 # ---------------------------------------------------------------------------
 
 def rollout1(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
-             infeas=None) -> Trial:
+             infeas=None, tgt=None) -> Trial:
     """K6 on lane tensors: K3's inputs with one step length ``alpha [B]``;
     returns its :class:`Trial`, equal to K3's first trial at ``alpha``."""
-    if (lb is None) != (ub is None) or (fs is None) != (infeas is None):
-        raise ValueError("lb and ub, and fs and infeas, come in pairs")
+    _pairs(spec, lb, ub, fs, infeas)
     if _route(xs) == "plain":
-        return rollout1_plain(spec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas)
+        return rollout1_plain(spec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs, infeas, tgt)
     _rollout_checks("rollout1", spec, xs, us, k, K, x0, [("alpha", alpha)], wterm, lb, ub,
-                    fs, infeas)
+                    fs, infeas, tgt)
     T, NDX, NU, B = us.shape[0], spec.ndx, spec.nu, xs.shape[-1]
     dt, dev = xs.dtype, xs.device
     out = Trial(torch.empty((T + 1, NDX, B), dtype=dt, device=dev),
@@ -677,13 +815,10 @@ def rollout1(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=None,
                 torch.empty((B,), dtype=dt, device=dev))
     params, pp = _params_ptr(spec)
     p = _build.ptr
-
-    def opt(t):
-        return None if t is None else p(t)
-
-    code = _build.entry("aslr_rollout1", dt, spec.nl)(
-        pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha), p(wterm), opt(lb), opt(ub),
-        opt(fs), opt(infeas), T, B, *[p(o) for o in out], _build.stream_of(xs))
+    code = _build.entry(_rollout_entry("aslr_rollout1", spec, tgt), dt, spec.nl)(
+        pp, spec.nl, p(xs), p(us), p(k), p(K), p(x0), p(alpha), p(wterm),
+        *_box_ptrs(spec, lb, ub), _opt(fs), _opt(infeas), _opt(tgt), T, B,
+        *[p(o) for o in out], _build.stream_of(xs))
     _build.check("rollout1", code, _rollout_instance(spec, lb, fs))
     return out
 
@@ -716,8 +851,11 @@ def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "aut
     tensors of the solver relayouted to the kernels' lane layout and back
     at each call (as the JAX package's ``custom_vmap`` rules do).
     ``use_gaps`` gives the FDDP gap-contracting rollout. ``backend="plain"``
-    takes the kernels' plain versions on any device. Raises ``TypeError``
-    naming the first feature the kernels do not take."""
+    takes the kernels' plain versions on any device. A per-knot target
+    goes to K1 and K6 as a table, a per-knot box to K6 as tables (the
+    backward of a per-knot box is the generic sweep, as in the JAX
+    package). Raises ``TypeError`` naming the first feature the kernels do
+    not take."""
     from ..models.integrator import ActionDerivs
     from .riccati import riccati_batch_major
 
@@ -727,10 +865,23 @@ def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "aut
     auto = backend == "auto"
     lin_fn = linearize if auto else linearize_plain
     roll_fn = rollout1 if auto else rollout1_plain
-    NDX, NU = spec.ndx, spec.nu
+    NDX, NU, T = spec.ndx, spec.nu, problem.T
+    tables = {}     # the target and box tables, made once per type and device
+
+    def table(dt, dev):
+        key = (dt, dev)
+        if key not in tables:
+            def t(a):
+                return None if a is None else torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                                              device=dev)
+            tables[key] = (t(spec.target_table(T, dt) if spec.per_knot_target else None),
+                           t(spec.lb if spec.per_knot_box else None),
+                           t(spec.ub if spec.per_knot_box else None))
+        return tables[key]
 
     def lin(xs, us, wterm):
-        out = lin_fn(spec, to_lanes(xs), to_lanes(us), wterm)
+        tgt = table(xs.dtype, xs.device)[0]
+        out = lin_fn(spec, to_lanes(xs), to_lanes(us), wterm, tgt)
         run = ActionDerivs(**{name: from_lanes(v) for name, v in out.run.items()})
         B = xs.shape[0]
 
@@ -745,6 +896,8 @@ def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "aut
     boxes = {}      # the box in lanes, made once per batch, type and device
 
     def box_lanes(B, dt, dev):
+        if spec.per_knot_box:
+            return table(dt, dev)[1:]
         if spec.lb is None:
             return None, None
         key = (B, dt, dev)
@@ -758,7 +911,7 @@ def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "aut
         box = box_lanes(xs.shape[0], xs.dtype, xs.device)
         gaps = (to_lanes(fs), infeas.to(xs.dtype)) if use_gaps else (None, None)
         tr = roll_fn(spec, to_lanes(xs), to_lanes(us), to_lanes(k), to_lanes(K), to_lanes(x0),
-                     alpha.contiguous(), wterm, *box, *gaps)
+                     alpha.contiguous(), wterm, *box, *gaps, tgt=table(xs.dtype, xs.device)[0])
         return from_lanes(tr.xs), from_lanes(tr.us), tr.cost
 
     return FastPath(linearize=lin, rollout=roll,

@@ -5,6 +5,7 @@ batch sizes and a ``torch.profiler`` breakdown of one solve).
     python -m aslr_to_tpu_torch.measure --path sea_warm --batch 1024 4096 16384
     python -m aslr_to_tpu_torch.measure --path boxddp boxfddp --batch 4096 --profile
     python -m aslr_to_tpu_torch.measure --path sevendof --profile
+    python -m aslr_to_tpu_torch.measure --path mpc_tracking fast_mpc_tracking pk_boxddp --profile
 
 Paths (T=100, float32, x0s = 0.05 randn from a CUDA generator seeded per
 path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
@@ -27,7 +28,21 @@ path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
             benchmark's 7-DoF metric, bench.py:231-252): K1, K4 and K3 at
             nl = 7;
   fast_sevendof  the sevendof solve through the fast path (K1, K4, K6 at
-            nl = 7), same seed and settings.
+            nl = 7), same seed and settings;
+  mpc_tracking  the tracking MPC of examples/mpc_tracking.py: two_dof_sea at
+            T=60 with the frame target at knot t on the arc ``mpc_target``
+            (a per-knot problem, ``with_frame_targets``), FDDP, no box,
+            maxiter=30, th_stop=1e-5, B=2048 (its MPC_BATCH): a first
+            solve (untimed set-up), then timed solves from x0s + 1e-4 (i +
+            1), as its bench_lane_batch does. K1 and K3 read the [T, 12]
+            target table; K4;
+  fast_mpc_tracking  the same solves through the fast path (K1, K4, K6
+            with the table);
+  pk_boxddp  BoxDDP on two_dof_vsa_boxddp stacked per knot, with [T, 4]
+            box tables: every row [-2, 2]^2 x [0, 3]^2 but knots 45-54,
+            whose torques are held to +-0.05; cold, maxiter=20,
+            th_stop=1e-5, boxqp_warm_iters=2, B=4096. K1, K2 and K3 read
+            the box tables.
 
 The lane paths run two trials a line-search round through K3; the fast
 paths one trial a round through K6, with a relayout between the solver's
@@ -51,6 +66,7 @@ is one JSON record of every run. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -60,11 +76,16 @@ import numpy as np
 import torch
 
 PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", "sevendof",
-         "fast_sevendof")
+         "fast_sevendof", "mpc_tracking", "fast_mpc_tracking", "pk_boxddp")
 SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, sevendof=3,
-             fast_sevendof=3)
+             fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5)
 T_PATH, B_PATH = 100, 4096
 B_SEVENDOF = 1024       # bench.py's BENCH_7DOF_BATCH
+T_MPC, B_MPC = 60, 2048  # examples/mpc_tracking.py: its horizon and MPC_BATCH
+MPC_SOLVES = 3          # its bench_lane_batch's timed solves
+PINCHED = range(45, 55)  # pk_boxddp's knots whose torques are held to +-0.05
+PINCH = 0.05
+TIGHT_BOX = ([-2.0, -2.0, 0.0, 0.0], [2.0, 2.0, 3.0, 3.0])
 WARM_OFFSET = 1e-4
 KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_boxfddp_kernel",
                 "riccati_fddp_kernel", "rollout2_kernel", "rollout1_kernel")
@@ -87,16 +108,68 @@ def x0_batch(B, dtype, seed, nx=8):
     return (0.05 * torch.randn(B, nx, generator=g, device="cuda", dtype=torch.float64)).to(dtype)
 
 
+def mpc_target(t, T):
+    """The tracking MPC's frame target at knot t of T: the arc
+    [0.01, 0.05 + 0.15 t / T, 0.18] of examples/mpc_tracking.py."""
+    return np.array([0.01, 0.05 + 0.15 * t / T, 0.18])
+
+
 def path_batch(name):
-    """The path's own batch: 1024 for the 7-DoF paths, else 4096."""
-    return B_SEVENDOF if name.endswith("sevendof") else B_PATH
+    """The path's own batch: 1024 for the 7-DoF paths, 2048 for the MPC, else
+    4096."""
+    if name.endswith("sevendof"):
+        return B_SEVENDOF
+    return B_MPC if name.endswith("mpc_tracking") else B_PATH
 
 
-def build_path(name, B=None, T=T_PATH, dtype=torch.float32):
-    from . import SolverSettings, make_batched_solver, seven_dof_sea, two_dof_sea
+def path_T(name):
+    """The path's horizon: 60 for the MPC, else 100."""
+    return T_MPC if name.endswith("mpc_tracking") else T_PATH
+
+
+def mpc_problem(T=T_MPC, dtype=torch.float32, device="cuda"):
+    """The tracking MPC's per-knot problem: two_dof_sea with knot t's frame
+    target at ``mpc_target(t, T)`` (the target's rotation the identity)."""
+    from .workloads.presets import two_dof_sea, with_frame_targets
+
+    rot = np.tile(np.eye(3), (T, 1, 1))
+    trans = np.stack([mpc_target(t, T) for t in range(T)])
+    return with_frame_targets(two_dof_sea(T=T, dtype=dtype, device=device).problem, rot, trans)
+
+
+def pinched_box(T=T_PATH, dtype=torch.float32, device="cuda", knots=PINCHED):
+    """pk_boxddp's [T, 4] box tables: the tight box at every knot, the
+    torques of ``knots`` (45-54) held to +-0.05."""
+    from . import Bounds
+
+    lb, ub = (np.tile(np.asarray(b), (T, 1)) for b in TIGHT_BOX)
+    for t in knots:
+        lb[t, :2], ub[t, :2] = -PINCH, PINCH
+    return Bounds(*(torch.as_tensor(b, dtype=dtype, device=device) for b in (lb, ub)))
+
+
+def build_path(name, B=None, T=None, dtype=torch.float32):
+    from . import SolverSettings, make_batched_solver, seven_dof_sea, stack_knots, two_dof_sea
     from . import two_dof_vsa_boxddp
 
     B = B or path_batch(name)
+    T = T or path_T(name)
+    if name in ("mpc_tracking", "fast_mpc_tracking"):
+        x0s = x0_batch(B, dtype, SEEDS[name])
+        solve = make_batched_solver(mpc_problem(T, dtype), SolverSettings(maxiter=30, th_stop=1e-5),
+                                    use_gaps=True, bounds=None,
+                                    use_fast_path=True if name == "fast_mpc_tracking" else "lanes")
+        return Path(solve, lambda: solve(x0s),
+                    lambda i, _: (x0s + WARM_OFFSET * (i + 1),), 30)
+    if name == "pk_boxddp":
+        w = two_dof_vsa_boxddp(T=T, dtype=dtype)
+        problem = dataclasses.replace(w.problem, running=stack_knots([w.problem.running] * T),
+                                      per_knot=True)
+        x0s = x0_batch(B, dtype, SEEDS[name])
+        settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
+        solve = make_batched_solver(problem, settings, use_gaps=False,
+                                    bounds=pinched_box(T, dtype), use_fast_path="lanes")
+        return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
     if name in ("sevendof", "fast_sevendof"):
         w = seven_dof_sea(T=T, dtype=dtype)
         x0s = x0_batch(B, dtype, SEEDS[name], nx=w.problem.state.nx)

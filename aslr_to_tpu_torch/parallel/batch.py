@@ -30,8 +30,13 @@ def make_batched_solver(
     backend: str = "auto",
 ):
     """Build ``solve_batch(x0s) -> SolveResult`` over initial states
-    ``x0s [B, nx]``; every other problem leaf is shared, and the solve runs
-    on the problem's device. ``use_fast_path``: ``False`` runs the generic
+    ``x0s [B, nx]``; every other problem leaf is shared by the scenarios,
+    and the solve runs on the problem's device. A per-knot problem
+    (``stack_knots``, ``per_knot=True``) and a ``[T, nu]`` box run on every
+    route: the kernel routes take a moving frame target and a box a knot as
+    tables (``kernels/vsa_kernels.py::extract_vsa_spec`` raises
+    ``TypeError`` naming any other leaf that varies; the generic route
+    solves it). ``use_fast_path``: ``False`` runs the generic
     per-scenario solver (``solvers/ddp.py::solve``, the reference);
     ``True`` its fused route (K1 linearize, K6 rollout, and the Riccati
     kernels, ``use_pallas_backward`` forced on, as the JAX package does);

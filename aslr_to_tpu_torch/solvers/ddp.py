@@ -35,7 +35,8 @@ from .problem import ShootingProblem
 
 
 class Bounds(NamedTuple):
-    """Control bounds ``lb <= u <= ub`` (``[nu]``, shared by every knot)."""
+    """Control bounds ``lb <= u <= ub``: ``[nu]`` shared by every knot, or
+    ``[T, nu]``, row t the box of knot t."""
 
     lb: torch.Tensor
     ub: torch.Tensor
@@ -124,11 +125,26 @@ def _dot(a, b):
     return (a * b).sum(-1)
 
 
+def _knot_box(bounds, t):
+    """(lb, ub) of knot ``t``: the shared ``[nu]`` box or row t of a
+    ``[T, nu]`` one."""
+    if bounds.lb.dim() == 2:
+        return bounds.lb[t], bounds.ub[t]
+    return bounds.lb, bounds.ub
+
+
 def _linearize_core(problem: ShootingProblem, xs, us):
-    """calc + calc_diff over every knot at once, and the terminal knot:
-    (cost [B], run ActionDerivs [B, T, ...], term ActionDerivs [B, ...],
-    xnext [B, T, nx], ok [B]: every derivative finite)."""
-    run_data, run_diff = problem.running.calc_with_diff(xs[:, :-1], us)
+    """calc + calc_diff over every knot at once (a per-knot problem: knot by
+    knot, each with its own model), and the terminal knot: (cost [B], run
+    ActionDerivs [B, T, ...], term ActionDerivs [B, ...], xnext [B, T, nx],
+    ok [B]: every derivative finite)."""
+    if problem.per_knot:
+        outs = [m.calc_with_diff(xs[:, t], us[:, t])
+                for t, m in enumerate(problem.knot_models)]
+        run_data, run_diff = (type(group[0])(*(torch.stack(f, dim=1) for f in zip(*group)))
+                              for group in zip(*outs))
+    else:
+        run_data, run_diff = problem.running.calc_with_diff(xs[:, :-1], us)
     u0 = torch.zeros(xs.shape[:1] + (problem.terminal.nu,), dtype=xs.dtype, device=xs.device)
     term_data, term_diff = problem.terminal.calc_with_diff(xs[:, -1], u0)
     cost = run_data.cost.sum(-1) + term_data.cost
@@ -148,10 +164,13 @@ def _backward(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, setti
               kprev=None, fast=None) -> _Backward:
     """Riccati sweep of the family; ``kprev [B, T, nu]`` warm-starts the
     BoxQPs. With ``use_pallas_backward`` the families that have a kernel
-    go through it (``fast.backward`` where the fast path is given)."""
+    go through it (``fast.backward`` where the fast path is given); a
+    per-knot ``[T, nu]`` box runs the generic sweep, as in the JAX package
+    (the lane solver takes it to K2 and K5 as a table)."""
     warm = kprev is not None
     qp_iters = settings.boxqp_warm_iters if warm else settings.boxqp_iters
-    if settings.use_pallas_backward and (bounds is not None or use_gaps):
+    shared_box = bounds is None or bounds.lb.dim() == 1
+    if settings.use_pallas_backward and shared_box and (bounds is not None or use_gaps):
         from ..kernels.riccati import riccati_batch_major
 
         B, T = us.shape[:2]
@@ -206,8 +225,9 @@ def _backward_scan(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, 
             ok = torch.isfinite(L).flatten(1).all(1)
         else:
             u_t = us[:, t]
+            lb, ub = _knot_box(bounds, t)
             x0 = torch.zeros_like(u_t) if kprev is None else -kprev[:, t]
-            qp = boxqp(Quu, Qu, bounds.lb - u_t, bounds.ub - u_t, x0, maxiter=qp_iters,
+            qp = boxqp(Quu, Qu, lb - u_t, ub - u_t, x0, maxiter=qp_iters,
                        n_alphas=settings.boxqp_alphas)
             k = -qp.x
             K = masked_free_solve(Quu, qp.free, Qxu.transpose(-1, -2))
@@ -244,8 +264,8 @@ def _backward_scan(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, 
 def _rollout(problem, xs, us, k, K, fs, alpha, gap_scale_on, use_gaps, bounds):
     """One trial at the step lengths ``alpha [B]``: FDDP contracts the gaps
     by (1 - alpha) on the lanes with ``gap_scale_on``; DDP rolls out from
-    x0. The Box variants clamp the controls. Returns (xs_try, us_try,
-    cost_try)."""
+    x0. The Box variants clamp the controls (a per-knot box: knot t to row
+    t). Returns (xs_try, us_try, cost_try)."""
     state = problem.state
     T = us.shape[1]
     gscale = torch.where(gap_scale_on, alpha - 1.0, 0.0)[:, None] if use_gaps else None
@@ -256,8 +276,9 @@ def _rollout(problem, xs, us, k, K, fs, alpha, gap_scale_on, use_gaps, bounds):
         dx = state.diff(xs[:, t], x)
         u = us[:, t] - alpha[:, None] * k[:, t] - _mv(K[:, t], dx)
         if bounds is not None:
-            u = torch.minimum(torch.maximum(u, bounds.lb), bounds.ub)
-        data = problem.running.calc(x, u)
+            lb, ub = _knot_box(bounds, t)
+            u = torch.minimum(torch.maximum(u, lb), ub)
+        data = problem.knot_model(t).calc(x, u)
         xs_out.append(x)
         us_out.append(u)
         cost = cost + data.cost
@@ -273,15 +294,15 @@ def solve(problem: ShootingProblem, xs_init=None, us_init=None,
     """Solve the scenarios of ``problem`` (``x0 [B, nx]``), from ``xs_init
     [B, T+1, nx]`` and ``us_init [B, T, nu]`` (default: x0 everywhere and
     zero controls). ``use_gaps`` selects the FDDP family, ``bounds`` the
-    Box variants; ``fast`` the fused kernels (``build_fast_path``).
+    Box variants; ``fast`` the fused kernels (``build_fast_path``). A
+    per-knot problem (``problem.per_knot``) and a ``[T, nu]`` box run knot
+    by knot.
 
     The float32 products run in full float32 (no TF32), as the JAX package
     pins them: reduced-precision passes doubled the f32 divergence there.
     """
     if settings.assoc_backward:
         raise NotImplementedError("assoc_backward (solvers/assoc_riccati.py) is not ported yet")
-    if bounds is not None and bounds.lb.dim() != 1:
-        raise NotImplementedError("a per-knot [T, nu] box comes with the per-knot slice")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

@@ -1,19 +1,21 @@
 """The soft-arm reach workloads as declarative configs.
 
 PyTorch counterpart of ``two_dof_sea``, ``three_dof_sea``,
-``seven_dof_sea``, ``_two_dof_vsa`` and ``two_dof_vsa_boxddp`` in
-``aslr_to_tpu/workloads/presets.py``: the reference
-``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the benchmark's
-warm re-solve headline), the same SEA reach on a 3-DoF chain and on the
-7-DoF arm (the benchmark's 7-DoF metric, ``bench.py:231-252``), and
+``seven_dof_sea``, ``_two_dof_vsa``, ``two_dof_vsa_boxddp`` and
+``two_dof_vsa_modified`` in ``aslr_to_tpu/workloads/presets.py``: the
+reference ``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the
+benchmark's warm re-solve headline), the same SEA reach on a 3-DoF chain and
+on the 7-DoF arm (the benchmark's 7-DoF metric, ``bench.py:231-252``),
 ``examples/two_dof_vsa_boxddp.py`` (u in [-100, 100]^2 x [0, 100]^2; the
-benchmark's primary metric).
+benchmark's primary metric) and ``examples/two_dof_vsa_modified.py`` (a
+linear stiffness cost and a stiffness lower bound of 0.002).
 
 The presets build on the card (``device="cuda"``) unless the caller names
 another device; without a CUDA device that default raises, as torch does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -220,3 +222,49 @@ def two_dof_vsa_boxddp(T: int = 200, dt: float = 1e-2, dtype=torch.float64,
     w = _two_dof_vsa(T, dt, stiffness_cost=False, k_lb=0.0, dtype=dtype,
                      device=device, robot=robot)
     return w._replace(name="two_dof_vsa_boxddp")
+
+
+def two_dof_vsa_modified(T: int = 200, dt: float = 1e-2, dtype=torch.float64,
+                         device="cuda", robot=None) -> Workload:
+    """VSA with a linear stiffness cost and a tightened stiffness lower bound
+    (reference ``examples/two_dof_vsa_modified.py``: K lower bound 0.002,
+    lambda=10 stiffness cost, xReg 1e-3 / uReg 1e-2 with zeroed stiffness
+    u-weights, terminal goal 1e4)."""
+    w = _two_dof_vsa(T, dt, stiffness_cost=True, k_lb=0.002, dtype=dtype, device=device,
+                     u_weights=[1.0, 1.0, 0.0, 0.0], xreg_w=1e-3, ureg_w=1e-2,
+                     goal_term_w=1e4, robot=robot)
+    return w._replace(name="two_dof_vsa_modified")
+
+
+def with_frame_targets(problem: ShootingProblem, rot, trans) -> ShootingProblem:
+    """A per-knot copy of a shared-model ``problem`` whose frame-placement
+    goal at knot t aims at ``(rot[t], trans[t])`` (``[T, 3, 3]`` and ``[T,
+    3]``, tensors or numpy arrays such as a JAX problem's stacked leaves):
+    the construction of the reference's tracking MPC
+    (``examples/mpc_tracking.py``), stacked by ``stack_knots``. The
+    terminal model keeps its own target."""
+    from ..solvers.problem import stack_knots
+
+    base = problem.running
+    like = problem.x0
+
+    def t_(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dtype=like.dtype, device=like.device)
+        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=like.dtype,
+                               device=like.device)
+
+    def at_knot(t):
+        diff = base.differential
+        items = []
+        for it in diff.costs.items:
+            c = it.cost
+            if isinstance(getattr(c, "residual", None), ResidualModelFramePlacementASR):
+                res = dataclasses.replace(c.residual, placement=SE3(t_(rot[t]), t_(trans[t])))
+                c = dataclasses.replace(c, residual=res)
+            items.append(dataclasses.replace(it, cost=c))
+        costs = dataclasses.replace(diff.costs, items=tuple(items))
+        return dataclasses.replace(base, differential=dataclasses.replace(diff, costs=costs))
+
+    running = stack_knots([at_knot(t) for t in range(problem.T)])
+    return dataclasses.replace(problem, running=running, per_knot=True)

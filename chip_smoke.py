@@ -61,7 +61,27 @@ Phases, each printed with its result and time:
      and on the SEA cold solve's (measure.py paths fast_boxddp, fast_sea),
      T=100, B=4096, f32; its convergence statistics must land within 3
      points (1.5 mean iterations) of the lane path's on the same inputs;
- 11. generic: the generic solver (use_fast_path=False, the reference),
+ 11. per-knot kernels: the per-knot table variants against their plain
+     versions to the bit in f64 and f32 at their paths' shapes (K1, K3 and
+     K6 with the tracking MPC's [T, 12] target table, T=60, B=2048; K2, K5,
+     K3 and K6 with pk_boxddp's [T, 4] box tables, T=100, B=4096), timed in
+     f32 there and at B=16384 (the kernel's device time by torch.profiler,
+     since at the MPC's shapes a launch is shorter than its wrapper's host
+     time, with the CUDA events' time beside; the plain version; the bound
+     with the tables' bytes); tables of equal rows against the shared route
+     to the bit, and timed (the tables' own cost on the same data);
+ 12. per-knot: the tracking MPC of examples/mpc_tracking.py (measure.py
+     paths mpc_tracking and fast_mpc_tracking: T=60, B=2048, f32,
+     maxiter=30; a first solve, then three timed solves at x0s + 1e-4
+     (i + 1)) with solves/s and the convergence accounting, the fast route
+     within 3 points of the lane route, the converged share beside the
+     TPU's 99.7%; pk_boxddp (the pinched-box BoxDDP, T=100, B=4096), whose
+     pinched knots must clamp; f64 parity of each per-knot route against
+     its plain backend (B=64, maxiter 6: the MPC at T=60, BoxDDP, BoxFDDP
+     and fast BoxDDP in the pinched box at T=40), at least B-1 lanes
+     agreeing; the generic route against the lanes in f64 at T=20, B=16
+     (the MPC and the pinched BoxDDP), at least B-1 lanes agreeing;
+ 13. generic: the generic solver (use_fast_path=False, the reference),
      the fast path and the lane path in float64 at T=40, B=64, maxiter=20
      (BoxDDP in the tight box with cold QPs, SEA FDDP), at least B-1 lanes
      equal in iterations and flags with cost within rtol 1e-8 (a lane
@@ -120,6 +140,23 @@ KERNELS = {
                         replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
     "rollout1_n7": dict(source="aslr_to_tpu_torch/csrc/rollout_n7.cu",
                         replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
+    # the per-knot table variants: K1, K3 and K6 with the [T, 12] target
+    # table (the tracking MPC, 2-DoF SEA), K2, K5, K3 and K6 with [T, nu] box
+    # tables (the pinched box, 2-DoF VSA)
+    "linearize:target_table": dict(source="aslr_to_tpu_torch/csrc/linearize.cu",
+                                   replaces="aslr_to_tpu/pallas/vsa_kernels.py:797"),
+    "rollout2:target_table": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                                  replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
+    "rollout1:target_table": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                                  replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
+    "riccati_box:box_table": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                              replaces="aslr_to_tpu/pallas/riccati.py:200"),
+    "riccati_boxfddp:box_table": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                                  replaces="aslr_to_tpu/pallas/riccati.py:294"),
+    "rollout2:box_table": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                               replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
+    "rollout1:box_table": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                               replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
 }
 # the case each kernel's row is timed on, and the path its launches come
 # from; the other cases of a kernel are reported as its variants
@@ -130,11 +167,32 @@ ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp"
             "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp",
             "rollout1": "fast_boxddp", "probe": "probe", "linearize_n7": "sevendof",
             "riccati_fddp_n7": "sevendof", "rollout2_n7": "sevendof",
-            "rollout1_n7": "fast_sevendof"}
+            "rollout1_n7": "fast_sevendof", "linearize:target_table": "mpc_tracking",
+            "rollout2:target_table": "mpc_tracking", "rollout1:target_table": "fast_mpc_tracking",
+            "riccati_box:box_table": "pk_boxddp", "rollout2:box_table": "pk_boxddp",
+            "riccati_boxfddp:box_table": "pk_parity_boxfddp",
+            "rollout1:box_table": "pk_parity_fast_boxddp"}
 # the launch counter (build.LAUNCHES) of each row, and the paths that run
-# the 7-DoF instances
-ROW_KERNEL = {row: row.removesuffix("_n7") for row in ROW_PATH}
+# the 7-DoF instances and the per-knot tables
+ROW_KERNEL = {row: row.split(":")[0].removesuffix("_n7") for row in ROW_PATH}
 NDOF_PATHS = ("sevendof", "fast_sevendof")
+TABLE_ROWS = tuple(row for row in ROW_PATH if ":" in row)
+PK_PATHS = ("mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "pk_parity_mpc",
+            "pk_parity_boxddp", "pk_parity_boxfddp", "pk_parity_fast_boxddp")
+# the per-knot phase: the TPU's converged share of the tracking MPC at
+# MPC_BATCH=2048 (docs/BENCH.md:449-451), a cross-check only; parity and
+# the generic route's check at small sizes
+TPU_MPC_CONVERGED = 0.997
+B_PK_PARITY, MAXITER_PK_PARITY, T_PK_PARITY_BOX = 64, 6, 40
+# the row of each equal-rows check (its kernel with the tables)
+EQUAL_ROWS_ROW = {"linearize[sea]": "linearize:target_table",
+                  "rollout2[sea gaps]": "rollout2:target_table",
+                  "rollout1[sea gaps]": "rollout1:target_table",
+                  "riccati_box[vsa]": "riccati_box:box_table",
+                  "riccati_boxfddp[vsa]": "riccati_boxfddp:box_table",
+                  "rollout2[vsa box]": "rollout2:box_table",
+                  "rollout1[vsa box]": "rollout1:box_table"}
+T_PK_GENERIC, B_PK_GENERIC, MAXITER_PK_GENERIC = 20, 16, 10
 B_NDOF = 1024                      # the 7-DoF path's batch (measure.B_SEVENDOF)
 T_NDOF_GENERIC, B_NDOF_GENERIC, MAXITER_NDOF_GENERIC = 10, 16, 3
 # the cases also timed at B_FILL
@@ -198,6 +256,32 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, kernel):
+    """The device time of one launch of ``kernel`` (a kernel function's
+    name, e.g. "rollout2_kernel") in ``fn``, by torch.profiler over ``reps``
+    calls after a warm-up: the host's launch overhead, which the CUDA events
+    of :func:`cuda_ms` count where a launch is shorter than it, left out.
+    Raises if the profile holds no launch of the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aslr_to_tpu_torch.measure import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and kernel in evt.key:
+            us += _device_us(evt)
+            n += evt.count
+    if n != reps:
+        raise AssertionError(f"the profile holds {n} launches of {kernel}, not {reps}")
+    return us / 1e3 / n
+
+
 _ARITH = {"add", "sub", "mul", "div", "neg", "sqrt", "sin", "cos", "atan2", "abs",
           "maximum", "minimum", "__add__", "__radd__", "__iadd__", "__sub__", "__rsub__",
           "__mul__", "__rmul__", "__truediv__", "__rtruediv__", "__neg__"}
@@ -250,9 +334,10 @@ def io_values(name, T, ndx, nu, boxed=False, warm=False, gaps=False):
     raise KeyError(name)
 
 
-def bound(ops, n_in, n_out, n_flags, B, itemsize):
-    """(bound_ms, bound_by, bytes): the least time for the work."""
-    nbytes = (n_in + n_out) * B * itemsize + n_flags * B
+def bound(ops, n_in, n_out, n_flags, B, itemsize, table_bytes=0):
+    """(bound_ms, bound_by, bytes): the least time for the work; the
+    per-knot tables, read once for the whole batch, add ``table_bytes``."""
+    nbytes = (n_in + n_out) * B * itemsize + n_flags * B + table_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
@@ -292,6 +377,10 @@ def build_phase():
         log(f"  {line}")
 
 
+# the label of each table mode (csrc/common.cuh::TableMode) of an instance
+TABLE_MODES = {"0": "", "1": " tables", "2": " either"}
+
+
 def kernel_ptxas(build_log, lib):
     """One line per instantiation of K1, of the Riccati group kernel (K2, K4,
     K5) and of the rollouts (K3, K6): registers, stack frame and spills from
@@ -303,16 +392,18 @@ def kernel_ptxas(build_log, lib):
         return f"{dict(box='K2', boxfddp='K5', fddp='K4')[kind]} {{}} (ndx {ndx}, nu {nu}, " \
                f"{g} lanes a scenario)", smem
 
-    def roll(nt, s, nl, sea, boxed, gaps):
+    def roll(nt, s, nl, sea, boxed, gaps, tab):
         return (f"{'K3' if nt == '2' else 'K6'} {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}"
-                f"{' box' if boxed == '1' else ''}{' gaps' if gaps == '1' else ''}",
+                f"{' box' if boxed == '1' else ''}{' gaps' if gaps == '1' else ''}"
+                f"{TABLE_MODES[tab]}",
                 lib.aslr_rollout_smem(int(nl), int(nt), int(sea), int(gaps),
                                       4 if s == "f" else 8))
 
-    kinds = [(r"linearize_kernelI([fd])Li(\d+)ELb([01])E",
-              lambda s, nl, sea: (f"K1 {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}", 0), 0),
+    kinds = [(r"linearize_kernelI([fd])Li(\d+)ELb([01])ELi(\d)E",
+              lambda s, nl, sea, tab: (f"K1 {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}"
+                                       f"{TABLE_MODES[tab]}", 0), 0),
              (r"riccati_(box|boxfddp|fddp)_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E", box, 1),
-             (r"rollout([12])_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])E", roll, 1)]
+             (r"rollout([12])_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])ELi(\d)E", roll, 1)]
     lines, name, frame = [], None, ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -656,7 +747,9 @@ def drive(path, report, fn, expect):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
     for row, kernel in ROW_KERNEL.items():
-        if row.endswith("_n7") == (path in NDOF_PATHS):     # the row's instances ran there
+        # the row's instance or variant ran there
+        if (row.endswith("_n7") == (path in NDOF_PATHS)
+                and (row in TABLE_ROWS) == (path in PK_PATHS)):
             report[row].setdefault("launches_by_path", {})[path] = launches[kernel]
         if ROW_PATH[row] == path:
             report[row]["launches"] = launches[kernel]
@@ -685,20 +778,24 @@ def solve_path(name, report, card, expect, nu, n_timed, tpu=None, nx=8):
     or 1024 for the 7-DoF paths), f32: its set-up (the SEA cold solve)
     where it has one, then ``n_timed`` solves. Returns the convergence
     summaries: the set-up's (or None) and the last solve's."""
-    from aslr_to_tpu_torch.measure import T_PATH, build_path, path_batch
+    from aslr_to_tpu_torch.measure import build_path, path_batch, path_T
 
-    p, B = build_path(name), path_batch(name)
+    p, B, T = build_path(name), path_batch(name), path_T(name)
     prep = setup_summ = None
     if name == "sea_warm":
         prep, t = drive("sea_cold", report, p.setup, expect)
         log(f"  cold solve: {t:.4f} s")
-        setup_summ = summarize(prep, B, T_PATH, nu, "SEA cold, f32")
+        setup_summ = summarize(prep, B, T, nu, "SEA cold, f32")
+    elif name.endswith("mpc_tracking"):     # the first solve, untimed in the example
+        prep, t = drive(name, report, p.setup, expect)
+        log(f"  first solve: {t:.4f} s")
+        setup_summ = summarize(prep, B, T, nu, f"{name}, first solve, f32")
     for i in range(n_timed):
         inputs = p.args(i, prep)
         res, t = drive(name, report, lambda: p.solve(*inputs), expect)
         log(f"  solve {i}: {t:.4f} s, {B / t:.2f} solves/s on {card} "
-            f"(T={T_PATH}, B={B}, f32, maxiter={p.maxiter})")
-    return setup_summ, summarize(res, B, T_PATH, nu, f"{name}, last solve, f32", tpu, nx)
+            f"(T={T}, B={B}, f32, maxiter={p.maxiter})")
+    return setup_summ, summarize(res, B, T, nu, f"{name}, last solve, f32", tpu, nx)
 
 
 @phase("main path")
@@ -993,6 +1090,306 @@ def golden_phase():
            True, None, True)
 
 
+def table_kernel_cases(dtype, B_target=None, B_box=None):
+    """{label: (kernel call, plain call, io_values kwargs, name, ndx, nu, T,
+    B, table bytes, row)} of the per-knot table variants at their paths'
+    shapes: K1, K3 (gaps) and K6 (gaps) with the tracking MPC's target table
+    on the SEA arm (T=60, B=2048), K2, K5, K3 and K6 with pk_boxddp's pinched
+    box tables on the VSA arm (T=100, B=4096); and {label: (shared call,
+    call with tables of equal rows)} on the same inputs."""
+    from aslr_to_tpu_torch import stack_knots, two_dof_sea, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
+    from aslr_to_tpu_torch.measure import (B_MPC, B_PATH, T_MPC, T_PATH, mpc_problem,
+                                           pinched_box, x0_batch)
+
+    size = torch.empty(0, dtype=dtype).element_size()
+    cases, equal_rows = {}, {}
+    # the target table: the tracking MPC
+    T, B = T_MPC, B_target or B_MPC
+    problem = mpc_problem(T, dtype)
+    spec = vk.extract_vsa_spec(problem, None)
+    shared = vk.extract_vsa_spec(two_dof_sea(T=T, dtype=dtype).problem, None)
+    tgt = torch.as_tensor(spec.target_table(T, dtype), device="cuda")
+    tgt_shared = torch.as_tensor(shared.target_table(T, dtype), device="cuda")
+    x0 = x0_batch(B, dtype, seed=4).T.contiguous()
+    xs = x0.expand(T + 1, 8, B).contiguous()
+    us = problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device="cuda")
+    lin = vk.linearize_plain(spec, xs, us, wterm, tgt)
+    r = lin.run
+    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+              lin.term["Lx"], lin.term["Lxx"])
+    fs = torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+    reg = torch.full((B,), REG, dtype=dtype, device="cuda")
+    bw = rk.riccati_fddp_plain(*derivs, fs, reg)
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    ones = torch.ones(B, dtype=dtype, device="cuda")
+    infeas = (torch.arange(B, device="cuda") % 2).to(dtype)
+    tbytes = T * 12 * size
+    la = (spec, xs, us, wterm, tgt)
+    cases["linearize[sea target table]"] = (partial(vk.linearize, *la),
+                                            partial(vk.linearize_plain, *la), dict(),
+                                            "linearize", 8, 2, T, B, tbytes,
+                                            "linearize:target_table")
+    ra = (spec, xs, us, k, K, x0, ones, 0.5 * ones, wterm, None, None, fs, infeas, tgt)
+    cases["rollout2[sea gaps target table]"] = (partial(vk.rollout2, *ra),
+                                                partial(vk.rollout2_plain, *ra), dict(gaps=True),
+                                                "rollout2", 8, 2, T, B, tbytes,
+                                                "rollout2:target_table")
+    r1 = ra[:6] + ra[7:]
+    cases["rollout1[sea gaps target table]"] = (partial(vk.rollout1, *r1),
+                                                partial(vk.rollout1_plain, *r1), dict(gaps=True),
+                                                "rollout1", 8, 2, T, B, tbytes,
+                                                "rollout1:target_table")
+    la_s = (shared, xs, us, wterm)
+    equal_rows["linearize[sea]"] = (partial(vk.linearize, *la_s),
+                                    partial(vk.linearize, *la_s, tgt_shared))
+    ra_s = (shared,) + ra[1:13]
+    equal_rows["rollout2[sea gaps]"] = (partial(vk.rollout2, *ra_s),
+                                        partial(vk.rollout2, *ra_s, tgt=tgt_shared))
+    r1_s = ra_s[:6] + ra_s[7:]
+    equal_rows["rollout1[sea gaps]"] = (partial(vk.rollout1, *r1_s),
+                                        partial(vk.rollout1, *r1_s, tgt=tgt_shared))
+
+    # the box tables: pk_boxddp's pinched box
+    T, B = T_PATH, B_box or B_PATH
+    w = two_dof_vsa_boxddp(T=T, dtype=dtype)
+    problem = dataclasses.replace(w.problem, running=stack_knots([w.problem.running] * T),
+                                  per_knot=True)
+    box = pinched_box(T, dtype)
+    spec = vk.extract_vsa_spec(problem, box)
+    x0 = x0_batch(B, dtype, seed=5).T.contiguous()
+    xs = x0.expand(T + 1, 8, B).contiguous()
+    us = torch.zeros(T, 4, B, dtype=dtype, device="cuda")
+    wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device="cuda")
+    lin = vk.linearize_plain(spec, xs, us, wterm)
+    r = lin.run
+    derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+              lin.term["Lx"], lin.term["Lxx"])
+    fs = torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+    reg = torch.full((B,), REG, dtype=dtype, device="cuda")
+    if dtype == torch.float64:
+        reg[::512] = -5.0
+    kprev = torch.zeros(T, 4, B, dtype=dtype, device="cuda")
+    ones = torch.ones(B, dtype=dtype, device="cuda")
+    bbytes = 2 * T * 4 * size
+    kw = dict(per_knot_box=True)
+    ba = derivs + (us, kprev, box.lb, box.ub, reg, 2)
+    cases["riccati_box[vsa box table]"] = (partial(rk.riccati_box_backward, *ba, **kw),
+                                           partial(rk.riccati_box_plain, *ba, **kw),
+                                           dict(warm=True), "riccati_box", 8, 4, T, B, bbytes,
+                                           "riccati_box:box_table")
+    fa = derivs + (fs, us, kprev, box.lb, box.ub, reg, 2)
+    cases["riccati_boxfddp[vsa box table]"] = (partial(rk.riccati_boxfddp_backward, *fa, **kw),
+                                               partial(rk.riccati_boxfddp_plain, *fa, **kw),
+                                               dict(warm=True), "riccati_boxfddp", 8, 4, T, B,
+                                               bbytes, "riccati_boxfddp:box_table")
+    bw = rk.riccati_box_plain(*ba, **kw)
+    ra = (spec, xs, us, bw.k, bw.K, x0, ones, 0.5 * ones, wterm, box.lb, box.ub)
+    cases["rollout2[vsa box table]"] = (partial(vk.rollout2, *ra),
+                                        partial(vk.rollout2_plain, *ra), dict(), "rollout2",
+                                        8, 4, T, B, bbytes, "rollout2:box_table")
+    r1 = ra[:6] + ra[7:]
+    cases["rollout1[vsa box table]"] = (partial(vk.rollout1, *r1),
+                                        partial(vk.rollout1_plain, *r1), dict(), "rollout1",
+                                        8, 4, T, B, bbytes, "rollout1:box_table")
+    # tables whose rows are all the shared box, against the box a lane
+    lanes = [b[:, None].expand(4, B).contiguous() for b in tight_box(dtype)]
+    rows = [b[None].expand(T, 4).contiguous() for b in tight_box(dtype)]
+    tabled = spec._replace(lb=rows[0].double().cpu().numpy(), ub=rows[1].double().cpu().numpy())
+    plain_spec = vk.extract_vsa_spec(w.problem, tight_box(dtype))
+    equal_rows["riccati_box[vsa]"] = (
+        partial(rk.riccati_box_backward, *derivs, us, kprev, *lanes, reg, 2),
+        partial(rk.riccati_box_backward, *derivs, us, kprev, *rows, reg, 2, **kw))
+    equal_rows["riccati_boxfddp[vsa]"] = (
+        partial(rk.riccati_boxfddp_backward, *derivs, fs, us, kprev, *lanes, reg, 2),
+        partial(rk.riccati_boxfddp_backward, *derivs, fs, us, kprev, *rows, reg, 2, **kw))
+    for name in ("rollout2", "rollout1"):
+        pre = (xs, us, bw.k, bw.K, x0, ones) + ((0.5 * ones,) if name == "rollout2" else ())
+        fn = getattr(vk, name)
+        equal_rows[f"{name}[vsa box]"] = (partial(fn, plain_spec, *pre, wterm, *lanes),
+                                          partial(fn, tabled, *pre, wterm, *rows))
+    return cases, equal_rows
+
+
+@phase("per-knot kernels")
+def table_kernels_phase(report):
+    """The per-knot table variants against their plain versions to the bit
+    in f64 and f32 at their paths' shapes, timed in f32 (kernel, plain
+    version on the compared call, bound with the tables' bytes) there and
+    at B=16384; tables of equal rows against the shared route, to the bit,
+    in both types."""
+    from aslr_to_tpu_torch.kernels import build
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        cases, equal_rows = table_kernel_cases(dtype)
+        for label, (kern, plain, io_kw, name, ndx, nu, T, B, tbytes, row) in cases.items():
+            before = build.LAUNCHES[name]
+            got = kern()
+            torch.cuda.synchronize()
+            if build.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{label}: the wrapper did not launch its kernel")
+            want, plain_ms = timed_once(plain)
+            rel, err = compare(label, got, want, 1e-9 if tag == "f64" else None)
+            want_f = flat(want)
+            differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
+            if differ:
+                raise AssertionError(f"{label} {tag}: {differ} differ from the plain version "
+                                     f"(max abs err {err:.3e}); the kernel is built to equal it "
+                                     f"to the bit")
+            if name == "rollout1":
+                check_k6_is_k3_first_trial(label, tag, kern, got)
+            del got, want, want_f
+            log(f"  {label} {tag} T={T} B={B}: equal to the plain version to the bit "
+                f"(max abs err {err:.3e})")
+            t = report[row]
+            t["case"], t["T"], t["B"] = label, T, B
+            t["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+            if tag == "f64":
+                continue
+            # the device time of a launch: at the MPC's shapes a launch is
+            # shorter than the wrapper's host time, which CUDA events count
+            t["ms"], t["events_ms"] = device_ms(kern, 10, f"{name}_kernel"), cuda_ms(kern, 10)
+            t["plain_ms"] = plain_ms
+            t["ops"] = count_ops(plain) // (2 if name == "rollout1" else 1)
+            t["bound_ms"], t["bound_by"], t["bytes"] = bound(
+                t["ops"], *io_values(name, T, ndx, nu, **io_kw), B, 4, tbytes)
+            log(f"  {label} f32 T={T} B={B}: kernel {t['ms']:.4f} ms (device; CUDA events "
+                f"{t['events_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound {t['bound_ms']:.4f} "
+                f"ms ({t['bound_by']}: {t['bytes']} bytes, {t['ops']} ops)")
+        for label, (shared, tabled) in equal_rows.items():
+            a, b = shared(), tabled()
+            torch.cuda.synchronize()
+            bf = flat(b)
+            differ = [k for k, g in flat(a).items() if not same_bits(g, bf[k])]
+            if differ:
+                raise AssertionError(f"{label} {tag}: tables of equal rows differ from the "
+                                     f"shared route in {differ}")
+            log(f"  {label} {tag}: tables of equal rows give the shared route's bits")
+            if tag == "f32":    # the tables' own cost, on the same data (device time)
+                row = EQUAL_ROWS_ROW[label]
+                kernel = f"{ROW_KERNEL[row]}_kernel"
+                report[row]["equal_rows"] = dict(shared_ms=device_ms(shared, 10, kernel),
+                                                  table_ms=device_ms(tabled, 10, kernel))
+                log(f"  {label} f32: shared {report[row]['equal_rows']['shared_ms']:.4f} ms, "
+                    f"tables of equal rows {report[row]['equal_rows']['table_ms']:.4f} ms "
+                    f"(device)")
+        del cases, equal_rows
+    cases, _ = table_kernel_cases(torch.float32, B_FILL, B_FILL)
+    for label, (kern, _, io_kw, name, ndx, nu, T, _, tbytes, row) in cases.items():
+        t = report[row]
+        ms = device_ms(kern, 10, f"{name}_kernel")
+        ops = t["ops"] * B_FILL // t["B"]
+        bms, by, _ = bound(ops, *io_values(name, T, ndx, nu, **io_kw), B_FILL, 4, tbytes)
+        t.setdefault("variants", {})[f"{label} B={B_FILL}"] = dict(ms=ms, bound_ms=bms,
+                                                                   bound_by=by)
+        log(f"  {label} f32 T={T} B={B_FILL}: kernel {ms:.4f} ms (device), bound {bms:.4f} ms "
+            f"({by})")
+
+
+def pk_parity(label, report, path, problem, bounds, use_gaps, route, T, expect, settings):
+    """One f64 solve of a per-knot route through the kernels (driven with
+    the launch counters reset, as ``path``) against its plain backend, B=64:
+    at least B-1 lanes equal in iterations and flags with cost within rtol
+    1e-8."""
+    from aslr_to_tpu_torch import make_batched_solver
+    from aslr_to_tpu_torch.measure import x0_batch
+
+    x0s = x0_batch(B_PK_PARITY, torch.float64, 6)
+    res = {}
+    for backend in ("auto", "plain"):
+        solve = make_batched_solver(problem, settings, use_gaps=use_gaps, bounds=bounds,
+                                    use_fast_path=route, backend=backend)
+        if backend == "auto":
+            res[backend], t = drive(path, report, lambda: solve(x0s), expect)
+        else:
+            t0 = time.perf_counter()
+            res[backend] = solve(x0s)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        log(f"  {label} f64 T={T} B={B_PK_PARITY} {backend} backend: {t:.3f} s")
+    lanes_equal(f"{label}: kernels against the plain backend", res["auto"], res["plain"],
+                B_PK_PARITY, x0s)
+
+
+@phase("per-knot")
+def per_knot_phase(report, card):
+    """The per-knot paths (measure.py: mpc_tracking, fast_mpc_tracking,
+    pk_boxddp) on the card, f32: solves/s and the convergence accounting,
+    the fast route within 3 points of the lane route, the TPU's converged
+    share beside the MPC's, and the pinched knots clamped; then f64 parity
+    of each per-knot route against its plain backend (B=64), and the
+    generic route against the lane route (T=20, B=16)."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, stack_knots
+    from aslr_to_tpu_torch import two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.measure import (MPC_SOLVES, PINCH, PINCHED, T_MPC, build_path,
+                                           mpc_problem, path_T, pinched_box, x0_batch)
+
+    lanes = solve_path("mpc_tracking", report, card, ("linearize", "riccati_fddp", "rollout2"),
+                       2, MPC_SOLVES)[1]
+    fast = solve_path("fast_mpc_tracking", report, card,
+                      ("linearize", "riccati_fddp", "rollout1"), 2, MPC_SOLVES)[1]
+    close_to_lanes("fast MPC tracking", fast, lanes)
+    gap = TPU_MPC_CONVERGED - lanes["converged_frac"]
+    log(f"  MPC tracking converged {lanes['converged_frac']} against the TPU's "
+        f"{TPU_MPC_CONVERGED} (docs/BENCH.md:449-451, a cross-check only): "
+        f"{100 * gap:.2f} points {'within' if abs(gap) <= 0.05 else 'beyond'} 5")
+
+    p, T = build_path("pk_boxddp"), path_T("pk_boxddp")
+    res, t = drive("pk_boxddp", report, lambda: p.solve(*p.args(0, None)),
+                   ("linearize", "riccati_box", "rollout2"))
+    B = res.us.shape[0]
+    log(f"  pk_boxddp solve: {t:.4f} s, {B / t:.2f} solves/s on {card} (T={T}, B={B}, f32, "
+        f"maxiter={p.maxiter})")
+    summarize(res, B, T, 4, "pk_boxddp, f32")
+    knots = list(PINCHED)
+    on = (res.us[:, knots, :2].abs() == PINCH)
+    log(f"  pinched knots {knots[0]}-{knots[-1]}: {int(on.any(-1).any(-1).sum())} of {B} lanes "
+        f"have a torque exactly on +-{PINCH} ({int(on.sum())} controls)")
+    if not bool(on.any()):
+        raise AssertionError("pk_boxddp: no control sits on the pinched knots' box")
+
+    f64 = torch.float64
+    pk_settings = SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5, boxqp_warm_iters=2)
+    pk_parity("MPC tracking (lanes)", report, "pk_parity_mpc", mpc_problem(T_MPC, f64), None,
+              True, "lanes", T_MPC, ("linearize", "riccati_fddp", "rollout2"),
+              SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5))
+    Tb = T_PK_PARITY_BOX
+    w = two_dof_vsa_boxddp(T=Tb, dtype=f64)
+    stacked = dataclasses.replace(w.problem, running=stack_knots([w.problem.running] * Tb),
+                                  per_knot=True)
+    box = pinched_box(Tb, f64, knots=range(Tb // 2 - 5, Tb // 2 + 5))
+    pk_parity("pinched BoxDDP (lanes)", report, "pk_parity_boxddp", stacked, box, False, "lanes",
+              Tb, ("linearize", "riccati_box", "rollout2"), pk_settings)
+    pk_parity("pinched BoxFDDP (lanes)", report, "pk_parity_boxfddp", stacked, box, True,
+              "lanes", Tb, ("linearize", "riccati_boxfddp", "rollout2"), pk_settings)
+    pk_parity("pinched BoxDDP (fast)", report, "pk_parity_fast_boxddp", stacked, box, False,
+              True, Tb, ("linearize", "rollout1"), pk_settings)
+
+    # the generic route (the reference) against the lane route
+    Tg, Bg = T_PK_GENERIC, B_PK_GENERIC
+    gs = SolverSettings(maxiter=MAXITER_PK_GENERIC, th_stop=1e-5)
+    w = two_dof_vsa_boxddp(T=Tg, dtype=f64)
+    stacked = dataclasses.replace(w.problem, running=stack_knots([w.problem.running] * Tg),
+                                  per_knot=True)
+    for label, problem, bounds, use_gaps in (
+            ("MPC tracking", mpc_problem(Tg, f64), None, True),
+            ("pinched BoxDDP", stacked, pinched_box(Tg, f64, knots=range(Tg // 2 - 2, Tg // 2 + 2)),
+             False)):
+        x0s = x0_batch(Bg, f64, 7)
+        res = {}
+        for route in (False, "lanes"):
+            t0 = time.perf_counter()
+            res[route] = make_batched_solver(problem, gs, use_gaps=use_gaps, bounds=bounds,
+                                             use_fast_path=route)(x0s)
+            torch.cuda.synchronize()
+            log(f"  {label} f64 T={Tg} B={Bg} maxiter={MAXITER_PK_GENERIC} "
+                f"use_fast_path={route!r}: {time.perf_counter() - t0:.3f} s")
+        lanes_equal(f"{label} lanes against generic", res["lanes"], res[False], Bg, x0s)
+
+
 def main():
     card, smi = device_phase()
     build_phase()
@@ -1006,6 +1403,8 @@ def main():
     boxfddp_phase(report, smi)
     sevendof_phase(report, smi)
     fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
+    table_kernels_phase(report)
+    per_knot_phase(report, smi)
     parity_phase()
     golden_phase()
     generic_phase(smi)

@@ -13,8 +13,10 @@ and 4) on ragged batches to the bit, and K4 with one NaN scenario in its
 warp; K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms' instances on ragged
 batches to the bit, and the launchers' refusal of a shape they are not
 built for; the fast path of the per-scenario solver against its plain
-backend;
-P against its plain version:
+backend; the per-knot table variants of K1, K2, K5, K3 and K6 on ragged
+batches to the bit (K1, K3 and K6 also at the 3- and 7-DoF arms), and
+tables of equal rows against the shared route; P
+against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -32,6 +34,7 @@ from aslr_to_tpu_torch import SolverSettings, make_batched_solver, seven_dof_sea
 from aslr_to_tpu_torch import two_dof_sea, two_dof_vsa_boxddp
 from aslr_to_tpu_torch import probe
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
+from cuda_on_cpu.tables import box_tables, per_knot_target
 
 pytestmark = pytest.mark.gpu
 
@@ -569,7 +572,7 @@ def test_launchers_refuse_what_they_have_no_instance_for(cuda):
     p = build.ptr
     outs = [torch.empty(1, device=cuda) for _ in range(14)]
     code = build.entry("aslr_linearize", torch.float64, 3)(
-        params.ctypes.data_as(build.ctypes.c_void_p), 7, p(xs), p(us), p(wterm), T, 8,
+        params.ctypes.data_as(build.ctypes.c_void_p), 7, p(xs), p(us), p(wterm), None, T, 8,
         *[p(o) for o in outs], build.stream_of(xs))
     with pytest.raises(NotImplementedError, match="no instance for nl=7 sea"):
         build.check("linearize", code, "nl=7 sea")
@@ -578,3 +581,152 @@ def test_launchers_refuse_what_they_have_no_instance_for(cuda):
     with pytest.raises(NotImplementedError, match="nl=3 vsa; its instances"):
         vsa_kernels.linearize(spec._replace(variant="vsa", nu=6), xs,
                               torch.zeros(T, 6, 8, dtype=torch.float64, device=cuda), wterm)
+
+
+def _table_cases(dtype, device, B):
+    """{case: (kernel wrapper, plain version, args, kwargs)} with the per-knot
+    tables (rows all different): K1 with a target a knot on the VSA and SEA
+    arms; K2 and K5 with [T, nu] box tables, knot 3 pinched; K3 and K6 with
+    the box tables and the target table (VSA) and the target table (SEA
+    gaps)."""
+    cases = {}
+    for arm in ("vsa", "sea"):
+        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T, dtype=dtype,
+                                                                   device=device)
+        spec = vsa_kernels.extract_vsa_spec(w.problem, w.bounds)
+        pk, tgt = per_knot_target(spec, T, dtype)
+        tgt = tgt.to(device)
+        rng = np.random.default_rng(2)
+
+        def t(a):
+            return torch.tensor(a, dtype=dtype, device=device)
+
+        nu = spec.nu
+        xs = t(0.3 * rng.standard_normal((T + 1, 8, B)))
+        us = t(3.0 * rng.standard_normal((T, nu, B)))
+        wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=device)
+        cases[f"linearize_{arm}"] = (vsa_kernels.linearize, vsa_kernels.linearize_plain,
+                                     (pk, xs, us, wterm, tgt), {})
+        lin = vsa_kernels.linearize_plain(pk, xs, us, wterm, tgt)
+        r = lin.run
+        derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+                  lin.term["Lx"], lin.term["Lxx"])
+        lb, ub = (b.to(device) for b in box_tables(T, nu, dtype, pinch=3))
+        kprev = t(0.5 * rng.standard_normal((T, nu, B)))
+        reg = t(np.where(np.arange(B) % 10 == 0, -0.05, 1e-9))
+        fs = torch.cat([torch.full_like(xs[:1], 0.01), lin.xnext - xs[1:]], dim=0)
+        kw = dict(per_knot_box=True)
+        if arm == "vsa":
+            cases["riccati_box"] = (riccati.riccati_box_backward, riccati.riccati_box_plain,
+                                    derivs + (us, kprev, lb, ub, reg, 2), kw)
+        cases[f"riccati_boxfddp_{arm}"] = (
+            riccati.riccati_boxfddp_backward, riccati.riccati_boxfddp_plain,
+            derivs + (fs, us, None, lb, ub, reg, 6), kw)
+        bw = riccati.riccati_boxfddp_plain(*derivs, fs, us, None, lb, ub, reg, 6, True)
+        k = torch.where(bw.ok, bw.k, 0.0)
+        K = torch.where(bw.ok, bw.K, 0.0)
+        alphas = (t(np.ones(B)), t(0.5 ** (1 + np.arange(B) % 4)))
+        if arm == "vsa":
+            boxed = pk._replace(lb=lb.double().cpu().numpy(), ub=ub.double().cpu().numpy())
+            args = (boxed, xs, us, k, K, xs[0].contiguous(), *alphas, wterm, lb, ub, None,
+                    None, tgt)
+        else:
+            args = (pk, xs, us, k, K, xs[0].contiguous(), *alphas, wterm, None, None, fs,
+                    t(np.arange(B) % 3 == 0), tgt)
+        cases[f"rollout2_{arm}"] = (vsa_kernels.rollout2, vsa_kernels.rollout2_plain, args, {})
+        cases[f"rollout1_{arm}"] = (vsa_kernels.rollout1, vsa_kernels.rollout1_plain,
+                                    args[:6] + args[7:], {})
+    return cases
+
+
+TABLE_CASES = ["linearize_vsa", "linearize_sea", "riccati_box", "riccati_boxfddp_vsa",
+               "riccati_boxfddp_sea", "rollout2_vsa", "rollout2_sea", "rollout1_vsa",
+               "rollout1_sea"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_table_variants_match_plain_version_to_the_bit(cuda, case, batch, dtype):
+    """The per-knot table variants of K1, K2, K5, K3 and K6 equal their plain
+    versions to the bit, flags and NaNs included."""
+    fn, plain, args, kw = _table_cases(dtype, cuda, batch)[case]
+    name = case.rsplit("_", 1)[0] if case != "riccati_box" else case
+    before = build.LAUNCHES[name]
+    got = fn(*args, **kw)
+    assert build.LAUNCHES[name] == before + 1
+    _assert_all_bits(got, plain(*args, **kw))
+
+
+def _leaves(out):
+    """Every tensor of a kernel's output: tuples and dicts opened, None
+    skipped."""
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, dict):
+        for v in out.values():
+            yield from _leaves(v)
+    elif isinstance(out, tuple):
+        for v in out:
+            yield from _leaves(v)
+
+
+def _assert_all_bits(got, want):
+    pairs = list(zip(_leaves(got), _leaves(want)))
+    assert pairs and len(pairs) == len(list(_leaves(want)))
+    for g, w in pairs:
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(0.0), w.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_tables_of_equal_rows_give_the_shared_bits(cuda, dtype):
+    """A target table built from the shared target and box tables whose
+    rows are the shared box give the shared route's bits, kernel against
+    kernel: K1, K2, K5, K3 and K6 on the VSA arm."""
+    inp = _inputs(dtype, cuda)
+    spec = inp["spec"]
+    tgt = torch.tensor(spec.target_table(T, dtype), device=cuda)
+    lbt, ubt = (torch.tensor(np.tile(b, (T, 1)), dtype=dtype, device=cuda)
+                for b in (spec.lb, spec.ub))
+    tabled = spec._replace(lb=np.tile(spec.lb, (T, 1)), ub=np.tile(spec.ub, (T, 1)))
+    lin = vsa_kernels.linearize(spec, inp["xs"], inp["us"], inp["wterm"])
+    pairs = [(lin, vsa_kernels.linearize(spec, inp["xs"], inp["us"], inp["wterm"], tgt))]
+    bw_args = _bw_args(inp, lin)
+    bw = riccati.riccati_box_backward(*bw_args)
+    tab_args = bw_args[:11] + (lbt, ubt) + bw_args[13:]
+    pairs.append((bw, riccati.riccati_box_backward(*tab_args, per_knot_box=True)))
+    fs = _gaps(inp, lin)
+    pairs.append((riccati.riccati_boxfddp_backward(*bw_args[:9], fs, *bw_args[9:]),
+                  riccati.riccati_boxfddp_backward(*tab_args[:9], fs, *tab_args[9:],
+                                                   per_knot_box=True)))
+    roll = _roll_args(inp, bw)
+    roll_t = (tabled,) + roll[1:9] + (lbt, ubt)
+    pairs.append((vsa_kernels.rollout2(*roll), vsa_kernels.rollout2(*roll_t, tgt=tgt)))
+    pairs.append((vsa_kernels.rollout1(*roll[:6], *roll[7:]),
+                  vsa_kernels.rollout1(*roll_t[:6], *roll_t[7:], tgt=tgt)))
+    for shared, table in pairs:
+        _assert_all_bits(table, shared)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("nl", [3, 7])
+def test_ndof_table_instances_match_plain_version_to_the_bit(cuda, nl, batch, dtype):
+    """K1, K3 and K6 at the 3- and 7-DoF SEA arms with a target a knot (the
+    rollouts' table instances, K1's uniform branch) equal their plain
+    versions to the bit."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(nl, dtype, cuda, batch)
+    pk, tgt = per_knot_target(spec, T, dtype)
+    tgt = tgt.to(cuda)
+    _assert_all_bits(vsa_kernels.linearize(pk, xs, us, wterm, tgt),
+                     vsa_kernels.linearize_plain(pk, xs, us, wterm, tgt))
+    bw = riccati.riccati_fddp_plain(*derivs, fs, reg)
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    ones = torch.ones(batch, dtype=dtype, device=cuda)
+    infeas = (torch.arange(batch, device=cuda) % 3 == 0).to(dtype)
+    args = (pk, xs, us, k, K, xs[0].contiguous(), ones, 0.5 * ones, wterm, None, None, fs,
+            infeas, tgt)
+    _assert_all_bits(vsa_kernels.rollout2(*args), vsa_kernels.rollout2_plain(*args))
+    k6 = args[:6] + args[7:]
+    _assert_all_bits(vsa_kernels.rollout1(*k6), vsa_kernels.rollout1_plain(*k6))

@@ -4,7 +4,7 @@ BoxQP gains, clamped gap-contracting rollouts) against the JAX package.
 The port's counterparts of ``tests/test_lane_solver.py:114-140``, in the
 tight box of ``_tight_bounds`` there (in the preset's wide box the first
 infeasibility-resolving rollout is chaotic), at
-``tests/test_torch_lane_solver_fddp.py::check_against_jax``'s tolerances
+``tests/torch_lane_support.py::check_against_jax``'s tolerances
 with xs and us atol 1e-6, as there: the masked BoxQP under the gap
 deflection is ill-conditioned at reg=1e-9.
 """
@@ -17,17 +17,9 @@ from aslr_to_tpu.solvers.ddp import Bounds as JaxBounds
 from aslr_to_tpu.solvers.ddp import SolverSettings as JaxSettings
 from aslr_to_tpu.workloads.presets import two_dof_vsa_boxddp as jax_vsa
 from aslr_to_tpu_torch import Bounds, two_dof_vsa_boxddp
-from test_torch_lane_solver_fddp import check_against_jax, solve_port, x0_batch
+from torch_lane_support import check_against_jax, one_thread, solve_port, x0_batch  # noqa: F401
 
 TIGHT_BOX = ([-2.0, -2.0, 0.0, 0.0], [2.0, 2.0, 3.0, 3.0])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 CASES = {
@@ -46,5 +38,6 @@ def test_boxfddp_matches_jax(case):
     ref = jax_batched_solver(jax_vsa(T=T).problem, JaxSettings(**settings), use_gaps=True,
                              bounds=jb, use_fast_path=False)(jnp.asarray(x0s))
     tb = Bounds(*(torch.tensor(b, dtype=torch.float64) for b in TIGHT_BOX))
-    res = solve_port(two_dof_vsa_boxddp(T=T, device="cpu"), tb, x0s, settings, use_gaps=True)
+    res = solve_port(two_dof_vsa_boxddp(T=T, device="cpu").problem, tb, x0s, settings,
+                     use_gaps=True)
     check_against_jax(res, ref, atol=1e-6)

@@ -12,7 +12,8 @@ every knot, where ``log3`` takes its branch near pi and its sanitized
 tangents. The 3-DoF SEA arm's instance runs the same cases (T=6; B=1, 15
 and 33, a NaN scenario) and the 7-DoF arm's one at T=4, B=9, with scenario
 7 at one posture and the goal target turned so that its residual is a
-rotation by pi.
+rotation by pi. A target a knot, every row different, goes through the
+[T, 12] table on both arms at B=1, 15 and 200.
 
 The kernel performs its plain version's operations in the same order, so
 the two agree to the bit, NaNs included, in f64 and f32: the kernel builds
@@ -32,6 +33,7 @@ from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof
 from aslr_to_tpu_torch.ops.rigid_body import frame_placement
 from aslr_to_tpu_torch.kernels import build, vsa_kernels
 from cuda_on_cpu.gxx import gxx_library, ieee_sqrt, libm
+from cuda_on_cpu.tables import per_knot_target
 
 T = 6
 PI_SCENARIO = 7
@@ -191,3 +193,37 @@ def test_linearize_refuses_an_arm_it_has_no_instance_for(lin_lib):
     with pytest.raises(NotImplementedError, match="nl=3 vsa; its instances: nl=2 vsa, nl=2 sea"):
         vsa_kernels.linearize(spec, xs, us, wterm)
     assert build.LAUNCHES["linearize"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("arm", ["vsa", "sea"])
+def test_linearize_on_cpu_reads_the_target_table(lin_lib, arm, batch, dtype):
+    """A target a knot (the rows all differ): each running knot reads its
+    own row of the [T, 12] table, the terminal knot the parameter block's
+    target; equal to the plain version to the bit. A shared target sent
+    through the table's branch gives the shared route's bits."""
+    spec, xs, us, wterm = _args(arm, batch, dtype)
+    pk, tgt = per_knot_target(spec, T, dtype)
+    got = vsa_kernels.linearize(pk, xs, us, wterm, tgt)
+    _assert_equal_to_plain(got, vsa_kernels.linearize_plain(pk, xs, us, wterm, tgt))
+    assert bool(got.ok.all())
+    shared = vsa_kernels.linearize(spec, xs, us, wterm)
+    _assert_equal_to_plain(vsa_kernels.linearize(spec, xs, us, wterm,
+                                                 torch.tensor(spec.target_table(T, dtype))),
+                           shared)
+    assert not torch.equal(got.run["Lx"], shared.run["Lx"])
+    assert torch.equal(got.term["Lx"], shared.term["Lx"])
+
+
+@pytest.mark.parametrize("nl,batch,dtype", [
+    (3, 15, torch.float64), (3, 33, torch.float32), (7, 9, torch.float64)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_ndof_linearize_on_cpu_reads_the_target_table(lin_lib, nl, batch, dtype):
+    """K1's 3- and 7-DoF instances with a target a knot (T=6 at nl 3, T=4 at
+    nl 7): equal to the plain version to the bit."""
+    T_ = 6 if nl == 3 else 4
+    spec, xs, us, wterm = _ndof_args(nl, batch, dtype, T_=T_)
+    pk, tgt = per_knot_target(spec, T_, dtype)
+    _assert_equal_to_plain(vsa_kernels.linearize(pk, xs, us, wterm, tgt),
+                           vsa_kernels.linearize_plain(pk, xs, us, wterm, tgt))

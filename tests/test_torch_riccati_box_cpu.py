@@ -10,7 +10,9 @@ versions on ragged batches (one 16-scenario block and a partial one; B=15
 and B=33 take the one-element copies, B=40 the 16-byte ones), K2 and K5
 warm and cold, K4 at nu 2 (the SEA arm) and 4 (the VSA arm), with lanes at
 a negative reg and one NaN scenario; K4 also at the 3- and 7-DoF SEA arms'
-shapes (12, 3) and (28, 7). That checks the
+shapes (12, 3) and (28, 7); K2 and K5 with [T, nu] box tables (rows all
+different, one knot pinched) at B=1, 15 and 200, and with tables of equal
+rows against the shared box. That checks the
 group mapping, the exchanges, the staging and the ragged block without a
 card.
 
@@ -27,6 +29,7 @@ import torch
 from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
 from cuda_on_cpu.gxx import gxx_library, ieee_sqrt
+from cuda_on_cpu.tables import box_tables
 
 T = 6
 
@@ -198,3 +201,37 @@ def test_fddp_kernel_refuses_a_shape_it_has_no_instance_for(box_lib):
                        match="ndx=12 nu=6; its instances: ndx=8 nu=2, ndx=8 nu=4, ndx=12 nu=3"):
         riccati.riccati_fddp_backward(*args)
     assert build.LAUNCHES["riccati_fddp"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("kernel,nu,warm", [("riccati_box", 4, True), ("riccati_boxfddp", 4, False),
+                                            ("riccati_boxfddp", 2, True)])
+def test_box_kernel_on_cpu_reads_the_box_tables(box_lib, kernel, nu, warm, batch, dtype):
+    """K2 and K5 with [T, nu] box tables (rows all different, knot 3's
+    torques pinched): knot t's QP reads row t, staged with knot t's inputs;
+    equal to the plain version to the bit, and the pinched knot clamps."""
+    fn, plain, args = _args(kernel, nu, batch, warm, dtype)
+    args = list(args)
+    n = len(args)
+    args[n - 4], args[n - 3] = box_tables(T, nu, dtype, pinch=3)
+    got = fn(*args, per_knot_box=True)
+    _assert_same_bits(got, plain(*args, per_knot_box=True))
+    us = args[n - 6]
+    u3 = us[3, :2] - got.k[3, :2]
+    assert bool(((u3 - 0.05).abs() < 1e-6).any() | ((u3 + 0.05).abs() < 1e-6).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kernel,nu", [("riccati_box", 4), ("riccati_boxfddp", 4),
+                                       ("riccati_boxfddp", 2)])
+def test_box_kernel_on_cpu_equal_rows_give_the_shared_bits(box_lib, kernel, nu, dtype):
+    """Tables whose rows are all the shared box give the shared route's
+    bits, kernel against kernel."""
+    fn, _, args = _args(kernel, nu, 40, True, dtype)
+    args = list(args)
+    n = len(args)
+    shared = fn(*args)
+    args[n - 4], args[n - 3] = (b[:, 0][None].expand(T, nu).contiguous()
+                                for b in (args[n - 4], args[n - 3]))
+    _assert_same_bits(fn(*args, per_knot_box=True), shared)

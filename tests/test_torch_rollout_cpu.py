@@ -14,7 +14,9 @@ tail. Cases: the VSA arm in its box, the VSA arm with gaps in a tight box,
 and the SEA arm with gaps, unbounded; step lengths 1 and below 1, and
 infeasible lanes among feasible ones. The 3-DoF SEA arm's gap instances run
 at T=6 on the same batches (and one NaN trajectory), the 7-DoF arm's at
-T=5, B=9.
+T=5, B=9. The per-knot tables (a target a knot; [T, nu] boxes with one knot
+pinched; every row different) run on the VSA's box and the SEA's gaps at
+B=1, 15 and 200, and tables of equal rows against the shared route.
 
 The kernel performs its plain version's operations in the same order, so
 the two agree to the bit, NaNs included, in f64 and f32: the kernel builds
@@ -31,6 +33,7 @@ from aslr_to_tpu_torch import Bounds, seven_dof_sea, three_dof_sea, two_dof_sea
 from aslr_to_tpu_torch import two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, vsa_kernels
 from cuda_on_cpu.gxx import gxx_library, ieee_sqrt, libm
+from cuda_on_cpu.tables import box_tables, per_knot_target
 
 T = 6
 VARIANTS = ("vsa_box", "vsa_box_gaps", "sea_gaps")
@@ -39,12 +42,15 @@ DTYPES = dict(argnames="dtype", argvalues=[torch.float64, torch.float32], ids=["
 
 @pytest.fixture(scope="module")
 def roll_lib(tmp_path_factory):
-    """rollout.cu and its n-DoF units built for the CPU; the wrappers launch
+    """rollout.cu, its n-DoF units and the units of the table instances built
+    for the CPU; the wrappers launch
     them on CPU tensors, and the plain versions take the C library's
     transcendentals, while the fixture lasts."""
     handle = gxx_library(tmp_path_factory.mktemp("rollout_kernel"),
-                         ["rollout.cu", "rollout_n3.cu", "rollout_n7.cu"], "roll_smem",
-                         ["aslr_rollout2", "aslr_rollout1"])
+                         ["rollout.cu", "rollout_n3.cu", "rollout_n7.cu", "rollout_tables.cu",
+                          "rollout_n3_tables.cu", "rollout_n7_tables.cu"], "roll_smem",
+                         ["aslr_rollout2", "aslr_rollout1", "aslr_rollout2_tables",
+                          "aslr_rollout1_tables"])
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(vsa_kernels, "_route", lambda t: "kernel")
@@ -239,3 +245,77 @@ def test_rollout_refuses_a_variant_it_has_no_instance_for(roll_lib):
     with pytest.raises(NotImplementedError, match="nl=3 sea gaps, nl=7 sea gaps"):
         vsa_kernels.rollout1(*_k6_args(args))
     assert build.LAUNCHES == before
+
+
+def _table_args(variant, B, dtype):
+    """K3's arguments with a target a knot (its [T, 12] table) and, for the
+    VSA's box, [T, nu] box tables with knot 3's torques pinched; the rows
+    of each table all differ."""
+    args = list(_args(variant, B, dtype))
+    spec, tgt = per_knot_target(args[0], T, dtype)
+    if variant == "vsa_box":
+        lb, ub = box_tables(T, spec.nu, dtype, pinch=3)
+        spec = spec._replace(lb=lb.double().numpy(), ub=ub.double().numpy())
+        args[9], args[10] = lb, ub
+    args[0] = spec
+    return tuple(args) + (tgt,)
+
+
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("variant", ["vsa_box", "sea_gaps"])
+def test_rollouts_on_cpu_read_the_tables(roll_lib, variant, batch, dtype):
+    """K3 and K6 with the per-knot tables: each knot's clip reads its row
+    of the box tables, and each deferred running cost the target row of its
+    own knot (not the chain's); equal to the plain versions to the bit, and
+    K6 to K3's first trial."""
+    args = _table_args(variant, batch, dtype)
+    got = vsa_kernels.rollout2(*args)
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    assert float(torch.isfinite(got[1].cost).double().mean()) >= 0.5
+    if variant == "vsa_box":        # the pinched knot clamps
+        assert bool((got[0].us[3, :2].abs() == 0.05).any())
+    k6 = _k6_args(args)
+    one = vsa_kernels.rollout1(*k6)
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6))
+    first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
+    _assert_same_bits(one, first)
+
+
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_rollouts_on_cpu_equal_rows_give_the_shared_bits(roll_lib, variant, dtype):
+    """Tables whose rows are all the shared box and the shared target give
+    the shared route's xs, us and cost, kernel against kernel."""
+    args = list(_args(variant, 40, dtype))
+    spec = args[0]
+    shared = vsa_kernels.rollout2(*args)
+    tgt = torch.tensor(spec.target_table(T, dtype))
+    if spec.lb is not None:
+        lb, ub = (np.tile(np.asarray(b, dtype=float), (T, 1)) for b in (spec.lb, spec.ub))
+        args[0] = spec._replace(lb=lb, ub=ub)
+        args[9], args[10] = torch.tensor(lb, dtype=dtype), torch.tensor(ub, dtype=dtype)
+    tabled = vsa_kernels.rollout2(*args, tgt=tgt)
+    for g, w in zip(tabled, shared):
+        _assert_same_bits(g, w)
+
+
+@pytest.mark.parametrize(**dict(NDOF_CASES, argvalues=[
+    (3, 15, torch.float64), (3, 33, torch.float32), (7, 9, torch.float64)]))
+def test_ndof_rollouts_on_cpu_read_the_target_table(roll_lib, nl, batch, dtype):
+    """The 3- and 7-DoF table instances with a target a knot (T=6 at nl 3,
+    T=5 at nl 7): equal to the plain versions to the bit, K6 to K3's first
+    trial."""
+    T_ = 6 if nl == 3 else 5
+    args = list(_ndof_args(nl, batch, dtype, T_))
+    args[0], tgt = per_knot_target(args[0], T_, dtype)
+    args = tuple(args) + (tgt,)
+    got = vsa_kernels.rollout2(*args)
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    k6 = _k6_args(args)
+    one = vsa_kernels.rollout1(*k6)
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6))
+    first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
+    _assert_same_bits(one, first)
