@@ -10,8 +10,9 @@ the order given, runs in a process of its own that imports that tree's
 package and ``chip_smoke.py`` and times, with CUDA events over ``--reps``
 launches after a warm-up, every case of its ``kernel_cases`` at the paths'
 shapes in float32: K1 (VSA, SEA), K2, K4 (nu 2 and 4), K5, K3 and K6 (box,
-unbounded, SEA gaps) at T=100, B=4096, and K1, K4, K3 and K6 at the 3- and
-7-DoF arms' instances at T=100, B=1024. Each tree's build also reports its
+unbounded, SEA gaps) at T=100, B=4096, K1, K4, K3 and K6 at the 3- and
+7-DoF arms' instances at T=100, B=1024, and the 7-DoF ones again at
+B=4096. Each tree's build also reports its
 ``-Xptxas -v`` lines per instance (registers, stack frame, spills). The last
 line is one JSON record: per tree, the ptxas lines; per run, the times.
 Needs a CUDA device.
@@ -31,10 +32,11 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 from aslr_to_tpu_torch.kernels import build
 mode = sys.argv[1]
-build.lib()
-if mode == "build":
+if mode == "build":  # compiled anew, so that the log holds every ptxas line
+    build.build(force=True)
     print(json.dumps(dict(ptxas=cs.kernel_ptxas(build.build_log, build.lib()))))
     raise SystemExit
+build.lib()
 reps = int(sys.argv[2])
 torch.backends.cuda.matmul.allow_tf32 = False
 times = {}
@@ -42,6 +44,8 @@ for label, case in cs.kernel_cases(torch.float32).items():
     times[label] = cs.cuda_ms(case[0], reps)
 for label, case in cs.kernel_cases(torch.float32, 1024, ("sea3", "sea7"), T=100).items():
     times[f"{label} B=1024"] = cs.cuda_ms(case[0], reps)
+for label, case in cs.kernel_cases(torch.float32, 4096, ("sea7",), T=100).items():
+    times[f"{label} B=4096"] = cs.cuda_ms(case[0], reps)
 print(json.dumps(dict(times=times)))
 """
 

@@ -3,6 +3,7 @@ and K5 with BoxQP gains, K4 with Cholesky gains) on the card, to see what
 each part of its design is worth.
 
     python -m aslr_to_tpu_torch.box_variants [--batch 4096 16384]
+    python -m aslr_to_tpu_torch.box_variants --shape 28x7 [--batch 1024 4096]
 
 Each variant is the kernel's source (with ``boxqp.cuh`` and ``common.cuh``)
 after a few text substitutions, compiled by its own ``nvcc`` (all at once)
@@ -28,13 +29,24 @@ exact ones must equal it to the bit.
   group16/32     16 or 32 lanes a scenario
   threads64/256  blocks of 64 or 256 threads
 
-The base kernel also runs K2 and K5 at qp_iters 0, 1, 2, 4 and 8. Needs a
-CUDA device.
+The base kernel also runs K2 and K5 at qp_iters 0, 1, 2, 4 and 8. With
+``--shape 28x7``, K4 at the 7-DoF SEA arm's (28, 7) instead, on the inputs
+of chip_smoke's n-DoF kernel phase (its linearization at x0 = 0.05 randn,
+seed 0, nx = 28, the quasi-static controls and their gaps), against the
+variants of its wide layout:
+
+  wide_threads64 blocks of 64 threads (2 scenarios; 256 threads' eight
+                 scenarios do not fit a block in f64)
+  wide_park_f32  row r of Qxx parked in the exchange across the factor in
+                 f32 too (as in f64), not kept in registers
+
+Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import shutil
 import subprocess
 import time
@@ -73,11 +85,35 @@ VARIANTS = {
     "group32": [("riccati_box.cu", "  constexpr int G = kSweepGroup<NDX>;",
                  "  constexpr int G = 32;")],
     "threads64": _threads(64),
-    # K4's (28, 7) does not fit a block of 256 threads (8 scenarios' scratch)
-    "threads256": _threads(256) + [
-        ("riccati_box.cu",
-         "  if (ndx == 28 && nu == 7) return launch_shape<S, 28, 7, true, false>(a, st);\n", "")],
+    "threads256": _threads(256),
+    "wide_threads64": [("riccati_box.cu", "constexpr int kWideThreads = 128;",
+                        "constexpr int kWideThreads = 64;")],
+    "wide_park_f32": [("riccati_box.cu", "  constexpr bool PARK = sizeof(S) == 8;",
+                       "  constexpr bool PARK = true;")],
 }
+EXACT += ("wide_threads64", "wide_park_f32")
+# the variants each shape is timed in
+WIDE = ("wide_threads64", "wide_park_f32")
+SHAPES = {"2dof": [n for n in VARIANTS if n not in WIDE], "28x7": ["base", *WIDE]}
+
+
+def ptxas_lines(out, pattern):
+    """The ptxas report (registers, stack frame, spills) of each kernel of
+    nvcc's output ``out`` whose mangled name matches ``pattern``, a line
+    each: the name's kernel and template arguments, then the report."""
+    lines, name, frame = [], None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+        elif name and "stack frame" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line:
+            short = re.sub(r"^_ZN4aslr\d+|EEEvN.*$", "", name)
+            regs = line.split("Used")[1].split(",")[0].strip()
+            lines.append(f"{short}: {regs}; {frame}")
+            name = None
+    return lines
 
 
 def build_variants(names):
@@ -109,6 +145,8 @@ def build_variants(names):
         regs = [line.split("Used")[1].split(",")[0].strip() for line in out.splitlines()
                 if "Used" in line]
         print(f"built {name}: {', '.join(regs)}", flush=True)
+        for line in ptxas_lines(out, r"riccati_fddp_kernelI[fd]Li28E"):
+            print(f"  {name} {line}", flush=True)
         lib = ctypes.CDLL(str(root / name / "lib.so"))
         for base in ("aslr_riccati_box", "aslr_riccati_fddp"):
             for suffix in ("_f32", "_f64"):
@@ -156,6 +194,28 @@ def box_inputs(B, T=100, dtype=torch.float32):
     return {k: cases[k] for k in ("K2", "K5", "K4 SEA", "K4 VSA")}
 
 
+def box_inputs_n7(B, T=100, dtype=torch.float32):
+    """{case: (call of qp_iters, False)}: K4 at (28, 7) on the 7-DoF SEA
+    arm, on chip_smoke's n-DoF kernel-phase inputs."""
+    from . import seven_dof_sea
+    from .kernels import vsa_kernels as vk
+    from .measure import x0_batch
+
+    w = seven_dof_sea(T=T, dtype=dtype)
+    spec = vk.extract_vsa_spec(w.problem, w.bounds)
+    x0 = x0_batch(B, dtype, seed=0, nx=spec.ndx).T.contiguous()
+    xs = x0.expand(T + 1, spec.ndx, B).contiguous()
+    us = w.problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lin = vk.linearize_plain(spec, xs, us, torch.full((B,), spec.w_goal_term, dtype=dtype,
+                                                       device="cuda"))
+    r = lin.run
+    fs = torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+    reg = torch.full((B,), 1e-9, dtype=dtype, device="cuda")
+    a = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"], lin.term["Lx"],
+         lin.term["Lxx"], fs, reg)
+    return {"K4 (28, 7)": (lambda it: rk.riccati_fddp_backward(*a), False)}
+
+
 def cuda_ms(fn, reps=10):
     fn()
     torch.cuda.synchronize()
@@ -175,20 +235,25 @@ def same_bits(a, b):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[4096, 16384])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="2dof",
+                    help="2dof: K2, K5 and K4 on the 2-DoF arms; 28x7: K4 on the 7-DoF arm")
+    ap.add_argument("--batch", type=int, nargs="+",
+                    help="batches (default 4096 16384; 1024 4096 at 28x7)")
     args = ap.parse_args(argv)
+    batches = args.batch or ([4096, 16384] if args.shape == "2dof" else [1024, 4096])
+    inputs = box_inputs if args.shape == "2dof" else box_inputs_n7
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on the card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    libs = build_variants(list(VARIANTS))
+    libs = build_variants(SHAPES[args.shape])
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     own = build._lib
     try:
-        for B in args.batch:
-            for kernel, (fn, takes_qp) in box_inputs(B).items():
+        for B in batches:
+            for kernel, (fn, takes_qp) in inputs(B).items():
                 build._lib = libs["base"]
                 want = fn(2)
                 for name, lib in libs.items():

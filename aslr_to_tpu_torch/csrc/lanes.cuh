@@ -133,15 +133,39 @@ __device__ inline void frame_placement(const VSAParams<NL>& P, const V* q, Mat3<
   p = v_add(m_vec(rot_f, v_const<V>(P.frame_pos)), trans_f);
 }
 
-// inverse dynamics of the serial chain (ops/lanes.py::rnea_lanes)
-template <class V, int NL>
+// one joint's constants, and its frame's rotation in its parent's at angle
+// q: rot R(axis, q), as rnea computes it
+struct Joint {
+  double rot[3][3], axis[3];
+};
+template <class V>
+__device__ inline Mat3<V> joint_rotation(const Joint& j, V q) {
+  return m_mul(m_const<V>(j.rot), rot_axis_angle(j.axis, q));
+}
+// joint i's constants, i a value (a select over the chain, no indexed load)
+template <int NL>
+__device__ inline Joint joint_of(const VSAParams<NL>& P, int i) {
+  Joint j;
+  for (int k = 0; k < NL; ++k)
+    for (int a = 0; a < 3; ++a) {
+      for (int b = 0; b < 3; ++b) j.rot[a][b] = k == 0 || k == i ? P.joint_rot[k][a][b] : j.rot[a][b];
+      j.axis[a] = k == 0 || k == i ? P.axis[k][a] : j.axis[a];
+    }
+  return j;
+}
+
+// inverse dynamics of the serial chain (ops/lanes.py::rnea_lanes); with
+// GIVEN, the joints' rotations (joint_rotation of q) come in Eg
+template <class V, int NL, bool GIVEN = false>
 __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, const V* a,
-                            bool gravity, V* tau) {
+                            bool gravity, V* tau, const Mat3<V>* Eg = nullptr) {
   Mat3<V> Es[NL];
   Vec3<V> vs[NL], ws[NL], als[NL], aas[NL], f_lin[NL], f_ang[NL];
   const Vec3<V> zero = v_zero<V>();
   for (int i = 0; i < NL; ++i) {
-    Mat3<V> E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
+    Mat3<V> E;
+    if constexpr (GIVEN) E = Eg[i];
+    else E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
     const auto p = v_const<V>(P.joint_pos[i]);
     Es[i] = E;
     Vec3<V> vp, wp, ap, alp;
@@ -202,15 +226,16 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
 // gravity), c > 0 column c - 1 of M (no velocity, unit acceleration of
 // link c - 1, no gravity). c may differ from thread to thread: the inputs
 // are chosen by value, so every sweep runs the same instructions.
-template <class V, int NL>
+// With GIVEN, the joints' rotations come in Eg.
+template <class V, int NL, bool GIVEN = false>
 __device__ inline void mass_nle_sweep(const VSAParams<NL>& P, const V* q, const V* v, int c,
-                                      V* out) {
+                                      V* out, const Mat3<V>* Eg = nullptr) {
   V vc[NL], ac[NL];
   for (int i = 0; i < NL; ++i) {
     vc[i] = c == 0 ? v[i] : V(cst<V>(0.0));
     ac[i] = V(cst<V>(c == i + 1 ? 1.0 : 0.0));
   }
-  rnea<V, NL>(P, q, vc, ac, c == 0, out);
+  rnea<V, NL, GIVEN>(P, q, vc, ac, c == 0, out, Eg);
 }
 
 // mass matrix M (from unit-acceleration RNEA columns) and nle

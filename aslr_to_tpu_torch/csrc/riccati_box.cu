@@ -44,21 +44,18 @@
 //     __all_sync / __ballot_sync on that mask, never the whole warp's.
 //     Wider groups (16, 32 lanes) run slower: the work every lane of a
 //     group repeats (the QP, the Cholesky) then serves fewer scenarios a
-//     warp instruction. K4's n-DoF shapes take the next power of two at or
-//     above ndx: 16 lanes at (12, 3), a whole warp at (28, 7); the lanes
-//     past ndx own no row but meet every barrier, vote and shuffle of their
-//     group;
+//     warp instruction. K4 at (12, 3) takes the next power of two at or
+//     above ndx, 16 lanes; the lanes past ndx own no row but meet every
+//     barrier, vote and shuffle of their group. K4 at (28, 7), a whole warp
+//     a scenario, has a layout of its own (fddp_sweep_wide, below);
 //   - stages each knot's inputs in shared memory with cp.async, coalesced
 //     along the batch axis ([rows, scenarios] tiles, 16-byte copies where
 //     the batch stride and the pointers allow, else one element a copy),
 //     double-buffered: knot t-1's copy is in flight while knot t computes,
 //     so no global load sits on the dependent chain. K4 stages no controls,
-//     warm start or box. At (28, 7) in f64 two stages and the scratch
-//     would take 253.5 KB of the 227 KB a block may have: that instance
-//     stages one knot at a time, copied after every lane is done with the
-//     knot before (Sweep's NST). With the box tables, knot t's two rows ride
-//     in the same commit into a slot of their own after the scratch (a slot
-//     a stage, allocated only when the tables are given);
+//     warm start or box. With the box tables, knot t's two rows ride in the
+//     same commit into a slot of their own after the scratch (a slot a
+//     stage, allocated only when the tables are given);
 //   - runs the factor and the solves redundantly on every lane of the group
 //     (a SIMT instruction costs the same on one lane or eight); the BoxQP's
 //     five Armijo trials on five lanes (accepted in order by a ballot, the
@@ -70,12 +67,13 @@
 //     few zero dividends and divides plainly (kCholSkip0).
 // aslr_to_tpu_torch/box_variants.py times each of these choices against
 // its alternative on the card.
-// The products are 8x8x8 per scenario, each scenario with its own
-// operands, so no tensor cores: TF32 would cut f32 precision, and f64 DMMA
-// would change the summation order. Every dot product runs in one thread
-// in the order of its plain version (aslr_to_tpu_torch/kernels/riccati.py),
-// and the build has -fmad=false, so the kernel equals its plain version to
-// the bit; FMA contraction would trade that for a tolerance.
+// The products are 8x8x8 per scenario (28x28x28 at (28, 7)), each
+// scenario with its own operands, so no tensor cores: TF32 would cut f32
+// precision, and f64 DMMA would change the summation order. Every dot
+// product runs in one thread in the order of its plain version
+// (aslr_to_tpu_torch/kernels/riccati.py), and the build has -fmad=false,
+// so the kernel equals its plain version to the bit; FMA contraction would
+// trade that for a tolerance.
 //
 // The ragged last block keeps its out-of-range groups in every barrier:
 // they compute on whatever the stage holds and skip their loads and stores.
@@ -98,13 +96,12 @@ struct BoxSweep {
 constexpr int kSweepThreads = 128;
 constexpr bool kCholSkip0 = false;  // K4's Cholesky skips zero dividends (boxqp.cuh::div0)
 
-// The block's shared memory: NST stages of knot inputs (2: double-buffered;
-// 1 where two do not fit), each a [rows, P] tile (P = scenarios a block plus
-// 16 bytes, which spreads a warp's scenarios over the banks), then one
-// scratch region a scenario.
-template <class S, int NDX, int NU, int G, bool GAPS, bool QP, int NST>
+// The block's shared memory: two stages of knot inputs (double-buffered),
+// each a [rows, P] tile (P = scenarios a block plus 16 bytes, which spreads
+// a warp's scenarios over the banks), then one scratch region a scenario.
+template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
 struct Sweep {
-  static constexpr int SPB = kSweepThreads / G, NSTAGE = NST, NUS = NU;
+  static constexpr int SPB = kSweepThreads / G, NSTAGE = 2, NUS = NU;
   // 16-byte copies, or narrower where a block holds fewer scenarios
   static constexpr int VEC = 16 / (int)sizeof(S) < SPB ? 16 / (int)sizeof(S) : SPB;
   static constexpr int P = SPB + VEC;
@@ -124,19 +121,13 @@ struct Sweep {
                        oQu = oX + NDX * NDX, oQuu = oQu + NU, oK = oQuu + NU * NU,
                        USED = oK + NU * NDX;
   static constexpr int SC = (USED + 31) / 32 * 32 + 8;  // four scenarios of a warp, 8 banks apart
-  static constexpr size_t BYTES = (size_t)(NST * STAGE + SPB * SC) * sizeof(S);
+  static constexpr size_t BYTES = (size_t)(NSTAGE * STAGE + SPB * SC) * sizeof(S);
   // after the scratch, where the box tables are given: each stage's knot's
   // rows of them (lb, then ub), copied with the stage
-  static constexpr int oBox = NST * STAGE + SPB * SC;
-  static constexpr size_t BOX_BYTES = QP ? (size_t)NST * 2 * NU * sizeof(S) : 0;
+  static constexpr int oBox = NSTAGE * STAGE + SPB * SC;
+  static constexpr size_t BOX_BYTES = QP ? (size_t)NSTAGE * 2 * NU * sizeof(S) : 0;
   static constexpr bool FITS = BYTES + BOX_BYTES <= kMaxSmem;
 };
-
-// two stages where they fit in a block's shared memory (every shape but
-// (28, 7) in f64, whose two stages and scratch take 253.5 KB), else one
-template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
-using SweepOf = Sweep<S, NDX, NU, G, GAPS, QP,
-                      Sweep<S, NDX, NU, G, GAPS, QP, 2>::FITS ? 2 : 1>;
 
 // lanes a scenario: lane r owns row r, so the next power of two at or above
 // ndx (8, 16 and 32 at ndx 8, 12 and 28; lanes past ndx own no row)
@@ -195,7 +186,7 @@ __device__ inline void stage(const BoxSweep<S>& a, S* stages, long long t, int b
 
 template <class S, int NDX, int NU, int G, bool GAPS, bool QP>
 __device__ inline void box_sweep(const BoxSweep<S>& a) {
-  using L = SweepOf<S, NDX, NU, G, GAPS, QP>;
+  using L = Sweep<S, NDX, NU, G, GAPS, QP>;
   extern __shared__ __align__(16) unsigned char sweep_smem[];
   S* const stages = reinterpret_cast<S*>(sweep_smem);
   const int tid = threadIdx.x, s = tid / G;
@@ -259,7 +250,7 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   for (int t = a.T - 1; t >= 0; --t) {
     __pipeline_wait_prior(0);
     __syncthreads();  // knot t staged; every lane done with knot t+1's stage
-    if (L::NSTAGE == 2 && t > 0) stage<L>(a, stages, t - 1, b0, tid);
+    if (t > 0) stage<L>(a, stages, t - 1, b0, tid);
     const S* const st = stages + (t % L::NSTAGE) * L::STAGE + s;
     auto in = [&](int row) { return st[row * L::P]; };
     const long long kt = t;
@@ -433,10 +424,6 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
       dgg = dgg - s1;
       dqg = dqg + s2;
     }
-    if (L::NSTAGE == 1 && t > 0) {  // one stage: knot t - 1's copy waits for knot t's reads
-      __syncthreads();
-      stage<L>(a, stages, t - 1, b0, tid);
-    }
   }
   grp.sync();
   bool ok = finite(dg) && finite(stop) && (GAPS || finite(dq));
@@ -454,6 +441,359 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   }
 }
 
+// K4 above ndx 16 (the 7-DoF arm's (28, 7)): the wide layout. A scenario
+// is a whole warp there (lane r row r, lanes past ndx repeat the last),
+// and the general layout's [rows, scenarios] tile served it badly: a lane
+// reading its own row (Lxx, Lxu, the exchanged V) or column (Fx) strides
+// the tile by whole rows, so its 28 lanes met in a few banks (28-way on
+// Lxx), every row that all lanes read (Fx, Fu, Vxx, K) took one load an
+// element, and the 16-byte padding that spread four scenarios of a warp
+// over the banks doubled a tile that let only one block of four scenarios
+// on an SM (B = 1024 in two waves). Here each scenario's knot is a
+// contiguous tile of its own (its sections one after another, each on a
+// 16-byte boundary), so
+//   - a row every lane reads is a broadcast;
+//   - a lane's own row of Lxx and of the exchanged V strides the tile by
+//     28 words a lane, so each f32 read meets four lanes a bank (the
+//     general layout's 28), its column of Fx is a run of consecutive words
+//     and its row of Lxu a stride of 7 words: no conflict (16-byte loads
+//     of those rows ran within 1.5% of these, PERF.md);
+//   - the tile pitch is 32 bytes past a multiple of 128, so the element
+//     copies that stage it (four scenarios of eight rows a warp) write 32
+//     different banks; the knot's copy is in flight while the knot before
+//     computes, in f64 too: two stages and the scratch take 96,896 bytes
+//     in f32 (two blocks an SM: every scenario of B = 1024 in one wave)
+//     and 193,472 in f64;
+//   - the row loops run 16 bytes of outputs at a time (rows_dot), so only
+//     their sums are live, and in f64 a lane's row of Qxx waits out the
+//     factor and solves in the exchange (PARK), where its 56 registers
+//     would spill.
+// box_variants.py --shape 28x7 times each choice against its alternative.
+constexpr int kWideNdx = 16;        // K4 above this ndx takes the wide layout
+constexpr int kWideThreads = 128;   // a block of the wide layout: a warp a scenario
+
+// n values of `size` bytes rounded up to whole 16 bytes, in values
+constexpr int up16(int n, int size) { return (n * size + 15) / 16 * 16 / size; }
+// the least pitch of at least n values of `size` bytes that is 32 bytes
+// past a multiple of 128
+constexpr int spread128(int n, int size) { return ((n * size + 95) / 128 * 128 + 32) / size; }
+
+template <class S, int NDX_, int NU_>
+struct WideSweep {
+  static constexpr int NDX = NDX_, NU = NU_, G = 32, THREADS = kWideThreads,
+                       SPB = THREADS / G, VEC = 16 / (int)sizeof(S), Z = (int)sizeof(S);
+  // a scenario's knot tile: its sections, each on a 16-byte boundary
+  static constexpr int rFx = 0, rFu = rFx + up16(NDX * NDX, Z), rLxx = rFu + up16(NDX * NU, Z),
+                       rLxu = rLxx + up16(NDX * NDX, Z), rLuu = rLxu + up16(NDX * NU, Z),
+                       rLx = rLuu + up16(NU * NU, Z), rFs = rLx + up16(NDX, Z),
+                       rLu = rFs + up16(NDX, Z), ROWS = rLu + up16(NU, Z);
+  static constexpr int PITCH = spread128(ROWS, Z), STAGE = SPB * PITCH;
+  // scratch, per scenario: as the general layout's, each on a 16-byte boundary
+  static constexpr int oVxx = 0, oVx = up16(NDX * NDX, Z), oW = oVx + up16(NDX, Z),
+                       oX = oW + up16(NDX, Z), oQu = oX + up16(NDX * NDX, Z),
+                       oQuu = oQu + up16(NU, Z), oK = oQuu + up16(NU * NU, Z),
+                       SC = oK + up16(NU * NDX, Z);
+  static constexpr size_t BYTES = (size_t)(2 * STAGE + SPB * SC) * sizeof(S);
+  static_assert(NDX <= G && NDX % VEC == 0, "a warp a scenario; rows of whole 16 bytes");
+  static_assert(PITCH * sizeof(S) % 128 == 32, "the copies spread over the banks");
+};
+
+// out[m] (m < N, N a multiple of the values in 16 bytes) = the sum over
+// rows i < R of x[i] rows[i * N + m], each sum from i = 0 up as the plain
+// version's dot products; 16 bytes of the outputs at a time, so that only
+// their sums are live
+template <int R, int N, class S>
+__device__ inline void rows_dot(const S* x, const S* rows, S* out) {
+  constexpr int V = 16 / (int)sizeof(S);
+  static_assert(N % V == 0, "rows of whole 16-byte runs of outputs");
+#pragma unroll
+  for (int m0 = 0; m0 < N; m0 += V) {
+    S acc[V];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const S v = rows[i * N + m0 + q];
+        acc[q] = i == 0 ? x[0] * v : acc[q] + x[i] * v;
+      }
+#pragma unroll
+    for (int q = 0; q < V; ++q) out[m0 + q] = acc[q];
+  }
+}
+
+// f(e, p[e]) for e = 0 .. N - 1, in order
+template <int N, class S, class F>
+__device__ inline void each(const S* p, F f) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) f(e, p[e]);
+}
+
+// knot t of every input into the scenarios' tiles of one stage, an element
+// a copy: thread tid copies scenario tid mod SPB's rows tid / SPB + 32 k of
+// each section
+template <class L, class S>
+__device__ inline void wide_rows(S* dst, const S* src, int rows, long long t, long long TB,
+                                 int b0, int tid) {
+  constexpr int RPT = L::THREADS / L::SPB;  // rows a pass
+  const int s = tid % L::SPB;
+  if (b0 + s >= TB) return;
+  const S* base = src + t * rows * TB + b0 + s;
+  S* const d = dst + s * L::PITCH;
+  for (int row = tid / L::SPB; row < rows; row += RPT)
+    __pipeline_memcpy_async(d + row, base + row * TB, sizeof(S));
+}
+
+template <class L, class S>
+__device__ inline void wide_stage(const BoxSweep<S>& a, S* stages, long long t, int b0,
+                                  int tid) {
+  constexpr int NDX = L::NDX, NU = L::NU;
+  S* const dst = stages + (t & 1) * L::STAGE;
+  const long long TB = a.B;
+  wide_rows<L>(dst + L::rFx, a.Fx, NDX * NDX, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rFu, a.Fu, NDX * NU, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rLxx, a.Lxx, NDX * NDX, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rLxu, a.Lxu, NDX * NU, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rLuu, a.Luu, NU * NU, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rLx, a.Lx, NDX, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rFs, a.fs, NDX, t, TB, b0, tid);
+  wide_rows<L>(dst + L::rLu, a.Lu, NU, t, TB, b0, tid);
+  __pipeline_commit();
+}
+
+// K4 in the wide layout: the values and the order of every sum as
+// box_sweep's Cholesky instance with gaps (and its plain version's)
+template <class S, int NDX, int NU>
+__device__ inline void fddp_sweep_wide(const BoxSweep<S>& a) {
+  using L = WideSweep<S, NDX, NU>;
+  constexpr int G = L::G;
+  // row r of Qxx waits out the factor in shared memory in f64, where its
+  // 56 registers would spill
+  constexpr bool PARK = sizeof(S) == 8;
+  extern __shared__ __align__(16) unsigned char sweep_smem[];
+  S* const stages = reinterpret_cast<S*>(sweep_smem);
+  const int tid = threadIdx.x, s = tid / G;
+  const Group<G> grp;
+  const int r = grp.lane < NDX ? grp.lane : NDX - 1;  // lanes past NDX repeat the last row
+  const bool own = grp.lane < NDX;
+  const int b0 = blockIdx.x * L::SPB;
+  const long long TB = a.B, b = b0 + s;
+  const bool live = b < TB;
+  const long long bc = live ? b : TB - 1;  // where an out-of-range warp reads
+  S* const my = stages + 2 * L::STAGE + s * L::SC;
+  S *const vxx = my + L::oVxx, *const vx = my + L::oVx, *const ws = my + L::oW;
+  S *const xs = my + L::oX, *const qus = my + L::oQu, *const quus = my + L::oQuu;
+  S* const ks = my + L::oK;
+
+  if (a.T > 0) wide_stage<L>(a, stages, a.T - 1, b0, tid);
+
+  const S reg = a.reg[bc];
+  // terminal node: Vxx = tLxx + reg I (row r), Vx = tLx + w_T, w_T = Vxx fs_T
+  S vrow[NDX];
+  for (int m = 0; m < NDX; ++m) {
+    vrow[m] = a.tLxx[(r * NDX + m) * TB + bc];
+    if (m == r) vrow[m] = vrow[m] + reg;
+  }
+  S vx_r = a.tLx[r * TB + bc];
+  {
+    S acc = vrow[0] * a.fs[((long long)a.T * NDX) * TB + bc];
+    for (int j = 1; j < NDX; ++j) acc = acc + vrow[j] * a.fs[((long long)a.T * NDX + j) * TB + bc];
+    vx_r = vx_r + acc;
+    if (own) ws[r] = acc;
+    if (own && live) a.w[((long long)a.T * NDX + r) * TB + b] = acc;
+  }
+  if (own) {
+    vx[r] = vx_r;
+    for (int m = 0; m < NDX; ++m) vxx[r * NDX + m] = vrow[m];
+  }
+  S dg = S(0), dq = S(0), stop = S(0), dgg = S(0), dqg = S(0);
+  grp.sync();
+  {
+    S s1 = vx[0] * a.fs[((long long)a.T * NDX) * TB + bc];
+    S s2 = a.fs[((long long)a.T * NDX) * TB + bc] * ws[0];
+    for (int i = 1; i < NDX; ++i) {
+      const S f = a.fs[((long long)a.T * NDX + i) * TB + bc];
+      s1 = s1 + vx[i] * f;
+      s2 = s2 + f * ws[i];
+    }
+    dgg = -s1;
+    dqg = s2;
+  }
+  bool indef = false;
+
+  for (int t = a.T - 1; t >= 0; --t) {
+    __pipeline_wait_prior(0);
+    __syncthreads();  // knot t staged; every lane done with knot t+1's stage
+    if (t > 0) wide_stage<L>(a, stages, t - 1, b0, tid);
+    const S* const in = stages + (t & 1) * L::STAGE + s * L::PITCH;
+    const S* const Fx = in + L::rFx;
+    const S* const Fu = in + L::rFu;
+    const long long kt = t;
+
+    // column r of Fx; Qx[r] = Lx + Fx^T Vx; Qu = Lu + Fu^T Vx (entry lane % NU)
+    S fxc[NDX], Vx[NDX];
+    for (int i = 0; i < NDX; ++i) fxc[i] = Fx[i * NDX + r];
+    each<NDX>(vx, [&](int m, S v) { Vx[m] = v; });
+    S qx;
+    {
+      S acc = fxc[0] * Vx[0];
+      for (int m = 1; m < NDX; ++m) acc = acc + fxc[m] * Vx[m];
+      qx = in[L::rLx + r] + acc;
+    }
+    {
+      const int j = grp.lane % NU;
+      S acc = Fu[j] * Vx[0];
+      for (int m = 1; m < NDX; ++m) acc = acc + Fu[m * NU + j] * Vx[m];
+      if (grp.lane < NU) qus[j] = in[L::rLu + j] + acc;
+    }
+    // row r of FxTVxx = Fx^T Vxx
+    S ftv[NDX];
+    rows_dot<NDX, NDX>(fxc, vxx, ftv);
+    // column r of FuTVxx = Fu^T Vxx (exchanged) and row r of Qxu = Lxu +
+    // FxTVxx Fu, Fu row by row
+    S fvc[NU], qxu[NU];
+    S vc = S(0);
+    each<NDX * NU>(Fu, [&](int e, S f) {
+      const int i = e / NU, j = e % NU;
+      if (j == 0) vc = vxx[i * NDX + r];
+      fvc[j] = i == 0 ? f * vc : fvc[j] + f * vc;
+      qxu[j] = i == 0 ? ftv[0] * f : qxu[j] + ftv[i] * f;
+    });
+    for (int j = 0; j < NU; ++j) {
+      if (own) xs[j * NDX + r] = fvc[j];
+      qxu[j] = in[L::rLxu + r * NU + j] + qxu[j];
+    }
+    // row r of Qxx = Lxx + FxTVxx Fx
+    S qxx[NDX];
+    rows_dot<NDX, NDX>(ftv, Fx, qxx);
+    each<NDX>(in + L::rLxx + r * NDX, [&](int m, S l) { qxx[m] = l + qxx[m]; });
+    grp.sync();
+    // Quu = Luu + FuTVxx Fu + reg I, its entries spread over the lanes
+    for (int e = grp.lane; e < NU * NU; e += G) {
+      const int i = e / NU, j = e % NU;
+      S acc = xs[i * NDX] * Fu[j];
+      for (int m = 1; m < NDX; ++m) acc = acc + xs[i * NDX + m] * Fu[m * NU + j];
+      S v = in[L::rLuu + e] + acc;
+      if (i == j) v = v + reg;
+      quus[e] = v;
+    }
+    grp.sync();
+    // row r of Qxx, not needed before V, parked in the exchange (column r)
+    // while the factor and solves take the registers
+    if (PARK && own)
+      for (int m = 0; m < NDX; ++m) xs[m * NDX + r] = qxx[m];
+    S Qu[NU];
+    bool quu_ok = true;
+    each<NU>(qus, [&](int i, S v) { Qu[i] = v; });
+
+    // k = Quu^-1 Qu; column r of K = Quu^-1 (row r of Qxu)
+    S k[NU], kc[NU];
+    {
+      S Quu[NU][NU], Lf[NU][NU];
+      each<NU * NU>(quus, [&](int e, S v) {
+        Quu[e / NU][e % NU] = v;
+        quu_ok = quu_ok && finite(v);
+      });
+      chol<S, NU, kCholSkip0>(Quu, Lf);
+      chol_solve<S, NU, kCholSkip0>(Lf, Qu, k);
+      chol_solve<S, NU, kCholSkip0>(Lf, qxu, kc);
+    }
+    if (own)
+      for (int i = 0; i < NU; ++i) ks[i * NDX + r] = kc[i];
+
+    // Vx[r] = Qx + K^T Quu k - 2 K^T Qu (Quu read again from the exchange)
+    S Quuk[NU];
+    each<NU * NU>(quus, [&](int e, S v) {
+      const int i = e / NU, j = e % NU;
+      Quuk[i] = j == 0 ? v * k[0] : Quuk[i] + v * k[j];
+    });
+    bool out_ok = true;
+    for (int j = 0; j < NU; ++j) out_ok = out_ok && finite(k[j]) && finite(kc[j]);
+    {
+      S a1 = kc[0] * Quuk[0], a2 = kc[0] * Qu[0];
+      for (int i = 1; i < NU; ++i) {
+        a1 = a1 + kc[i] * Quuk[i];
+        a2 = a2 + kc[i] * Qu[i];
+      }
+      vx_r = qx + a1 - S(2) * a2;
+    }
+    grp.sync();
+    // row r of V = Qxx - Qxu K (into the exchange, which FuTVxx has left);
+    // every lane reads its parked row before any lane writes V over it
+    if constexpr (PARK) {
+      for (int m = 0; m < NDX; ++m) qxx[m] = xs[m * NDX + r];
+      grp.sync();
+    }
+    rows_dot<NU, NDX>(qxu, ks, vrow);
+    for (int m = 0; m < NDX; ++m) {
+      vrow[m] = qxx[m] - vrow[m];
+      if (own) xs[m * NDX + r] = vrow[m];
+    }
+    grp.sync();
+    // Vxx = sym(V) + reg I; row r equals column r, which lane r stores
+    each<NDX>(xs + r * NDX, [&](int m, S v) {
+      S w = S(0.5) * (vrow[m] + v);
+      if (m == r) w = w + reg;
+      vrow[m] = w;
+      out_ok = out_ok && finite(w);
+    });
+    S fsn[NDX];
+    each<NDX>(in + L::rFs, [&](int j, S v) { fsn[j] = v; });
+    S w_r;
+    {  // deflection w_t = Vxx_t fs_t; Vx += w_t
+      S acc = vrow[0] * fsn[0];
+      for (int j = 1; j < NDX; ++j) acc = acc + vrow[j] * fsn[j];
+      w_r = acc;
+      vx_r = vx_r + acc;
+    }
+    out_ok = out_ok && finite(vx_r);
+    if (own) {
+      vx[r] = vx_r;
+      ws[r] = w_r;
+      for (int m = 0; m < NDX; ++m) vxx[m * NDX + r] = vrow[m];
+    }
+    out_ok = grp.all(out_ok);
+    indef = indef || (quu_ok && !out_ok);
+
+    if (live) {
+      for (int j = 0; j < NU; ++j)
+        if (grp.lane == j) a.k[(kt * NU + j) * TB + b] = k[j];
+      if (own) {
+        for (int i = 0; i < NU; ++i) a.K[((kt * NU + i) * NDX + r) * TB + b] = kc[i];
+        a.w[(kt * NDX + r) * TB + b] = w_r;
+      }
+    }
+    S sg = Qu[0] * k[0], sq = k[0] * Quuk[0], ss = Qu[0] * Qu[0];
+    for (int j = 1; j < NU; ++j) {
+      sg = sg + Qu[j] * k[j];
+      sq = sq + k[j] * Quuk[j];
+      ss = ss + Qu[j] * Qu[j];
+    }
+    dg = dg + sg;
+    dq = dq - sq;
+    stop = stop + ss;
+    grp.sync();
+    {
+      S s1 = S(0), s2 = S(0);
+      each<NDX>(vx, [&](int i, S v) { s1 = i == 0 ? v * fsn[0] : s1 + v * fsn[i]; });
+      each<NDX>(ws, [&](int i, S v) { s2 = i == 0 ? fsn[0] * v : s2 + fsn[i] * v; });
+      dgg = dgg - s1;
+      dqg = dqg + s2;
+    }
+  }
+  grp.sync();
+  bool ok = finite(dg) && finite(stop);
+  for (int i = 0; i < NDX; ++i) ok = ok && finite(vx[i]);
+  if (live && grp.lane == 0) {
+    a.dg[b] = dg;
+    a.dq[b] = dq;
+    a.stop[b] = stop;
+    a.dgg[b] = dgg;
+    a.dqg[b] = dqg;
+    a.ok[b] = ok;
+    a.retryable[b] = indef;
+  }
+}
+
 // three entry kernels over one body, so that a profile tells K2, K4 and K5
 // apart
 template <class S, int NDX, int NU, int G>
@@ -466,15 +806,43 @@ __global__ void __launch_bounds__(kSweepThreads) riccati_boxfddp_kernel(const Bo
   box_sweep<S, NDX, NU, G, true, true>(a);
 }
 
+// K4's block: the wide layout's above kWideNdx, else the general one's
+template <int NDX>
+constexpr int kFddpThreads = NDX > kWideNdx ? kWideThreads : kSweepThreads;
+
 template <class S, int NDX, int NU, int G>
-__global__ void __launch_bounds__(kSweepThreads) riccati_fddp_kernel(const BoxSweep<S> a) {
-  box_sweep<S, NDX, NU, G, true, false>(a);
+__global__ void __launch_bounds__(kFddpThreads<NDX>) riccati_fddp_kernel(const BoxSweep<S> a) {
+  if constexpr (NDX > kWideNdx) fddp_sweep_wide<S, NDX, NU>(a);
+  else box_sweep<S, NDX, NU, G, true, false>(a);
 }
 
+// K4 in the wide layout: the dynamic shared memory its kernel may take, set
+// once (a static function, so that each loaded build of this source sets
+// its own kernel's), and its launch
+template <class S, int NDX, int NU>
+static cudaError_t wide_allow() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      riccati_fddp_kernel<S, NDX, NU, 32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WideSweep<S, NDX, NU>::BYTES);
+  return attr;
+}
+
+template <class S, int NDX, int NU>
+static int launch_wide(const BoxSweep<S>& a, cudaStream_t stream) {
+  using L = WideSweep<S, NDX, NU>;
+  static_assert(L::BYTES <= kMaxSmem, "two stages and the scratch fit in a block");
+  const cudaError_t attr = wide_allow<S, NDX, NU>();
+  if (attr != cudaSuccess) return (int)attr;
+  const int grid = (a.B + L::SPB - 1) / L::SPB;
+  riccati_fddp_kernel<S, NDX, NU, L::G><<<grid, L::THREADS, L::BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the general layout's launch
 template <class S, int NDX, int NU, bool GAPS, bool QP>
-static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
+static int launch_group(const BoxSweep<S>& a, cudaStream_t stream) {
   constexpr int G = kSweepGroup<NDX>;
-  using L = SweepOf<S, NDX, NU, G, GAPS, QP>;
+  using L = Sweep<S, NDX, NU, G, GAPS, QP>;
   static_assert(L::FITS, "the stages, scratch and box rows fit in a block's shared memory");
   const int grid = (a.B + L::SPB - 1) / L::SPB;
   // the box rows' slots only where the tables are given
@@ -500,6 +868,12 @@ static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
     riccati_box_kernel<S, NDX, NU, G><<<grid, kSweepThreads, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+template <class S, int NDX, int NU, bool GAPS, bool QP>
+static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
+  if constexpr (!QP && NDX > kWideNdx) return launch_wide<S, NDX, NU>(a, stream);
+  else return launch_group<S, NDX, NU, GAPS, QP>(a, stream);
 }
 
 // 16-byte copies where the batch stride and every staged input allow them
@@ -537,7 +911,22 @@ static int launch_riccati_fddp(int ndx, int nu, BoxSweep<S> a, void* stream) {
 
 template <class S, int NDX, int NU, bool GAPS, bool QP>
 constexpr int sweep_bytes_of() {
-  return (int)SweepOf<S, NDX, NU, kSweepGroup<NDX>, GAPS, QP>::BYTES;
+  if constexpr (!QP && NDX > kWideNdx) return (int)WideSweep<S, NDX, NU>::BYTES;
+  else return (int)Sweep<S, NDX, NU, kSweepGroup<NDX>, GAPS, QP>::BYTES;
+}
+
+// K4 at (28, 7) at a batch of B: its grid, threads a block, dynamic shared
+// memory and blocks resident an SM, into out[0 .. 4)
+template <class S>
+static int fddp_wide_launch(int B, int* out) {
+  using L = WideSweep<S, 28, 7>;
+  const cudaError_t attr = wide_allow<S, 28, 7>();
+  if (attr != cudaSuccess) return (int)attr;
+  out[0] = (B + L::SPB - 1) / L::SPB;
+  out[1] = L::THREADS;
+  out[2] = (int)L::BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[3], riccati_fddp_kernel<S, 28, 7, L::G>, L::THREADS, L::BYTES);
 }
 
 template <class S>
@@ -569,6 +958,14 @@ extern "C" int aslr_riccati_box_smem(int nu, int gaps, int itemsize) {
 extern "C" int aslr_riccati_fddp_smem(int ndx, int nu, int itemsize) {
   if (itemsize == 4) return aslr::sweep_bytes<float>(ndx, nu, 1, 0);
   return itemsize == 8 ? aslr::sweep_bytes<double>(ndx, nu, 1, 0) : aslr::kNoInstance;
+}
+
+// K4 at (28, 7), 4- or 8-byte scalars, at a batch of B: grid, threads,
+// dynamic shared memory and blocks resident an SM into out[0 .. 4); the
+// CUDA error, or -1 for another itemsize
+extern "C" int aslr_riccati_fddp_n7_launch(int itemsize, int B, int* out) {
+  if (itemsize == 4) return aslr::fddp_wide_launch<float>(B, out);
+  return itemsize == 8 ? aslr::fddp_wide_launch<double>(B, out) : aslr::kNoInstance;
 }
 
 #define ASLR_RICCATI_BOX_ENTRY(NAME, S)                                                       \

@@ -77,6 +77,23 @@
 // against its alternative on the card (PERF.md): 2 or 8 lanes, the cost in
 // the chain, deeper stages and blocks of 64 run slower; blocks of 256 spill
 // in f64; direct loads win on the VSA's box and lose on the SEA's gaps.
+// Those were measured at nl = 2. K6 at nl = 7 (the 7-DoF arm's fast path)
+// takes a wide layout of its own (RollLayout::WIDE): there the knot chain
+// held 8 RNEA sweeps and 7 feedback rows of 28 products on 4 lanes, two of
+// each a lane in series, and a block of 32 trajectories left most SMs idle
+// at the path's B = 1024 (32 blocks). In the wide layout
+//   - a group of 8 lanes runs one sweep (the nle, or one of M's 7 columns)
+//     and at most one row a lane, in blocks of 64 threads (8 trajectories:
+//     128 blocks at B = 1024);
+//   - lane i computes joint i's rotation (its sine and cosine, the
+//     Rodrigues matrix and the product with the joint's placement) once a
+//     knot, and the group exchanges the 7 matrices by shuffles, so a sweep
+//     computes none of them (kShareRotN7);
+//   - in f64 the knot whose running cost a lane defers waits in a
+//     shared-memory slot of the lane's, not in 70 registers, which would
+//     spill (RollLayout::KEPT).
+// `rollout_variants.py --nl 7` times each choice against its alternative
+// (PERF.md); K3 at nl = 7 keeps the general layout (kWideK3N7).
 //
 // Every value is computed by one lane with the operations of the plain
 // version (aslr_to_tpu_torch/kernels/vsa_kernels.py::_rollout_plain), in its
@@ -104,6 +121,15 @@ constexpr int kRollChunk = 1;       // knots a stage
 constexpr bool kDeferCost = true;   // the running cost off the chain
 constexpr bool kStaged = true;      // knot inputs from shared memory
 constexpr bool kShareStage = true;  // K3's trials read one staged copy
+// K6 where a chain has more RNEA sweeps (NL + 1) than kRollGroup lanes,
+// nl = 7 (the wide layout): NL + 1 lanes a trajectory, so each lane runs
+// one RNEA sweep and at most one feedback row, in blocks of kRollThreadsN7
+// threads; tuned at the 7-DoF path's B = 1024. K3 at nl = 7 keeps the
+// general layout (kWideK3N7)
+constexpr int kRollGroupN7 = 8;
+constexpr int kRollThreadsN7 = 64;
+constexpr bool kWideK3N7 = false;
+constexpr bool kShareRotN7 = true;  // each joint's rotation computed by one lane a group
 
 template <class S>
 struct Roll {
@@ -119,10 +145,13 @@ struct Roll {
 // A block: NT trials of SPB scenarios, a group of G lanes a trajectory. Its
 // shared memory: two stages of C knots, each knot a [ROWS, P] tile
 // (COPIES copies of the SPB scenarios' columns, and 32 bytes).
-template <class S, int NDX_, int NU_, bool GAPS, int NT>
+template <class S, int NL, bool SEA, bool GAPS, int NT>
 struct RollLayout {
-  static constexpr int NDX = NDX_, NU = NU_, G = kRollGroup, C = kRollChunk;
-  static constexpr int THREADS = NT == 1 ? kRollThreads1 : kRollThreads2;
+  static constexpr bool WIDE = NL + 1 > kRollGroup && (NT == 1 || kWideK3N7);
+  static constexpr int NDX = Arm<NL, SEA>::NDX, NU = Arm<NL, SEA>::NU,
+                       G = WIDE ? kRollGroupN7 : kRollGroup, C = kRollChunk;
+  static constexpr int THREADS =
+      WIDE ? kRollThreadsN7 : (NT == 1 ? kRollThreads1 : kRollThreads2);
   static constexpr int SPB = THREADS / G / NT;
   static constexpr int COPIES = kShareStage ? 1 : NT;
   static constexpr int VEC = 16 / (int)sizeof(S);
@@ -132,7 +161,11 @@ struct RollLayout {
   // and with gaps the next knot's fs
   static constexpr int rX = 0, rU = NDX, rk = rU + NU, rK = rk + NU, rF = rK + NU * NDX,
                        ROWS = rF + (GAPS ? NDX : 0), STAGE = C * ROWS * P;
-  static constexpr size_t BYTES = kStaged ? (size_t)2 * STAGE * sizeof(S) : 0;
+  // (the wide layout in f64, where its 70 registers would spill) each
+  // thread's slot for the knot (x, u) whose running cost it takes, after
+  // the stages
+  static constexpr int KEPT = WIDE && sizeof(S) == 8 ? THREADS * (NDX + NU) : 0;
+  static constexpr size_t BYTES = ((kStaged ? (size_t)2 * STAGE : 0) + KEPT) * sizeof(S);
   // after the stages, where a per-knot table is given: a ring of RING knots'
   // table rows (the target's 12, then the box's NU and NU), knot t in slot t
   // mod RING. It holds every knot from the oldest whose running cost is
@@ -249,14 +282,18 @@ __device__ inline S fold(const Group<G>& grp, S cost, S mine, int n) {
 
 template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int NT, int TAB>
 __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
-  constexpr int NDX = Arm<NL, SEA>::NDX, NU = Arm<NL, SEA>::NU;
-  using L = RollLayout<S, NDX, NU, GAPS, NT>;
+  using L = RollLayout<S, NL, SEA, GAPS, NT>;
+  constexpr int NDX = L::NDX, NU = L::NU;
   constexpr int G = L::G;
   constexpr int MU = (NU + G - 1) / G;      // feedback rows a lane
   constexpr int MS = (NL + 1 + G - 1) / G;  // RNEA sweeps a lane
+  // the joints' rotations computed once a group, a joint a lane (one sweep
+  // a lane: the wide layout)
+  constexpr bool SHARE_ROT = L::WIDE && kShareRotN7 && MS == 1;
   extern __shared__ __align__(16) unsigned char roll_smem[];
   S* const stages = reinterpret_cast<S*>(roll_smem);
-  S* const ring = stages + 2 * L::STAGE;
+  S* const kept = stages + 2 * L::STAGE + threadIdx.x * (L::NDX + L::NU);
+  S* const ring = stages + 2 * L::STAGE + L::KEPT;
   const int tid = threadIdx.x, g = tid / G;
   const Group<G> grp;
   const int lane = grp.lane;
@@ -299,6 +336,9 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
     if (tgt_tab) row = table_row<L>(a, ring, a.tgt, tk < a.T ? tk : a.T - 1, 12, L::oT);
     return running_cost<S, NL, SEA>(P, xk_, uk_, row);
   };
+  // the joint whose rotation this lane computes (SHARE_ROT)
+  Joint joint;
+  if constexpr (SHARE_ROT) joint = joint_of<NL>(P, lane < NL ? lane : 0);
   S gscale = S(0);
   if constexpr (GAPS) gscale = (alpha - S(1)) * a.infeas[bc];
   S x[NDX], xk[NDX], uk[NU];  // (xk, uk): the knot whose running cost this lane takes
@@ -309,6 +349,17 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
     xk[i] = x[i];
   }
   for (int j = 0; j < NU; ++j) uk[j] = S(0);
+  // the kept knot from its slot (L::KEPT), where it waits out the chain
+  auto load_kept = [&]() {
+    if constexpr (L::KEPT > 0) {
+      for (int i = 0; i < NDX; ++i) xk[i] = kept[i];
+      for (int j = 0; j < NU; ++j) uk[j] = kept[NDX + j];
+    }
+  };
+  if constexpr (L::KEPT > 0) {
+    for (int i = 0; i < NDX; ++i) kept[i] = xk[i];
+    for (int j = 0; j < NU; ++j) kept[NDX + j] = uk[j];
+  }
   S cost = S(0);
 
   for (int c = 0; c < nchunks; ++c) {
@@ -344,9 +395,23 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
 
       // the RNEA sweeps of mass_nle, sweep cs on lane cs mod G
       S sw[MS][NL];
-      for (int m = 0; m < MS; ++m) {
-        const int cs = lane + m * G < NL ? lane + m * G : NL;
-        mass_nle_sweep<S, NL>(P, x, x + 2 * NL, cs, sw[m]);
+      if constexpr (SHARE_ROT) {
+        // lane i (i < NL) computes joint i's rotation, which every sweep of
+        // the group reads
+        S qi = x[0];
+        for (int i = 1; i < NL; ++i) qi = lane == i ? x[i] : qi;
+        const Mat3<S> mine = joint_rotation(joint, qi);
+        Mat3<S> Es[NL];
+        for (int i = 0; i < NL; ++i)
+          for (int r = 0; r < 3; ++r)
+            for (int c3 = 0; c3 < 3; ++c3) Es[i].m[r][c3] = grp.from(i, mine.m[r][c3]);
+        const int cs = lane < NL ? lane : NL;
+        mass_nle_sweep<S, NL, true>(P, x, x + 2 * NL, cs, sw[0], Es);
+      } else {
+        for (int m = 0; m < MS; ++m) {
+          const int cs = lane + m * G < NL ? lane + m * G : NL;
+          mass_nle_sweep<S, NL>(P, x, x + 2 * NL, cs, sw[m]);
+        }
       }
       S M[NL][NL], nle[NL];
       for (int i = 0; i < NL; ++i) nle[i] = grp.from(0, sw[0][i]);
@@ -359,8 +424,15 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
       accelerations<S, NL>(P, u, tau_c, M, nle, acc);
       if constexpr (kDeferCost) {
         const bool keep = t % G == lane;
-        for (int i = 0; i < NDX; ++i) xk[i] = keep ? x[i] : xk[i];
-        for (int j = 0; j < NU; ++j) uk[j] = keep ? u[j] : uk[j];
+        if constexpr (L::KEPT > 0) {
+          if (keep) {
+            for (int i = 0; i < NDX; ++i) kept[i] = x[i];
+            for (int j = 0; j < NU; ++j) kept[NDX + j] = u[j];
+          }
+        } else {
+          for (int i = 0; i < NDX; ++i) xk[i] = keep ? x[i] : xk[i];
+          for (int j = 0; j < NU; ++j) uk[j] = keep ? u[j] : uk[j];
+        }
       } else {
         cost = cost + run_cost(x, u, t);
       }
@@ -372,12 +444,17 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
       }
       // the G knots t - G + 1 .. t, lane l's the knot t - G + 1 + l
       if constexpr (kDeferCost)
-        if (t % G == G - 1) cost = fold(grp, cost, run_cost(xk, uk, t - (G - 1) + lane), G);
+        if (t % G == G - 1) {
+          load_kept();
+          cost = fold(grp, cost, run_cost(xk, uk, t - (G - 1) + lane), G);
+        }
     }
   }
   if constexpr (kDeferCost)
-    if (a.T % G)
+    if (a.T % G) {
+      load_kept();
       cost = fold(grp, cost, run_cost(xk, uk, (long long)(a.T / G) * G + lane), a.T % G);
+    }
   S r6[6];
   const S goal = goal_cost<S, NL>(P, x, true, (const S*)nullptr, r6);
   if (live && lane == 0) cost_o[b] = cost + a.wterm[bc] * goal;
@@ -385,20 +462,20 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
 
 // two entry kernels over one body, so that a profile tells K3 from K6
 template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB>
-__global__ void __launch_bounds__(kRollThreads1) rollout1_kernel(const VSAParams<NL> P,
-                                                                const Roll<S> a) {
+__global__ void __launch_bounds__(RollLayout<S, NL, SEA, GAPS, 1>::THREADS)
+    rollout1_kernel(const VSAParams<NL> P, const Roll<S> a) {
   rollout_group<S, NL, SEA, BOXED, GAPS, 1, TAB>(P, a);
 }
 
 template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB>
-__global__ void __launch_bounds__(kRollThreads2) rollout2_kernel(const VSAParams<NL> P,
-                                                                const Roll<S> a) {
+__global__ void __launch_bounds__(RollLayout<S, NL, SEA, GAPS, 2>::THREADS)
+    rollout2_kernel(const VSAParams<NL> P, const Roll<S> a) {
   rollout_group<S, NL, SEA, BOXED, GAPS, 2, TAB>(P, a);
 }
 
 template <class S, int NL, int NT, int TAB, bool SEA, bool BOXED, bool GAPS>
 static int launch_variant(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t stream) {
-  using L = RollLayout<S, Arm<NL, SEA>::NDX, Arm<NL, SEA>::NU, GAPS, NT>;
+  using L = RollLayout<S, NL, SEA, GAPS, NT>;
   // the ring only in an instance that takes the tables, and only where a
   // table is given
   constexpr size_t MAX = L::BYTES + (TAB != kShared ? L::RING_BYTES : 0);
@@ -454,19 +531,37 @@ static int launch_rollout(const double* params, int nl, Roll<S> a, void* stream)
   }
 }
 
+// K3 (NT 2) or K6 (1) at the chain length NL, the SEA arm's unboxed gap
+// instance of the shared problem, at a batch of B: its grid, threads a
+// block, dynamic shared memory and blocks resident an SM, into out[0 .. 4)
+template <class S, int NL, int NT>
+static int roll_launch(int B, int* out) {
+  using L = RollLayout<S, NL, true, true, NT>;
+  void (*kernel)(const VSAParams<NL>, const Roll<S>) =
+      NT == 1 ? rollout1_kernel<S, NL, true, false, true, kShared>
+              : rollout2_kernel<S, NL, true, false, true, kShared>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  out[0] = (B + L::SPB - 1) / L::SPB;
+  out[1] = L::THREADS;
+  out[2] = (int)L::BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::THREADS,
+                                                            L::BYTES);
+}
+
 template <class S, int NL>
 static int roll_bytes_nl(int ntrials, int sea, int gaps) {
-  constexpr int X = Arm<NL, false>::NDX, UV = Arm<NL, false>::NU, US = Arm<NL, true>::NU;
   const int v = (ntrials == 2 ? 4 : 0) + (sea ? 2 : 0) + (gaps ? 1 : 0);
   switch (v) {
-    case 0: return (int)RollLayout<S, X, UV, false, 1>::BYTES;
-    case 1: return (int)RollLayout<S, X, UV, true, 1>::BYTES;
-    case 2: return (int)RollLayout<S, X, US, false, 1>::BYTES;
-    case 3: return (int)RollLayout<S, X, US, true, 1>::BYTES;
-    case 4: return (int)RollLayout<S, X, UV, false, 2>::BYTES;
-    case 5: return (int)RollLayout<S, X, UV, true, 2>::BYTES;
-    case 6: return (int)RollLayout<S, X, US, false, 2>::BYTES;
-    default: return (int)RollLayout<S, X, US, true, 2>::BYTES;
+    case 0: return (int)RollLayout<S, NL, false, false, 1>::BYTES;
+    case 1: return (int)RollLayout<S, NL, false, true, 1>::BYTES;
+    case 2: return (int)RollLayout<S, NL, true, false, 1>::BYTES;
+    case 3: return (int)RollLayout<S, NL, true, true, 1>::BYTES;
+    case 4: return (int)RollLayout<S, NL, false, false, 2>::BYTES;
+    case 5: return (int)RollLayout<S, NL, false, true, 2>::BYTES;
+    case 6: return (int)RollLayout<S, NL, true, false, 2>::BYTES;
+    default: return (int)RollLayout<S, NL, true, true, 2>::BYTES;
   }
 }
 
@@ -508,4 +603,20 @@ static int roll_bytes(int nl, int ntrials, int sea, int gaps) {
                     fs,  infeas, lbt, ubt, tgt, T,     B,       false, xs_o, us_o,        \
                     cost_o, nullptr, nullptr, nullptr};                                    \
     return aslr::launch_rollout<S, 1, NL, TAB>(params, nl, a, stream);                     \
+  }
+
+// the launch of K3 (ntrials 2) or K6 (1) at the unit's chain length NL (the
+// SEA arm, unboxed, with gaps) for 4- or 8-byte scalars at a batch of B:
+// grid, threads, dynamic shared memory and blocks resident an SM into
+// out[0 .. 4); the CUDA error, or -1 for another ntrials or itemsize
+#define ASLR_ROLLOUT_LAUNCH_ENTRY(NAME, NL)                                              \
+  extern "C" int NAME(int ntrials, int itemsize, int B, int* out) {                        \
+    if (itemsize != 4 && itemsize != 8) return aslr::kNoInstance;                          \
+    if (ntrials == 1)                                                                      \
+      return itemsize == 4 ? aslr::roll_launch<float, NL, 1>(B, out)                      \
+                           : aslr::roll_launch<double, NL, 1>(B, out);                    \
+    if (ntrials == 2)                                                                      \
+      return itemsize == 4 ? aslr::roll_launch<float, NL, 2>(B, out)                      \
+                           : aslr::roll_launch<double, NL, 2>(B, out);                    \
+    return aslr::kNoInstance;                                                              \
   }

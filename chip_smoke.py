@@ -23,12 +23,15 @@ Phases, each printed with its result and time:
      probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
      2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
      version, with its time, GFLOP/s and bound;
-     n-DoF kernels: K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms'
-     instances (nl 3 and 7; K4 at (12, 3) and (28, 7); the rollouts
-     unboxed with gaps) against their plain versions to the bit in f64 and
-     f32 at T=20, B=1024 (the plain versions are slow at nl = 7), then
-     timed in f32 at T=100 and B=1024 and 4096, with the plain version's
-     time at T=100, B=1024 and the bound;
+     n-DoF kernels: the launch of K6 at nl 7 and of K4 at (28, 7) (their
+     wide layouts) at B=1024 and 4096 in f32 and f64 (grid, threads a
+     block, dynamic shared memory, the blocks resident an SM by
+     cudaOccupancyMaxActiveBlocksPerMultiprocessor) with each one's ptxas
+     line; K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms' instances (nl 3
+     and 7; K4 at (12, 3) and (28, 7); the rollouts unboxed with gaps)
+     against their plain versions to the bit in f64 and f32 at T=100,
+     B=1024 (K6 also against K3's first trial), timed in f32 there and at
+     B=4096, with the plain version's time at B=1024 and the bound;
   4. main path: BoxDDP, make_batched_solver(..., use_fast_path="lanes") on
      two_dof_vsa_boxddp, T=100, B=4096, float32, maxiter=20;
   5. SEA warm: FDDP on two_dof_sea, T=100, B=4096, float32, maxiter=60,
@@ -42,8 +45,8 @@ Phases, each printed with its result and time:
      after, and every kernel of the path must have launched in it; a
      kernel row's launches are those of one timed solve);
   7. parity, float64, kernel backend against the plain backend lane by
-     lane: BoxDDP (B=256, T=100), SEA FDDP (B=256, T=100), BoxFDDP in a
-     tight box (B=128, T=40);
+     lane: BoxDDP and SEA FDDP (B=256, T=100, maxiter 20), BoxFDDP in a
+     tight box (B=128, T=40, maxiter 10);
   8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
      and the quasi-static-warm T=100 SEA FDDP solve against
      tests/golden/sea_T100.npz, both float64 through the kernels;
@@ -91,6 +94,14 @@ Phases, each printed with its result and time:
      route at T=100, B=256 with the main path's settings and maxiter=2
      (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP.
 
+Phases 7 and 13 solve on the plain backend and the generic route, whose
+thousands of small kernels a loop pass wait on the host and leave the card
+idle. So once the timed phases are done, they run in worker processes of
+their own (``python3 chip_smoke.py --check NAME ...``, CHECK_WORKERS),
+side by side with each other and with the checks of phase 12 and phase 8
+in this process, which then prints each worker's output and fails if a
+worker failed; 13's timed solves and its golden run before, alone.
+
 Any failed check raises, so the script exits non-zero. The line before the
 card's line is the kernel table as JSON; the last line is the device
 record.
@@ -104,6 +115,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -261,24 +273,43 @@ def device_ms(fn, reps, kernel):
     name, e.g. "rollout2_kernel") in ``fn``, by torch.profiler over ``reps``
     calls after a warm-up: the host's launch overhead, which the CUDA events
     of :func:`cuda_ms` count where a launch is shorter than it, left out.
-    Raises if the profile holds no launch of the kernel."""
+    The tracer can drop the first records of a window, so each window
+    opens with a launch of its own, waited for before the timed calls. A
+    profile that still lost launches of the kernel is taken again, up to
+    three times in all; if none holds every launch, the mean of the
+    fullest one's launches is taken and the loss logged. Raises if a
+    profile holds more launches than calls, or none holds any."""
     from torch.profiler import ProfilerActivity, profile
 
     from aslr_to_tpu_torch.measure import _device_us
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and kernel in evt.key:
-            us += _device_us(evt)
-            n += evt.count
-    if n != reps:
-        raise AssertionError(f"the profile holds {n} launches of {kernel}, not {reps}")
+    pad = torch.zeros(1, device="cuda")
+    counts, fullest = [], (0, 0.0)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA and kernel in evt.key:
+                us += _device_us(evt)
+                n += evt.count
+        if n > reps:
+            raise AssertionError(f"a profile holds {n} launches of {kernel} in {reps} calls")
+        if n == reps:
+            return us / 1e3 / n
+        counts.append(n)
+        fullest = max(fullest, (n, us))
+    n, us = fullest
+    if n == 0:
+        raise AssertionError(f"the profiles hold no launch of {kernel} in {reps} calls")
+    log(f"  {kernel}: the profiles hold {counts} launches of {reps}; the mean of the "
+        f"{n} in the fullest taken")
     return us / 1e3 / n
 
 
@@ -628,6 +659,24 @@ def ndof_kernels_phase(report):
         row = report[f"{name}_n7"]
         return row if "sea7" in label else row.setdefault("variants", {}).setdefault(label, {})
 
+    # the 7-DoF instances of K6 and K4 (their own layouts): each launch at
+    # B_NDOF and 4 B_NDOF, the blocks the card keeps resident an SM, and the
+    # ptxas line of the instance
+    ptxas = kernel_ptxas(build.build_log, build.lib())
+    for name, prefix in (("rollout1", "K6 {} nl 7 SEA gaps:"),
+                         ("riccati_fddp", "K4 {} (ndx 28, nu 7,")):
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            for B in (B_NDOF, 4 * B_NDOF):
+                info = build.launch_of(name, dtype, B)
+                log(f"  {name}_n7 {tag} B={B}: grid {info['grid']}, {info['threads']} threads a "
+                    f"block, {info['smem']} bytes of dynamic shared memory, "
+                    f"{info['blocks_per_sm']} blocks resident an SM")
+                report[f"{name}_n7"].setdefault("launch", {})[f"{tag} B={B}"] = info
+            line = [x for x in ptxas if x.startswith(prefix.format(tag))]
+            if len(line) != 1:
+                raise AssertionError(f"{name}_n7 {tag}: no single ptxas line in {ptxas}")
+            log(f"  {name}_n7 {tag} ptxas: {line[0]}")
+
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         cases = kernel_cases(dtype, B_NDOF, ("sea3", "sea7"), T=T_PATH)
@@ -935,48 +984,50 @@ def explain_parting(label, problem, settings, use_gaps, bounds, x0, j):
             f"{float(f.us[0, t, i])!r} (box [{float(bounds.lb[i])}, {float(bounds.ub[i])}])")
 
 
-@phase("generic")
-def generic_phase(card):
-    """The generic solver (the reference) against the fast and lane
-    routes in f64, one timed f32 solve of each route, and the T=30 golden
-    through SolverBoxDDP, all on the card. BoxDDP runs in the tight box
-    with cold QPs: the generic BoxQP stops iterating a converged QP (as the
-    JAX package's does) and the kernels' runs all its iterations (as the
-    Pallas kernel does), so 2-iteration warm QPs part the two routes at
-    1e-6 within a few iterations, and in the preset's wide box a fifth of
-    the lanes blow up in their first accepted rollout. A lane whose
-    generic and fast logs part is re-run up to the parting
-    (``explain_parting``)."""
+def generic_check(label):
+    """The generic solver (the reference) against the fast and lane routes
+    in f64 on the card, T=40, B=64, maxiter=20: ``label`` "BoxDDP" or "SEA
+    FDDP". BoxDDP runs in the tight box with cold QPs: the generic BoxQP
+    stops iterating a converged QP (as the JAX package's does) and the
+    kernels' runs all its iterations (as the Pallas kernel does), so
+    2-iteration warm QPs part the two routes at 1e-6 within a few
+    iterations, and in the preset's wide box a fifth of the lanes blow up in
+    their first accepted rollout. A lane whose generic and fast logs part is
+    re-run up to the parting (``explain_parting``)."""
     from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea
     from aslr_to_tpu_torch import two_dof_vsa_boxddp
-    from aslr_to_tpu_torch.measure import T_PATH, summary, x0_batch
-    from aslr_to_tpu_torch.solvers.ddp import SolverBoxDDP
+    from aslr_to_tpu_torch.measure import x0_batch
 
     settings = SolverSettings(maxiter=20, th_stop=1e-5)
-    for label, arm, use_gaps, seed in (("BoxDDP", "vsa", False, 1), ("SEA FDDP", "sea", True, 3)):
-        w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T_GENERIC,
-                                                                  dtype=torch.float64)
-        bounds = tight_box(torch.float64) if arm == "vsa" else None
-        x0s = x0_batch(B_GENERIC, torch.float64, seed)
-        res = {}
-        for route in (False, True, "lanes"):
-            t0 = time.perf_counter()
-            res[route] = make_batched_solver(w.problem, settings, use_gaps=use_gaps,
-                                             bounds=bounds, keep_log=route != "lanes",
-                                             use_fast_path=route)(x0s)
-            torch.cuda.synchronize()
-            log(f"  {label} f64 T={T_GENERIC} B={B_GENERIC} use_fast_path={route!r}: "
-                f"{time.perf_counter() - t0:.3f} s")
-        # (fast / generic, lanes / generic, fast / lanes)
-        parted = lanes_equal(f"{label} fast against generic", res[True], res[False],
-                             B_GENERIC, x0s)
-        for lane, j in parted.items():
-            if j > 0:
-                explain_parting(f"{label} lane {lane}", w.problem, settings, use_gaps, bounds,
-                                x0s[lane:lane + 1], j)
-        lanes_equal(f"{label} lanes against generic", res["lanes"], res[False], B_GENERIC,
-                    x0s)
-        lanes_equal(f"{label} fast against lanes", res[True], res["lanes"], B_GENERIC, x0s)
+    arm, use_gaps, seed = {"BoxDDP": ("vsa", False, 1), "SEA FDDP": ("sea", True, 3)}[label]
+    w = (two_dof_vsa_boxddp if arm == "vsa" else two_dof_sea)(T=T_GENERIC, dtype=torch.float64)
+    bounds = tight_box(torch.float64) if arm == "vsa" else None
+    x0s = x0_batch(B_GENERIC, torch.float64, seed)
+    res = {}
+    for route in (False, True, "lanes"):
+        t0 = time.perf_counter()
+        res[route] = make_batched_solver(w.problem, settings, use_gaps=use_gaps, bounds=bounds,
+                                         keep_log=route != "lanes", use_fast_path=route)(x0s)
+        torch.cuda.synchronize()
+        log(f"  {label} f64 T={T_GENERIC} B={B_GENERIC} use_fast_path={route!r}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    # (fast / generic, lanes / generic, fast / lanes)
+    parted = lanes_equal(f"{label} fast against generic", res[True], res[False], B_GENERIC, x0s)
+    for lane, j in parted.items():
+        if j > 0:
+            explain_parting(f"{label} lane {lane}", w.problem, settings, use_gaps, bounds,
+                            x0s[lane:lane + 1], j)
+    lanes_equal(f"{label} lanes against generic", res["lanes"], res[False], B_GENERIC, x0s)
+    lanes_equal(f"{label} fast against lanes", res[True], res["lanes"], B_GENERIC, x0s)
+
+
+@phase("generic timed")
+def generic_timed_phase(card):
+    """One timed f32 solve of the generic, fast and lane routes on the card,
+    and the T=30 golden through SolverBoxDDP."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.measure import T_PATH, summary, x0_batch
+    from aslr_to_tpu_torch.solvers.ddp import SolverBoxDDP
 
     # the main path's settings but MAXITER_TIMED iterations: the generic
     # route runs thousands of small kernels a knot loop
@@ -1045,20 +1096,82 @@ def parity(label, w, bounds, use_gaps, B, settings, seed):
         raise AssertionError(f"{label}: cost rel err {worst:.3e} > 1e-8")
 
 
-@phase("parity")
-def parity_phase():
+def parity_check(label):
+    """A lane path in f64 through the kernels against its plain backend:
+    BoxDDP and SEA FDDP at B=256, T=100, maxiter 20, BoxFDDP in a tight box
+    at B=128, T=40, maxiter 10."""
     from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
-
     from aslr_to_tpu_torch.measure import T_PATH
 
     f64 = torch.float64
-    w = two_dof_vsa_boxddp(T=T_PATH, dtype=f64)
-    parity("BoxDDP", w, w.bounds, False, B_PARITY,
-           SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2), seed=1)
-    parity("SEA FDDP", two_dof_sea(T=T_PATH, dtype=f64), None, True, B_PARITY,
-           SolverSettings(maxiter=20, th_stop=1e-5), seed=3)
-    parity("BoxFDDP", two_dof_vsa_boxddp(T=T_PARITY_BOX, dtype=f64), tight_box(f64), True,
-           B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)
+    if label == "BoxDDP":
+        w = two_dof_vsa_boxddp(T=T_PATH, dtype=f64)
+        parity(label, w, w.bounds, False, B_PARITY,
+               SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2), seed=1)
+    elif label == "SEA FDDP":
+        parity(label, two_dof_sea(T=T_PATH, dtype=f64), None, True, B_PARITY,
+               SolverSettings(maxiter=20, th_stop=1e-5), seed=3)
+    else:
+        parity(label, two_dof_vsa_boxddp(T=T_PARITY_BOX, dtype=f64), tight_box(f64), True,
+               B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)
+
+
+# the checks that solve on the plain backend or the generic route, each a
+# worker process's: those solves run thousands of small kernels a loop
+# pass, so each waits on its host and leaves the card idle, and side by
+# side they take the time of the longest. The tuples are the workers.
+CHECKS = {"parity BoxDDP": partial(parity_check, "BoxDDP"),
+          "parity SEA FDDP": partial(parity_check, "SEA FDDP"),
+          "parity BoxFDDP": partial(parity_check, "BoxFDDP"),
+          "generic BoxDDP": partial(generic_check, "BoxDDP"),
+          "generic SEA FDDP": partial(generic_check, "SEA FDDP")}
+CHECK_WORKERS = (("parity BoxDDP",), ("generic BoxDDP",), ("parity BoxFDDP",),
+                 ("parity SEA FDDP", "generic SEA FDDP"))
+
+
+def run_checks(names):
+    """A worker: the checks ``names`` of CHECKS, in order, each printed as a
+    phase; any failed check raises, so the worker exits non-zero."""
+    if not torch.cuda.is_available():
+        log("no CUDA device: this script measures the port on a GPU only")
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in names:
+        phase(name)(CHECKS[name])()
+
+
+def start_checks():
+    """Start every worker of CHECK_WORKERS; each one's output is gathered
+    by a thread of its own (a full pipe would stop the worker)."""
+    pool = ThreadPoolExecutor(max_workers=len(CHECK_WORKERS))
+    running = []
+    for names in CHECK_WORKERS:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--check", *names],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((names, proc, pool.submit(proc.communicate)))
+    pool.shutdown(wait=False)
+    return running
+
+
+def finish_checks(running):
+    """Wait for every worker, print its output and raise if one failed."""
+    failed = []
+    for names, proc, out in running:
+        text = out.result()[0]
+        for line in text.splitlines():
+            log(line)
+        if proc.returncode != 0:
+            failed.append(f"{', '.join(names)} (exit {proc.returncode})")
+    if failed:
+        raise AssertionError(f"failed checks: {'; '.join(failed)}")
+
+
+def stop_checks(running):
+    for _, proc, _ in running:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def golden(label, fname, w, settings, use_gaps, bounds, warm_start):
@@ -1319,13 +1432,8 @@ def per_knot_phase(report, card):
     """The per-knot paths (measure.py: mpc_tracking, fast_mpc_tracking,
     pk_boxddp) on the card, f32: solves/s and the convergence accounting,
     the fast route within 3 points of the lane route, the TPU's converged
-    share beside the MPC's, and the pinched knots clamped; then f64 parity
-    of each per-knot route against its plain backend (B=64), and the
-    generic route against the lane route (T=20, B=16)."""
-    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, stack_knots
-    from aslr_to_tpu_torch import two_dof_vsa_boxddp
-    from aslr_to_tpu_torch.measure import (MPC_SOLVES, PINCH, PINCHED, T_MPC, build_path,
-                                           mpc_problem, path_T, pinched_box, x0_batch)
+    share beside the MPC's, and the pinched knots clamped."""
+    from aslr_to_tpu_torch.measure import MPC_SOLVES, PINCH, PINCHED, build_path, path_T
 
     lanes = solve_path("mpc_tracking", report, card, ("linearize", "riccati_fddp", "rollout2"),
                        2, MPC_SOLVES)[1]
@@ -1350,6 +1458,15 @@ def per_knot_phase(report, card):
         f"have a torque exactly on +-{PINCH} ({int(on.sum())} controls)")
     if not bool(on.any()):
         raise AssertionError("pk_boxddp: no control sits on the pinched knots' box")
+
+
+@phase("per-knot checks")
+def per_knot_checks_phase(report):
+    """f64 parity of each per-knot route against its plain backend
+    (B=64), and the generic route against the lane route (T=20, B=16)."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, stack_knots
+    from aslr_to_tpu_torch import two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.measure import T_MPC, mpc_problem, pinched_box, x0_batch
 
     f64 = torch.float64
     pk_settings = SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5, boxqp_warm_iters=2)
@@ -1405,9 +1522,15 @@ def main():
     fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
     table_kernels_phase(report)
     per_knot_phase(report, smi)
-    parity_phase()
-    golden_phase()
-    generic_phase(smi)
+    generic_timed_phase(smi)
+    # the checks below time nothing: the workers run beside this process
+    running = start_checks()
+    try:
+        per_knot_checks_phase(report)
+        golden_phase()
+        finish_checks(running)
+    finally:
+        stop_checks(running)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for row in report.values():
         missing = [k for k in keys if k not in row]
@@ -1420,4 +1543,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--check"]:
+        run_checks(sys.argv[2:])
+    else:
+        main()

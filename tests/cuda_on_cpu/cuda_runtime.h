@@ -29,6 +29,12 @@ enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F*, int, int) { return cudaSuccess; }
+// the CPU runs one block at a time
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 struct dim3_ { unsigned x, y, z; };
 extern thread_local dim3_ threadIdx;

@@ -79,7 +79,7 @@ def gxx_library(d, sources, smem_name, bases):
     handle = ctypes.CDLL(str(lib))
     for base in bases:
         for name in [base] + [f"{base}_n{nl}" for nl in build.chains(base)]:
-            for suffix in ("_f32", "_f64"):
+            for suffix in build._SUFFIXES.get(base, ("_f32", "_f64")):
                 fn = getattr(handle, name + suffix)
                 fn.argtypes = build._SIGNATURES[base]
                 fn.restype = ctypes.c_int

@@ -15,8 +15,10 @@ batches to the bit, and the launchers' refusal of a shape they are not
 built for; the fast path of the per-scenario solver against its plain
 backend; the per-knot table variants of K1, K2, K5, K3 and K6 on ragged
 batches to the bit (K1, K3 and K6 also at the 3- and 7-DoF arms), and
-tables of equal rows against the shared route; P
-against its plain version:
+tables of equal rows against the shared route; K6 at nl 7 and K4 at
+(28, 7) in their wide layouts with one NaN scenario among B=15 and 200,
+and their launches on the card (K6's grid fills the SMs at B=1024, two
+blocks of K4 fit an SM in f32); P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -730,3 +732,42 @@ def test_ndof_table_instances_match_plain_version_to_the_bit(cuda, nl, batch, dt
     _assert_all_bits(vsa_kernels.rollout2(*args), vsa_kernels.rollout2_plain(*args))
     k6 = args[:6] + args[7:]
     _assert_all_bits(vsa_kernels.rollout1(*k6), vsa_kernels.rollout1_plain(*k6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [15, 200])
+def test_wide_layouts_keep_a_scenario_in_its_group(cuda, batch, dtype):
+    """K6 at nl 7 (8 lanes a trajectory, four a warp) and K4 at (28, 7) (a
+    warp a scenario, four a block) with scenario 5's inputs NaN: it fails
+    alone, and every output equals the plain version to the bit."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(7, dtype, cuda, batch, seed=3)
+    derivs = list(derivs)
+    for i in range(len(derivs)):
+        derivs[i] = derivs[i].clone()
+        derivs[i][..., 5] = float("nan")
+    bw = riccati.riccati_fddp_backward(*derivs, fs, reg)
+    _assert_same_bits(bw, riccati.riccati_fddp_plain(*derivs, fs, reg))
+    assert not bool(bw.ok[5]) and bool(bw.ok[[4, 6, 7]].all())
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    k, K = k.clone(), K.clone()
+    k[..., 5] = float("nan")
+    ones = torch.ones(batch, dtype=dtype, device=cuda)
+    infeas = (torch.arange(batch, device=cuda) % 2).to(dtype)
+    args = (spec, xs, us, k, K, xs[0].contiguous(), 0.5 * ones, wterm, None, None, fs, infeas)
+    one = vsa_kernels.rollout1(*args)
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*args))
+    assert bool(one.cost[5].isnan())
+    assert bool(torch.isfinite(one.cost[[4, 6, 7]]).all())
+
+
+def test_wide_layouts_fill_the_card(cuda):
+    """At the 7-DoF path's B=1024, in one wave each: K6 at nl 7 runs 128
+    blocks (the general layout ran 32 and left most SMs idle), and K4 at
+    (28, 7) keeps two blocks resident an SM in f32 (the general layout one,
+    in two waves)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k6 = build.launch_of("rollout1", torch.float32, 1024)
+    k4 = build.launch_of("riccati_fddp", torch.float32, 1024)
+    assert k6["grid"] == 128 and k6["grid"] <= sms * k6["blocks_per_sm"]
+    assert k4["blocks_per_sm"] >= 2 and k4["grid"] <= sms * k4["blocks_per_sm"]
+

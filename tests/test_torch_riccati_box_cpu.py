@@ -10,7 +10,10 @@ versions on ragged batches (one 16-scenario block and a partial one; B=15
 and B=33 take the one-element copies, B=40 the 16-byte ones), K2 and K5
 warm and cold, K4 at nu 2 (the SEA arm) and 4 (the VSA arm), with lanes at
 a negative reg and one NaN scenario; K4 also at the 3- and 7-DoF SEA arms'
-shapes (12, 3) and (28, 7); K2 and K5 with [T, nu] box tables (rows all
+shapes (12, 3) and (28, 7), the latter in its wide layout (a
+scenario's knot a tile of its own, 4 scenarios a block) at B=1, 5, 15 and
+with one NaN scenario in its block, and its launch; K2 and K5 with [T, nu]
+box tables (rows all
 different, one knot pinched) at B=1, 15 and 200, and with tables of equal
 rows against the shared box. That checks the
 group mapping, the exchanges, the staging and the ragged block without a
@@ -39,7 +42,8 @@ def box_lib(tmp_path_factory):
     """riccati_box.cu built for the CPU; the wrappers launch it on CPU
     tensors while the fixture lasts."""
     handle = gxx_library(tmp_path_factory.mktemp("box_kernel"), ["riccati_box.cu"],
-                         "sweep_smem", ["aslr_riccati_box", "aslr_riccati_fddp"])
+                         "sweep_smem", ["aslr_riccati_box", "aslr_riccati_fddp",
+                                        "aslr_riccati_fddp_n7_launch"])
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(riccati, "_route", lambda t: "kernel")
@@ -235,3 +239,44 @@ def test_box_kernel_on_cpu_equal_rows_give_the_shared_bits(box_lib, kernel, nu, 
     args[n - 4], args[n - 3] = (b[:, 0][None].expand(T, nu).contiguous()
                                 for b in (args[n - 4], args[n - 3]))
     _assert_same_bits(fn(*args, per_knot_box=True), shared)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 5, 15])
+def test_wide_fddp_kernel_on_cpu_matches_plain_version(box_lib, batch, dtype):
+    """K4 at (28, 7) in its wide layout (each scenario's knot staged as a
+    tile of its own by element copies, rows read 16 bytes a load, two
+    stages in f64 too; 4 scenarios a block, so B=1, 5 and 15 end in a
+    partial block) at T=5 equals its plain version to the bit."""
+    args = _ndof_args(7, batch, dtype, 5, seed=2)
+    before = build.LAUNCHES["riccati_fddp"]
+    got = riccati.riccati_fddp_backward(*args)
+    assert build.LAUNCHES["riccati_fddp"] == before + 1
+    _assert_same_bits(got, riccati.riccati_fddp_plain(*args))
+    if batch > 1:       # lane 0 (and 10) at a negative reg
+        assert not bool(got.ok.all()) and bool(got.ok.any())
+        assert bool(got.retryable.any()) and not bool(got.retryable.all())
+
+
+def test_wide_fddp_kernel_on_cpu_keeps_a_scenario_in_its_group(box_lib):
+    """K4 at (28, 7) with scenario 5's inputs NaN: it fails alone; the other
+    scenarios of its block (4, 6, 7) keep ok and equal the plain version."""
+    args = list(_ndof_args(7, 9, torch.float64, 4))
+    for i in range(9):
+        args[i] = args[i].clone()
+        args[i][..., 5] = float("nan")
+    got = riccati.riccati_fddp_backward(*args)
+    _assert_same_bits(got, riccati.riccati_fddp_plain(*args))
+    assert not bool(got.ok[5]) and bool(got.ok[[4, 6, 7]].all())
+
+
+@pytest.mark.parametrize("dtype,smem", [(torch.float32, 96896), (torch.float64, 193472)],
+                         ids=["f32", "f64"])
+def test_wide_fddp_launch_on_cpu(box_lib, dtype, smem):
+    """At B=1024, K4 at (28, 7) runs 256 blocks of 128 threads (a warp a
+    scenario), and two stages and the scratch of a block take 96,896 bytes
+    in f32 (two blocks fit an SM's 228 KB) and 193,472 in f64 (two stages
+    within a block's 227 KB)."""
+    info = build.launch_of("riccati_fddp", dtype, 1024)
+    assert (info["grid"], info["threads"], info["smem"]) == (256, 128, smem)
+

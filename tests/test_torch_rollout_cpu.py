@@ -14,8 +14,11 @@ tail. Cases: the VSA arm in its box, the VSA arm with gaps in a tight box,
 and the SEA arm with gaps, unbounded; step lengths 1 and below 1, and
 infeasible lanes among feasible ones. The 3-DoF SEA arm's gap instances run
 at T=6 on the same batches (and one NaN trajectory), the 7-DoF arm's at
-T=5, B=9. The per-knot tables (a target a knot; [T, nu] boxes with one knot
-pinched; every row different) run on the VSA's box and the SEA's gaps at
+T=5, B=9; K6 at nl 7, whose wide layout puts a trajectory on 8 lanes in
+blocks of 8 trajectories, at B=1, 15 and 200 with and without the target
+table, with one NaN trajectory among the four of its warp, and its launch
+(grid, block, shared memory) beside K3's there. The per-knot tables (a
+target a knot; [T, nu] boxes with one knot pinched; every row different) run on the VSA's box and the SEA's gaps at
 B=1, 15 and 200, and tables of equal rows against the shared route.
 
 The kernel performs its plain version's operations in the same order, so
@@ -50,7 +53,7 @@ def roll_lib(tmp_path_factory):
                          ["rollout.cu", "rollout_n3.cu", "rollout_n7.cu", "rollout_tables.cu",
                           "rollout_n3_tables.cu", "rollout_n7_tables.cu"], "roll_smem",
                          ["aslr_rollout2", "aslr_rollout1", "aslr_rollout2_tables",
-                          "aslr_rollout1_tables"])
+                          "aslr_rollout1_tables", "aslr_rollout_n7_launch"])
     mp = pytest.MonkeyPatch()
     mp.setattr(build, "_lib", handle)
     mp.setattr(vsa_kernels, "_route", lambda t: "kernel")
@@ -319,3 +322,60 @@ def test_ndof_rollouts_on_cpu_read_the_target_table(roll_lib, nl, batch, dtype):
     _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6))
     first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
     _assert_same_bits(one, first)
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["shared", "tables"])
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("batch", [1, 15, 200])
+def test_k6_nl7_wide_layout_on_cpu_matches_plain_and_first_trial(roll_lib, batch, dtype,
+                                                                 tables):
+    """K6 at nl 7 in its wide layout (8 lanes a trajectory: one RNEA sweep
+    and at most one feedback row a lane, 8 trajectories a block; B=1, 15,
+    200 end in a partial block), in the shared and the tables instance,
+    equals its plain version and K3's first trial (K3 there in the general
+    layout) to the bit at T=5, not a multiple of the 8 knots whose running
+    costs the group defers."""
+    T_ = 5
+    args = _ndof_args(7, batch, dtype, T_, seed=1)
+    if tables:
+        args = list(args)
+        args[0], tgt = per_knot_target(args[0], T_, dtype)
+        args = tuple(args) + (tgt,)
+    k6 = _k6_args(args)
+    before = build.LAUNCHES["rollout1"]
+    one = vsa_kernels.rollout1(*k6)
+    assert build.LAUNCHES["rollout1"] == before + 1
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6))
+    first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
+    _assert_same_bits(one, first)
+    assert float(torch.isfinite(one.cost).double().mean()) >= 0.5
+
+
+def test_k6_nl7_wide_layout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib):
+    """K6 at nl 7 with trajectory 25's gains NaN: it fails alone; the other
+    trajectories of its warp (24, 26, 27: four a warp at 8 lanes) equal the
+    plain version and stay finite."""
+    args = list(_k6_args(_ndof_args(7, 40, torch.float64, 5, seed=1)))
+    for i in (3, 4):
+        args[i] = args[i].clone()
+        args[i][..., 25] = float("nan")
+    got = vsa_kernels.rollout1(*args)
+    _assert_same_bits(got, vsa_kernels.rollout1_plain(*args))
+    assert bool(got.cost[25].isnan())
+    assert bool(torch.isfinite(got.cost[[24, 26, 27]]).all())
+
+
+@pytest.mark.parametrize("dtype,kept", [(torch.float32, 0), (torch.float64, 64 * 35)],
+                         ids=["f32", "f64"])
+def test_nl7_rollout_launches_on_cpu(roll_lib, dtype, kept):
+    """At B=1024, T=100: K6 at nl 7 runs 128 blocks of 64 threads (8
+    trajectories a block) on two stages of a 266-row tile (8 columns and 32
+    bytes), and in f64 a slot a thread for the 35 values of the knot whose
+    running cost it defers; K3 there keeps 64 blocks of 128 threads (16
+    scenarios, two trials)."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    rows = 28 + 7 + 7 + 7 * 28 + 28
+    assert build.launch_of("rollout1", dtype, 1024) | dict(blocks_per_sm=0) == dict(
+        grid=128, threads=64, smem=(2 * rows * (8 + 32 // size) + kept) * size, blocks_per_sm=0)
+    assert build.launch_of("rollout2", dtype, 1024) | dict(blocks_per_sm=0) == dict(
+        grid=64, threads=128, smem=2 * rows * (16 + 32 // size) * size, blocks_per_sm=0)
