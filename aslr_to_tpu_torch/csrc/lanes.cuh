@@ -12,6 +12,8 @@
 // scalar type at their use, as JAX rounds a baked Python float.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace aslr {
@@ -109,13 +111,17 @@ template <class V> __device__ inline Mat3<V> rot_axis_angle(const double* axis, 
 
 // world placement of the goal frame at link angles q. The chain is serial
 // (parent of joint i is i - 1, checked by the parameter packer), so every
-// index below is a compile-time constant once the loops unroll.
-template <class V, int NL>
-__device__ inline void frame_placement(const VSAParams<NL>& P, const V* q, Mat3<V>& R, Vec3<V>& p) {
+// index below is a compile-time constant once the loops unroll. With GIVEN,
+// the joints' rotations (joint_rotation of q) come from Eg(i).
+template <class V, int NL, bool GIVEN = false, class ROT = const Mat3<V>*>
+__device__ inline void frame_placement(const VSAParams<NL>& P, const V* q, Mat3<V>& R, Vec3<V>& p,
+                                       ROT Eg = nullptr) {
   Mat3<V> rot, rot_f;
   Vec3<V> trans, trans_f;
   for (int i = 0; i < NL; ++i) {
-    Mat3<V> E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
+    Mat3<V> E;
+    if constexpr (GIVEN) E = Eg(i);
+    else E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
     const auto pi = v_const<V>(P.joint_pos[i]);
     if (i == 0) {
       rot = E;
@@ -155,16 +161,18 @@ __device__ inline Joint joint_of(const VSAParams<NL>& P, int i) {
 }
 
 // inverse dynamics of the serial chain (ops/lanes.py::rnea_lanes); with
-// GIVEN, the joints' rotations (joint_rotation of q) come in Eg
-template <class V, int NL, bool GIVEN = false>
+// GIVEN, the joints' rotations (joint_rotation of q) come in Eg: an array,
+// or a source whose Eg(i) gives joint i's
+template <class V, int NL, bool GIVEN = false, class ROT = const Mat3<V>*>
 __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, const V* a,
-                            bool gravity, V* tau, const Mat3<V>* Eg = nullptr) {
+                            bool gravity, V* tau, ROT Eg = nullptr) {
   Mat3<V> Es[NL];
   Vec3<V> vs[NL], ws[NL], als[NL], aas[NL], f_lin[NL], f_ang[NL];
   const Vec3<V> zero = v_zero<V>();
   for (int i = 0; i < NL; ++i) {
     Mat3<V> E;
-    if constexpr (GIVEN) E = Eg[i];
+    if constexpr (GIVEN && std::is_pointer_v<ROT>) E = Eg[i];
+    else if constexpr (GIVEN) E = Eg(i);
     else E = m_mul(m_const<V>(P.joint_rot[i]), rot_axis_angle(P.axis[i], q[i]));
     const auto p = v_const<V>(P.joint_pos[i]);
     Es[i] = E;
@@ -214,10 +222,20 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
   for (int i = NL - 1; i >= 0; --i) {
     tau[i] = v_dot(v_const<V>(P.axis[i]), f_ang[i]);
     if (i > 0) {
-      Vec3<V> fp = m_vec(Es[i], f_lin[i]);
-      Vec3<V> tp = v_add(m_vec(Es[i], f_ang[i]), v_cross(v_const<V>(P.joint_pos[i]), fp));
-      f_lin[i - 1] = v_add(f_lin[i - 1], fp);
-      f_ang[i - 1] = v_add(f_ang[i - 1], tp);
+      if constexpr (GIVEN && !std::is_pointer_v<ROT>) {
+        // a source gives joint i's rotation again, which then need not stay
+        // live across the sweep
+        const Mat3<V> E = Eg(i);
+        Vec3<V> fp = m_vec(E, f_lin[i]);
+        Vec3<V> tp = v_add(m_vec(E, f_ang[i]), v_cross(v_const<V>(P.joint_pos[i]), fp));
+        f_lin[i - 1] = v_add(f_lin[i - 1], fp);
+        f_ang[i - 1] = v_add(f_ang[i - 1], tp);
+      } else {
+        Vec3<V> fp = m_vec(Es[i], f_lin[i]);
+        Vec3<V> tp = v_add(m_vec(Es[i], f_ang[i]), v_cross(v_const<V>(P.joint_pos[i]), fp));
+        f_lin[i - 1] = v_add(f_lin[i - 1], fp);
+        f_ang[i - 1] = v_add(f_ang[i - 1], tp);
+      }
     }
   }
 }
@@ -226,16 +244,16 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
 // gravity), c > 0 column c - 1 of M (no velocity, unit acceleration of
 // link c - 1, no gravity). c may differ from thread to thread: the inputs
 // are chosen by value, so every sweep runs the same instructions.
-// With GIVEN, the joints' rotations come in Eg.
-template <class V, int NL, bool GIVEN = false>
+// With GIVEN, the joints' rotations come in Eg (as rnea's).
+template <class V, int NL, bool GIVEN = false, class ROT = const Mat3<V>*>
 __device__ inline void mass_nle_sweep(const VSAParams<NL>& P, const V* q, const V* v, int c,
-                                      V* out, const Mat3<V>* Eg = nullptr) {
+                                      V* out, ROT Eg = nullptr) {
   V vc[NL], ac[NL];
   for (int i = 0; i < NL; ++i) {
     vc[i] = c == 0 ? v[i] : V(cst<V>(0.0));
     ac[i] = V(cst<V>(c == i + 1 ? 1.0 : 0.0));
   }
-  rnea<V, NL, GIVEN>(P, q, vc, ac, c == 0, out, Eg);
+  rnea<V, NL, GIVEN, ROT>(P, q, vc, ac, c == 0, out, Eg);
 }
 
 // mass matrix M (from unit-acceleration RNEA columns) and nle
@@ -354,13 +372,14 @@ __device__ inline void log6(const Mat3<V>& R, const Vec3<V>& p, V* r6) {
 // (vsa_kernels.py::_goal_cost_lanes) against the target ``row`` of a
 // [T, 12] table (R_inv row by row, then the position;
 // vsa_kernels.py::VSASpec.target_table), or where it is null the
-// parameter block's running or terminal target
-template <class V, int NL>
+// parameter block's running or terminal target; with GIVEN, the joints'
+// rotations from Eg(i) (frame_placement's)
+template <class V, int NL, bool GIVEN = false, class ROT = const Mat3<V>*>
 __device__ inline V goal_cost(const VSAParams<NL>& P, const V* q_l, bool terminal,
-                              const typename scalar_of<V>::type* row, V* r6) {
+                              const typename scalar_of<V>::type* row, V* r6, ROT Eg = nullptr) {
   Mat3<V> R;
   Vec3<V> p;
-  frame_placement<V, NL>(P, q_l, R, p);
+  frame_placement<V, NL, GIVEN, ROT>(P, q_l, R, p, Eg);
   // the target, entry by entry
   Mat3<typename scalar_of<V>::type> Ri;
   Vec3<typename scalar_of<V>::type> tp;

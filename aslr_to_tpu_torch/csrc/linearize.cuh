@@ -57,11 +57,30 @@
 //
 // Above NL = 2 the mass solves are an unrolled Cholesky (lanes.cuh::choln,
 // choln_solve, as the Pallas kernel's ops/lanes.py::choln and solven): the
-// accelerations solve M a = rhs, and each entry of the link rows of the
-// acceleration Jacobian solves its column (msolve_r), as the plain version
-// does. The group stays 2 lanes at every NL (a lane then takes several goal
-// seeds, sweeps, RNEA seeds and rows: ceil(NL / 2), ceil((NL + 1) / 2) and
-// NL of each); only the SEA arm is instantiated above NL = 2.
+// accelerations solve M a = rhs, and the link rows of the acceleration
+// Jacobian take M^-1 of its columns, as the plain version does. Only the
+// SEA arm is instantiated above NL = 2. At NL = 3 the group stays 2 lanes
+// (a lane then takes several goal seeds, sweeps, RNEA seeds and rows), and
+// each entry of a link row solves its whole column again (msolve_r). At
+// NL = 7 that repetition held the time: a (knot, scenario) ran 147 solves
+// of 7 x 7 triangular pairs where 21 are distinct, and every goal seed,
+// sweep and dual RNEA seed recomputed the 7 joints' rotations (a sine, a
+// cosine, the Rodrigues matrix and its product with the joint's placement)
+// from the angles. Its wide layout (LinLayout::WIDE) computes each once a
+// group and shares it through a tile of the group's own in shared memory:
+//   - joint i's rotation on lane i mod G, with its tangent in a seed of
+//     q_i and its tangent in a seed of another joint (the tangent of a zero
+//     seed: 0 where q_i is finite, NaN where not, as the plain version's
+//     0 * sin gives), which the goal seeds, the sweeps and the dual RNEA
+//     seeds read in place of their own (TileRot);
+//   - M's factor once a lane, and each column's solve once a group: the
+//     lane of RNEA seed j or NL + j solves M^-1 (-dtau/dq_j - dK_j) or
+//     M^-1 (-dtau/dv_j) from its own partials, which then need no exchange,
+//     and lane j mod G M^-1 dK_j; the link rows read their entries.
+// Once the repeated work had gone, one lane a (knot, scenario) ran fastest
+// (kLinGroupN7; 2, 4 and 8 lanes 14%, 32% and 73% slower at B = 1024,
+// PERF.md): the tile is then the thread's own, and it keeps the
+// rotations and the solved columns out of registers (no f32 spill).
 //
 // Every value is computed by one lane with the operations of the plain
 // version (aslr_to_tpu_torch/kernels/vsa_kernels.py::linearize_plain), in
@@ -81,7 +100,56 @@ namespace aslr {
 
 constexpr int kLinThreads = 128;
 constexpr int kLinGroup = 2;        // lanes a (knot, scenario)
+constexpr int kLinGroupN7 = 1;      // the same in the wide layout (nl 7)
 constexpr bool kStageOut = false;   // outputs through the block's shared memory
+
+// K1's layout at the chain length NL. In the wide one (nl 7) a group
+// computes each joint's rotation and each column solve of the acceleration
+// Jacobian once, and its lanes read them from a tile of the group's own in
+// shared memory: joint i's rotation at kTileRot i (its value, then its tangents
+// in a seed of q_i and in a seed of another joint, 9 values each), and,
+// once the dual seeds are done, M^-1 of input column c at NL c (the 3 NL
+// columns of q_l, q_m and v_l). The 3-DoF instance keeps nl 2's layout: no
+// measured path runs it.
+constexpr int kTileRot = 27;  // a joint's rotation in a tile: its value and two tangents
+template <int NL>
+struct LinLayout {
+  static constexpr bool WIDE = NL >= 7;
+  static constexpr int G = WIDE ? kLinGroupN7 : kLinGroup;
+  static constexpr int COLS = 3 * NL,
+                       TILE = WIDE ? (NL * kTileRot > COLS * NL ? NL * kTileRot : COLS * NL) : 0;
+  static constexpr size_t BYTES(size_t itemsize) {
+    return (size_t)TILE * (kLinThreads / G) * itemsize;
+  }
+};
+
+// joint i's rotation from a group's tile (LinLayout): its value, with the
+// tangent of a seed of q_seed (none: seed -1), as rnea and goal_cost of
+// Dual<S> take it
+template <class S>
+struct TileRot {
+  const S* tile;
+  int seed;
+  __device__ Mat3<Dual<S>> operator()(int i) const {
+    const S* e = tile + i * kTileRot;
+    const S* d = e + (i == seed ? 9 : 18);
+    Mat3<Dual<S>> E;
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) E.m[r][c] = Dual<S>(e[3 * r + c], d[3 * r + c]);
+    return E;
+  }
+};
+// the same, values only (the sweeps of mass_nle)
+template <class S>
+struct TileRotValue {
+  const S* tile;
+  __device__ Mat3<S> operator()(int i) const {
+    Mat3<S> E;
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) E.m[r][c] = tile[i * kTileRot + 3 * r + c];
+    return E;
+  }
+};
 
 template <class S>
 struct Lin {
@@ -129,15 +197,20 @@ __device__ inline S dotn(const S* c, const S* v) {
 template <class S, int NL, bool SEA, int G, int TAB>
 __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) {
   constexpr int NDX = Arm<NL, SEA>::NDX, NU = Arm<NL, SEA>::NU, NV = 2 * NL;
-  constexpr int MG = (NL + G - 1) / G;      // goal seeds a lane
+  constexpr int MG = (NL + G - 1) / G;      // goal seeds a lane, and rotations a lane (WIDE)
   constexpr int MS = (NL + 1 + G - 1) / G;  // mass_nle sweeps a lane
   constexpr int MR = (NV + G - 1) / G;      // RNEA seeds a lane, and rows a lane
+  constexpr bool WIDE = LinLayout<NL>::WIDE;
+  static_assert(SEA || !WIDE, "the wide layout solves the SEA arm's columns");
   typedef Dual<S> D;
   using O = LinOut<NDX, NU, G>;
   extern __shared__ __align__(16) unsigned char lin_smem[];
   [[maybe_unused]] S* const tile = reinterpret_cast<S*>(lin_smem);
   const Group<G> grp;
   const int lane = grp.lane;
+  // the group's tile (WIDE), after the output tile
+  [[maybe_unused]] S* const gt = tile + (kStageOut ? O::E * O::P : 0) +
+                                 (threadIdx.x / G) * LinLayout<NL>::TILE;
   const long long TB = a.B, N = (long long)(a.T + 1) * TB;
   const long long n = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   const bool live = n < N;
@@ -160,22 +233,56 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
   const S* q_m = x + NL;
   const S* v_l = x + 2 * NL;
 
+  if constexpr (WIDE) {  // joint i's rotation on lane i mod G, into the group's tile
+    for (int m = 0; m < MG; ++m) {
+      const int i = lane + m * G;
+      if (i < NL) {
+        const Joint jt = joint_of<NL>(P, i);
+        const S qi = pick<NL>(q_l, i);
+        const Mat3<D> Eu = joint_rotation(jt, D(qi, S(1))), Ez = joint_rotation(jt, D(qi, S(0)));
+        for (int r = 0; r < 3; ++r)
+          for (int c = 0; c < 3; ++c) {
+            gt[i * kTileRot + 3 * r + c] = Eu.m[r][c].v;
+            gt[i * kTileRot + 9 + 3 * r + c] = Eu.m[r][c].d;
+            gt[i * kTileRot + 18 + 3 * r + c] = Ez.m[r][c].d;
+          }
+      }
+    }
+    grp.sync();
+  }
+
   // goal residual and its Jacobian wrt q_l: seed g on lane g mod G (the
   // values r6 and the cost are the same on every seed). The target: the
   // table's row of a running knot (TAB: always, or where the table is
   // given), else the parameter block's running or terminal one
   const bool tab = TAB == kTables || (TAB == kEither && a.tgt != nullptr);
   const S* const row = tab && !terminal ? a.tgt + t * 12 : nullptr;
+  // (the wide layout's loops beside the others, whose statements stay in
+  // their order: moved, they changed the nl 2 instances' registers)
   S Jo[MG][6], r6[6], c_goal = S(0);
-  for (int m = 0; m < MG; ++m) {
-    const int g = (lane + m * G) % NL;
-    D qd[NL], rd[6];
-    for (int i = 0; i < NL; ++i) qd[i] = D(q_l[i], S(i == g ? 1 : 0));
-    const D cd = goal_cost<D, NL>(P, qd, terminal, row, rd);
-    for (int k = 0; k < 6; ++k) Jo[m][k] = rd[k].d;
-    if (m == 0) {
-      c_goal = cd.v;
-      for (int k = 0; k < 6; ++k) r6[k] = rd[k].v;
+  if constexpr (WIDE) {  // the seeds read the tile's rotations
+    for (int m = 0; m < MG; ++m) {
+      const int g = (lane + m * G) % NL;
+      D qd[NL], rd[6];
+      for (int i = 0; i < NL; ++i) qd[i] = D(q_l[i], S(i == g ? 1 : 0));
+      const D cd = goal_cost<D, NL, true>(P, qd, terminal, row, rd, TileRot<S>{gt, g});
+      for (int k = 0; k < 6; ++k) Jo[m][k] = rd[k].d;
+      if (m == 0) {
+        c_goal = cd.v;
+        for (int k = 0; k < 6; ++k) r6[k] = rd[k].v;
+      }
+    }
+  } else {
+    for (int m = 0; m < MG; ++m) {
+      const int g = (lane + m * G) % NL;
+      D qd[NL], rd[6];
+      for (int i = 0; i < NL; ++i) qd[i] = D(q_l[i], S(i == g ? 1 : 0));
+      const D cd = goal_cost<D, NL>(P, qd, terminal, row, rd);
+      for (int k = 0; k < 6; ++k) Jo[m][k] = rd[k].d;
+      if (m == 0) {
+        c_goal = cd.v;
+        for (int k = 0; k < 6; ++k) r6[k] = rd[k].v;
+      }
     }
   }
   S J[NL][6];
@@ -258,7 +365,11 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
   S sw[MS][NL];
   for (int m = 0; m < MS; ++m) {
     const int cs = lane + m * G < NL ? lane + m * G : NL;
-    mass_nle_sweep<S, NL>(P, x, v_l, cs, sw[m]);
+    if constexpr (WIDE) {
+      mass_nle_sweep<S, NL, true>(P, x, v_l, cs, sw[m], TileRotValue<S>{gt});
+    } else {
+      mass_nle_sweep<S, NL>(P, x, v_l, cs, sw[m]);
+    }
   }
   S M[NL][NL], nle[NL];
   for (int i = 0; i < NL; ++i) nle[i] = grp.from(0, sw[0][i]);
@@ -266,7 +377,20 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
     for (int i = 0; i < NL; ++i) M[i][j] = grp.from((j + 1) % G, sw[(j + 1) / G][i]);
   S tau_c[NL], acc[NV];
   spring_torque<S, NL, SEA>(P, x, u, tau_c);
-  accelerations<S, NL>(P, u, tau_c, M, nle, acc);
+  [[maybe_unused]] S Lw[NL][NL];  // WIDE: M's factor, once for the accelerations and the columns
+  if constexpr (WIDE) {  // accelerations' operations, with the factor kept
+    S rhs[NL];
+    for (int i = 0; i < NL; ++i) rhs[i] = -nle[i] - tau_c[i];
+    choln<S, NL>(M, Lw);
+    choln_solve<S, NL>(Lw, rhs, acc);
+    for (int i = 0; i < NL; ++i) {
+      S mi = S(P.binv[i][0]) * (u[0] + tau_c[0]);
+      for (int j = 1; j < NL; ++j) mi = mi + S(P.binv[i][j]) * (u[j] + tau_c[j]);
+      acc[NL + i] = mi;
+    }
+  } else {
+    accelerations<S, NL>(P, u, tau_c, M, nle, acc);
+  }
 
   // RNEA partials at (q_l, v_l, a_l): seed s on lane s mod G, dtau/dq_s for
   // s < NL, else dtau/dv_{s-NL}
@@ -279,15 +403,21 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
       vd[i] = D(v_l[i], S(s == NL + i ? 1 : 0));
       ad[i] = D(acc[i]);
     }
-    rnea<D, NL>(P, qd, vd, ad, true, tau);
+    if constexpr (WIDE) {
+      rnea<D, NL, true>(P, qd, vd, ad, true, tau, TileRot<S>{gt, s < NL ? s : -1});
+    } else {
+      rnea<D, NL>(P, qd, vd, ad, true, tau);
+    }
     for (int i = 0; i < NL; ++i) dto[m][i] = tau[i].d;
   }
-  S dtau_dq[NL][NL], dtau_dv[NL][NL];
-  for (int j = 0; j < NL; ++j)
-    for (int i = 0; i < NL; ++i) {
-      dtau_dq[j][i] = grp.from(j % G, dto[j / G][i]);
-      dtau_dv[j][i] = grp.from((NL + j) % G, dto[(NL + j) / G][i]);
-    }
+  [[maybe_unused]] S dtau_dq[NL][NL], dtau_dv[NL][NL];
+  if constexpr (!WIDE) {  // the wide layout's seed lanes solve their own columns
+    for (int j = 0; j < NL; ++j)
+      for (int i = 0; i < NL; ++i) {
+        dtau_dq[j][i] = grp.from(j % G, dto[j / G][i]);
+        dtau_dv[j][i] = grp.from((NL + j) % G, dto[(NL + j) / G][i]);
+      }
+  }
 
   S Minv[NL][NL] = {}, Lfac[NL][NL];  // M^-1 at NL = 2, else M's Cholesky factor
   if constexpr (NL == 2) {
@@ -297,7 +427,7 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
     Minv[0][1] = -M[0][1] * idet;
     Minv[1][0] = -M[1][0] * idet;
     Minv[1][1] = M[0][0] * idet;
-  } else {
+  } else if constexpr (!WIDE) {
     choln<S, NL>(M, Lfac);
   }
   // dK[j][i] = d tau_c_i / d q_l_j: the VSA's k_j on the diagonal, or the
@@ -310,6 +440,42 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
       else
         dK[j][i] = (i == j) ? u[NL + j] : S(0);
     }
+
+  if constexpr (WIDE) {
+    // the link rows' columns, each solved once a group: M^-1 (-dtau/dq_j -
+    // dK_j) and M^-1 (-dtau/dv_j) on the lane of RNEA seed j or NL + j,
+    // M^-1 dK_j on lane j mod G; into the group's tile, whose rotations every
+    // lane has done with
+    grp.sync();
+    // column j of dK, j a value (selects: no indexed load)
+    auto dK_col = [&](int j, S* col) {
+      for (int i = 0; i < NL; ++i) {
+        S v = dK[0][i];
+        for (int k = 1; k < NL; ++k) v = k == j ? dK[k][i] : v;
+        col[i] = v;
+      }
+    };
+    for (int m = 0; m < MR; ++m) {
+      const int s = lane + m * G;
+      if (s < NV) {
+        S col[NL], out[NL];
+        dK_col(s, col);
+        for (int i = 0; i < NL; ++i) col[i] = s < NL ? -(dto[m][i]) - col[i] : -dto[m][i];
+        choln_solve<S, NL>(Lw, col, out);
+        for (int i = 0; i < NL; ++i) gt[(s < NL ? s : NL + s) * NL + i] = out[i];
+      }
+    }
+    for (int m = 0; m < MG; ++m) {
+      const int j = lane + m * G;
+      if (j < NL) {
+        S col[NL], out[NL];
+        dK_col(j, col);
+        choln_solve<S, NL>(Lw, col, out);
+        for (int i = 0; i < NL; ++i) gt[(NL + j) * NL + i] = out[i];
+      }
+    }
+    grp.sync();
+  }
 
   // -- the rows of the Euler chain rule: entry r of each column of
   // d a / d [q_l, q_m, v_l, v_m, tau (, k)], then rows r and r + NV of Fx
@@ -366,9 +532,15 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
         ntv[i] = -dtau_dv[j][i];
       }
       const S mot = dotn<NL>(brow, dK[j]);  // entry rm of Binv dK
-      put(j, link ? msolve_r(tmp) : mot);             // q_l_j
-      put(NL + j, link ? msolve_r(dK[j]) : -mot);     // q_m_j: the spring's sign flips
-      put(2 * NL + j, link ? msolve_r(ntv) : S(0));   // v_l_j
+      if constexpr (WIDE) {  // the group's solves, from its tile
+        put(j, link ? gt[j * NL + rl] : mot);
+        put(NL + j, link ? gt[(NL + j) * NL + rl] : -mot);
+        put(2 * NL + j, link ? gt[(2 * NL + j) * NL + rl] : S(0));
+      } else {
+        put(j, link ? msolve_r(tmp) : mot);             // q_l_j
+        put(NL + j, link ? msolve_r(dK[j]) : -mot);     // q_m_j: the spring's sign flips
+        put(2 * NL + j, link ? msolve_r(ntv) : S(0));   // v_l_j
+      }
       put(3 * NL + j, S(0));                          // v_m_j
       put(4 * NL + j, link ? S(0) : brow[j]);         // tau_j
       if constexpr (!SEA) {                           // k_j
@@ -425,20 +597,47 @@ __device__ inline void linearize_group(const VSAParams<NL>& P, const Lin<S>& a) 
 template <class S, int NL, bool SEA, int TAB>
 __global__ void __launch_bounds__(kLinThreads) linearize_kernel(const VSAParams<NL> P,
                                                                 const Lin<S> a) {
-  linearize_group<S, NL, SEA, kLinGroup, TAB>(P, a);
+  linearize_group<S, NL, SEA, LinLayout<NL>::G, TAB>(P, a);
+}
+
+// a block's dynamic shared memory: the output tile (kStageOut) and the
+// groups' tiles (the wide layout)
+template <class S, int NL, bool SEA>
+constexpr size_t lin_smem_bytes() {
+  return LinOut<Arm<NL, SEA>::NDX, Arm<NL, SEA>::NU, LinLayout<NL>::G>::BYTES(sizeof(S)) +
+         LinLayout<NL>::BYTES(sizeof(S));
 }
 
 template <class S, int NL, bool SEA, int TAB>
 static int launch_arm(const VSAParams<NL>& P, const Lin<S>& a, cudaStream_t stream) {
-  using O = LinOut<Arm<NL, SEA>::NDX, Arm<NL, SEA>::NU, kLinGroup>;
-  const long long threads = (long long)(a.T + 1) * a.B * kLinGroup;
+  constexpr int G = LinLayout<NL>::G;
+  const long long threads = (long long)(a.T + 1) * a.B * G;
   const int grid = (int)((threads + kLinThreads - 1) / kLinThreads);
-  const int smem = (int)O::BYTES(sizeof(S));
+  constexpr size_t smem = lin_smem_bytes<S, NL, SEA>();
+  static_assert(smem <= kMaxSmem, "the tiles fit in a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      linearize_kernel<S, NL, SEA, TAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      linearize_kernel<S, NL, SEA, TAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   linearize_kernel<S, NL, SEA, TAB><<<grid, kLinThreads, smem, stream>>>(P, a);
   return (int)cudaGetLastError();
+}
+
+// K1 at the chain length NL, the SEA arm's instance, at T knots and a batch
+// of B: its grid, threads a block, dynamic shared memory and blocks
+// resident an SM, into out[0 .. 4)
+template <class S, int NL>
+static int lin_launch(int T, int B, int* out) {
+  constexpr int TAB = NL == 2 ? kShared : kEither;
+  constexpr size_t smem = lin_smem_bytes<S, NL, true>();
+  const cudaError_t attr = cudaFuncSetAttribute(
+      linearize_kernel<S, NL, true, TAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long threads = (long long)(T + 1) * B * LinLayout<NL>::G;
+  out[0] = (int)((threads + kLinThreads - 1) / kLinThreads);
+  out[1] = kLinThreads;
+  out[2] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[3], linearize_kernel<S, NL, true, TAB>, kLinThreads, smem);
 }
 
 // at NL = 2 the target table has instances of its own (the shared ones
@@ -468,6 +667,16 @@ static int launch_linearize(const double* params, int nl, const Lin<S>& a, void*
 }
 
 }  // namespace aslr
+
+// the launch of K1 at the unit's chain length NL (the SEA arm) for 4- or
+// 8-byte scalars at T knots and a batch of B: grid, threads, dynamic shared
+// memory and blocks resident an SM into out[0 .. 4); the CUDA error, or -1
+// for another itemsize
+#define ASLR_LINEARIZE_LAUNCH_ENTRY(NAME, NL)                                            \
+  extern "C" int NAME(int itemsize, int T, int B, int* out) {                            \
+    if (itemsize == 4) return aslr::lin_launch<float, NL>(T, B, out);                    \
+    return itemsize == 8 ? aslr::lin_launch<double, NL>(T, B, out) : aslr::kNoInstance;  \
+  }
 
 // one C entry a scalar type: NAME launches K1 at the chain length NL
 #define ASLR_LINEARIZE_ENTRY(NAME, S, NL)                                                \

@@ -3,3 +3,4 @@
 
 ASLR_LINEARIZE_ENTRY(aslr_linearize_n7_f32, float, 7)
 ASLR_LINEARIZE_ENTRY(aslr_linearize_n7_f64, double, 7)
+ASLR_LINEARIZE_LAUNCH_ENTRY(aslr_linearize_n7_launch, 7)

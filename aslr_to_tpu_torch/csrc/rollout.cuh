@@ -77,14 +77,17 @@
 // against its alternative on the card (PERF.md): 2 or 8 lanes, the cost in
 // the chain, deeper stages and blocks of 64 run slower; blocks of 256 spill
 // in f64; direct loads win on the VSA's box and lose on the SEA's gaps.
-// Those were measured at nl = 2. K6 at nl = 7 (the 7-DoF arm's fast path)
-// takes a wide layout of its own (RollLayout::WIDE): there the knot chain
-// held 8 RNEA sweeps and 7 feedback rows of 28 products on 4 lanes, two of
-// each a lane in series, and a block of 32 trajectories left most SMs idle
-// at the path's B = 1024 (32 blocks). In the wide layout
+// Those were measured at nl = 2. At nl = 7 (the 7-DoF arm) the general
+// layout's knot chain holds 8 RNEA sweeps and 7 feedback rows of 28
+// products on 4 lanes, two of each a lane in series, and at the path's
+// B = 1024 its blocks leave most SMs idle (K6: 32 blocks; K3, 16 scenarios
+// of two trials a block: 64). There the wide layout (RollLayout::WIDE):
 //   - a group of 8 lanes runs one sweep (the nle, or one of M's 7 columns)
-//     and at most one row a lane, in blocks of 64 threads (8 trajectories:
-//     128 blocks at B = 1024);
+//     and at most one row a lane, in blocks of 64 threads for K6 (8
+//     trajectories) and of 128 for K3 (8 scenarios of two trials, both
+//     still on one staged copy of the knot: a staged row of f32 is a full
+//     32-byte sector, about 4.2 copies a thread a knot): 128 blocks each at
+//     B = 1024;
 //   - lane i computes joint i's rotation (its sine and cosine, the
 //     Rodrigues matrix and the product with the joint's placement) once a
 //     knot, and the group exchanges the 7 matrices by shuffles, so a sweep
@@ -92,8 +95,12 @@
 //   - in f64 the knot whose running cost a lane defers waits in a
 //     shared-memory slot of the lane's, not in 70 registers, which would
 //     spill (RollLayout::KEPT).
-// `rollout_variants.py --nl 7` times each choice against its alternative
-// (PERF.md); K3 at nl = 7 keeps the general layout (kWideK3N7).
+// K6 takes it at every batch. K3 takes it only where its general layout's
+// blocks are fewer than the SMs (rollout2_wide): at B = 4096 every SM holds
+// a general block, and the wide layout's twice the lanes, each repeating
+// the factor, the solves and the Euler step, ran 32% slower there
+// (PERF.md). `rollout_variants.py --nl 7` times each choice against its
+// alternative.
 //
 // Every value is computed by one lane with the operations of the plain
 // version (aslr_to_tpu_torch/kernels/vsa_kernels.py::_rollout_plain), in its
@@ -121,14 +128,16 @@ constexpr int kRollChunk = 1;       // knots a stage
 constexpr bool kDeferCost = true;   // the running cost off the chain
 constexpr bool kStaged = true;      // knot inputs from shared memory
 constexpr bool kShareStage = true;  // K3's trials read one staged copy
-// K6 where a chain has more RNEA sweeps (NL + 1) than kRollGroup lanes,
-// nl = 7 (the wide layout): NL + 1 lanes a trajectory, so each lane runs
-// one RNEA sweep and at most one feedback row, in blocks of kRollThreadsN7
-// threads; tuned at the 7-DoF path's B = 1024. K3 at nl = 7 keeps the
-// general layout (kWideK3N7)
+// Where a chain has more RNEA sweeps (NL + 1) than kRollGroup lanes, nl = 7,
+// the wide layout: kRollGroupN7 lanes a trajectory, so each lane runs one
+// RNEA sweep and at most one feedback row, in blocks of kRollThreadsN7
+// threads for K6 and kRollThreads2N7 for K3 (8 scenarios, a staged row of
+// f32 a full 32-byte sector); tuned at the 7-DoF path's B = 1024. K6 takes
+// it at every batch, K3 where its general layout would leave SMs without
+// a block (rollout2_wide)
 constexpr int kRollGroupN7 = 8;
 constexpr int kRollThreadsN7 = 64;
-constexpr bool kWideK3N7 = false;
+constexpr int kRollThreads2N7 = 128;
 constexpr bool kShareRotN7 = true;  // each joint's rotation computed by one lane a group
 
 template <class S>
@@ -144,14 +153,17 @@ struct Roll {
 
 // A block: NT trials of SPB scenarios, a group of G lanes a trajectory. Its
 // shared memory: two stages of C knots, each knot a [ROWS, P] tile
-// (COPIES copies of the SPB scenarios' columns, and 32 bytes).
-template <class S, int NL, bool SEA, bool GAPS, int NT>
+// (COPIES copies of the SPB scenarios' columns, and 32 bytes). The layout:
+// WIDE where the chain's sweeps outnumber the general group's lanes (K6;
+// K3 there has both, chosen by the batch at launch), else the general one.
+template <class S, int NL, bool SEA, bool GAPS, int NT, bool WIDE_ = (NL + 1 > kRollGroup)>
 struct RollLayout {
-  static constexpr bool WIDE = NL + 1 > kRollGroup && (NT == 1 || kWideK3N7);
+  static constexpr bool WIDE = WIDE_;
+  static_assert(!WIDE || NL + 1 > kRollGroup, "wide where the sweeps outnumber the lanes");
   static constexpr int NDX = Arm<NL, SEA>::NDX, NU = Arm<NL, SEA>::NU,
                        G = WIDE ? kRollGroupN7 : kRollGroup, C = kRollChunk;
-  static constexpr int THREADS =
-      WIDE ? kRollThreadsN7 : (NT == 1 ? kRollThreads1 : kRollThreads2);
+  static constexpr int THREADS = WIDE ? (NT == 1 ? kRollThreadsN7 : kRollThreads2N7)
+                                      : (NT == 1 ? kRollThreads1 : kRollThreads2);
   static constexpr int SPB = THREADS / G / NT;
   static constexpr int COPIES = kShareStage ? 1 : NT;
   static constexpr int VEC = 16 / (int)sizeof(S);
@@ -280,9 +292,9 @@ __device__ inline S fold(const Group<G>& grp, S cost, S mine, int n) {
   return cost;
 }
 
-template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int NT, int TAB>
+template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int NT, int TAB, bool WIDE>
 __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
-  using L = RollLayout<S, NL, SEA, GAPS, NT>;
+  using L = RollLayout<S, NL, SEA, GAPS, NT, WIDE>;
   constexpr int NDX = L::NDX, NU = L::NU;
   constexpr int G = L::G;
   constexpr int MU = (NU + G - 1) / G;      // feedback rows a lane
@@ -460,22 +472,45 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   if (live && lane == 0) cost_o[b] = cost + a.wterm[bc] * goal;
 }
 
-// two entry kernels over one body, so that a profile tells K3 from K6
+// two entry kernels over one body, so that a profile tells K3 from K6; K3's
+// in either layout
 template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB>
 __global__ void __launch_bounds__(RollLayout<S, NL, SEA, GAPS, 1>::THREADS)
     rollout1_kernel(const VSAParams<NL> P, const Roll<S> a) {
-  rollout_group<S, NL, SEA, BOXED, GAPS, 1, TAB>(P, a);
+  rollout_group<S, NL, SEA, BOXED, GAPS, 1, TAB, RollLayout<S, NL, SEA, GAPS, 1>::WIDE>(P, a);
 }
 
-template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB>
-__global__ void __launch_bounds__(RollLayout<S, NL, SEA, GAPS, 2>::THREADS)
+template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int TAB, bool WIDE>
+__global__ void __launch_bounds__(RollLayout<S, NL, SEA, GAPS, 2, WIDE>::THREADS)
     rollout2_kernel(const VSAParams<NL> P, const Roll<S> a) {
-  rollout_group<S, NL, SEA, BOXED, GAPS, 2, TAB>(P, a);
+  rollout_group<S, NL, SEA, BOXED, GAPS, 2, TAB, WIDE>(P, a);
 }
 
-template <class S, int NL, int NT, int TAB, bool SEA, bool BOXED, bool GAPS>
-static int launch_variant(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t stream) {
-  using L = RollLayout<S, NL, SEA, GAPS, NT>;
+// K3's layout at a batch of B where the chain has both (nl 7): the wide one
+// while the general one's blocks are fewer than the card's SMs. There the
+// general layout leaves SMs idle, and the wide one, with twice the lanes
+// and half the chain a lane, fills them; once every SM has a general block,
+// the wide layout's repeated work (the factor, the solves and the Euler
+// step on every lane of a group) and its two waves cost more than it gains
+// (PERF.md)
+template <class S, int NL, bool SEA, bool GAPS>
+static bool rollout2_wide(int B) {
+  if constexpr (NL + 1 <= kRollGroup) {
+    return false;
+  } else {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+    const int grid = (B + RollLayout<S, NL, SEA, GAPS, 2, false>::SPB - 1) /
+                     RollLayout<S, NL, SEA, GAPS, 2, false>::SPB;
+    return grid < sms;
+  }
+}
+
+template <class S, int NL, int NT, int TAB, bool SEA, bool BOXED, bool GAPS, bool WIDE>
+static int launch_layout(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t stream) {
+  using L = RollLayout<S, NL, SEA, GAPS, NT, WIDE>;
   // the ring only in an instance that takes the tables, and only where a
   // table is given
   constexpr size_t MAX = L::BYTES + (TAB != kShared ? L::RING_BYTES : 0);
@@ -490,12 +525,24 @@ static int launch_variant(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t
     rollout1_kernel<S, NL, SEA, BOXED, GAPS, TAB><<<grid, L::THREADS, smem, stream>>>(P, a);
   } else {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        rollout2_kernel<S, NL, SEA, BOXED, GAPS, TAB>,
+        rollout2_kernel<S, NL, SEA, BOXED, GAPS, TAB, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX);
     if (attr != cudaSuccess) return (int)attr;
-    rollout2_kernel<S, NL, SEA, BOXED, GAPS, TAB><<<grid, L::THREADS, smem, stream>>>(P, a);
+    rollout2_kernel<S, NL, SEA, BOXED, GAPS, TAB, WIDE><<<grid, L::THREADS, smem, stream>>>(P, a);
   }
   return (int)cudaGetLastError();
+}
+
+template <class S, int NL, int NT, int TAB, bool SEA, bool BOXED, bool GAPS>
+static int launch_variant(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t stream) {
+  if constexpr (NT == 2 && NL + 1 > kRollGroup) {
+    if (rollout2_wide<S, NL, SEA, GAPS>(a.B))
+      return launch_layout<S, NL, NT, TAB, SEA, BOXED, GAPS, true>(P, a, stream);
+    return launch_layout<S, NL, NT, TAB, SEA, BOXED, GAPS, false>(P, a, stream);
+  } else {
+    return launch_layout<S, NL, NT, TAB, SEA, BOXED, GAPS,
+                         RollLayout<S, NL, SEA, GAPS, NT>::WIDE>(P, a, stream);
+  }
 }
 
 // ntrials 1 (K6: alpha_b and the b outputs unused) or 2 (K3) at the chain
@@ -532,45 +579,73 @@ static int launch_rollout(const double* params, int nl, Roll<S> a, void* stream)
 }
 
 // K3 (NT 2) or K6 (1) at the chain length NL, the SEA arm's unboxed gap
-// instance of the shared problem, at a batch of B: its grid, threads a
-// block, dynamic shared memory and blocks resident an SM, into out[0 .. 4)
-template <class S, int NL, int NT>
-static int roll_launch(int B, int* out) {
-  using L = RollLayout<S, NL, true, true, NT>;
-  void (*kernel)(const VSAParams<NL>, const Roll<S>) =
-      NT == 1 ? rollout1_kernel<S, NL, true, false, true, kShared>
-              : rollout2_kernel<S, NL, true, false, true, kShared>;
+// instance of the shared problem, at a batch of B, in the layout its
+// launch takes there: its grid, threads a block, dynamic shared memory,
+// blocks resident an SM and layout (1 wide), into out[0 .. 5)
+template <class S, int NL, int NT, bool WIDE>
+static int roll_launch_layout(int B, int* out) {
+  using L = RollLayout<S, NL, true, true, NT, WIDE>;
+  void (*kernel)(const VSAParams<NL>, const Roll<S>);
+  if constexpr (NT == 1) kernel = rollout1_kernel<S, NL, true, false, true, kShared>;
+  else kernel = rollout2_kernel<S, NL, true, false, true, kShared, WIDE>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (attr != cudaSuccess) return (int)attr;
   out[0] = (B + L::SPB - 1) / L::SPB;
   out[1] = L::THREADS;
   out[2] = (int)L::BYTES;
+  out[4] = WIDE;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::THREADS,
                                                             L::BYTES);
 }
 
-template <class S, int NL>
-static int roll_bytes_nl(int ntrials, int sea, int gaps) {
-  const int v = (ntrials == 2 ? 4 : 0) + (sea ? 2 : 0) + (gaps ? 1 : 0);
-  switch (v) {
-    case 0: return (int)RollLayout<S, NL, false, false, 1>::BYTES;
-    case 1: return (int)RollLayout<S, NL, false, true, 1>::BYTES;
-    case 2: return (int)RollLayout<S, NL, true, false, 1>::BYTES;
-    case 3: return (int)RollLayout<S, NL, true, true, 1>::BYTES;
-    case 4: return (int)RollLayout<S, NL, false, false, 2>::BYTES;
-    case 5: return (int)RollLayout<S, NL, false, true, 2>::BYTES;
-    case 6: return (int)RollLayout<S, NL, true, false, 2>::BYTES;
-    default: return (int)RollLayout<S, NL, true, true, 2>::BYTES;
+template <class S, int NL, int NT>
+static int roll_launch(int B, int* out) {
+  if constexpr (NT == 2 && NL + 1 > kRollGroup) {
+    if (rollout2_wide<S, NL, true, true>(B)) return roll_launch_layout<S, NL, NT, true>(B, out);
+    return roll_launch_layout<S, NL, NT, false>(B, out);
+  } else {
+    return roll_launch_layout<S, NL, NT, RollLayout<S, NL, true, true, NT>::WIDE>(B, out);
   }
 }
 
+template <class S, int NL, bool WIDE>
+static int roll_bytes_layout(int ntrials, int sea, int gaps) {
+  const int v = (sea ? 2 : 0) + (gaps ? 1 : 0);
+  if (ntrials == 1) {
+    switch (v) {
+      case 0: return (int)RollLayout<S, NL, false, false, 1>::BYTES;
+      case 1: return (int)RollLayout<S, NL, false, true, 1>::BYTES;
+      case 2: return (int)RollLayout<S, NL, true, false, 1>::BYTES;
+      default: return (int)RollLayout<S, NL, true, true, 1>::BYTES;
+    }
+  }
+  switch (v) {
+    case 0: return (int)RollLayout<S, NL, false, false, 2, WIDE>::BYTES;
+    case 1: return (int)RollLayout<S, NL, false, true, 2, WIDE>::BYTES;
+    case 2: return (int)RollLayout<S, NL, true, false, 2, WIDE>::BYTES;
+    default: return (int)RollLayout<S, NL, true, true, 2, WIDE>::BYTES;
+  }
+}
+
+// wide: K3's layout (K6 has one at each chain length); -1 for a layout the
+// chain length has no K3 of
+template <class S, int NL>
+static int roll_bytes_nl(int ntrials, int sea, int gaps, int wide) {
+  if constexpr (NL + 1 > kRollGroup) {
+    if (wide) return roll_bytes_layout<S, NL, true>(ntrials, sea, gaps);
+  } else {
+    if (wide && ntrials == 2) return kNoInstance;
+  }
+  return roll_bytes_layout<S, NL, false>(ntrials, sea, gaps);
+}
+
 template <class S>
-static int roll_bytes(int nl, int ntrials, int sea, int gaps) {
+static int roll_bytes(int nl, int ntrials, int sea, int gaps, int wide) {
   switch (nl) {
-    case 2: return roll_bytes_nl<S, 2>(ntrials, sea, gaps);
-    case 3: return roll_bytes_nl<S, 3>(ntrials, sea, gaps);
-    case 7: return roll_bytes_nl<S, 7>(ntrials, sea, gaps);
+    case 2: return roll_bytes_nl<S, 2>(ntrials, sea, gaps, wide);
+    case 3: return roll_bytes_nl<S, 3>(ntrials, sea, gaps, wide);
+    case 7: return roll_bytes_nl<S, 7>(ntrials, sea, gaps, wide);
     default: return kNoInstance;
   }
 }
@@ -607,8 +682,9 @@ static int roll_bytes(int nl, int ntrials, int sea, int gaps) {
 
 // the launch of K3 (ntrials 2) or K6 (1) at the unit's chain length NL (the
 // SEA arm, unboxed, with gaps) for 4- or 8-byte scalars at a batch of B:
-// grid, threads, dynamic shared memory and blocks resident an SM into
-// out[0 .. 4); the CUDA error, or -1 for another ntrials or itemsize
+// grid, threads, dynamic shared memory, blocks resident an SM and the
+// layout (1 wide) into out[0 .. 5); the CUDA error, or -1 for another
+// ntrials or itemsize
 #define ASLR_ROLLOUT_LAUNCH_ENTRY(NAME, NL)                                              \
   extern "C" int NAME(int ntrials, int itemsize, int B, int* out) {                        \
     if (itemsize != 4 && itemsize != 8) return aslr::kNoInstance;                          \

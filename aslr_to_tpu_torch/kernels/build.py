@@ -87,17 +87,21 @@ _SIGNATURES = {
     "aslr_riccati_box_smem": [_I, _I, _I],
     # ndx, nu, itemsize: K4's dynamic shared memory a block
     "aslr_riccati_fddp_smem": [_I, _I, _I],
-    # nl, ntrials, sea, gaps, itemsize: the rollout's dynamic shared memory a block
-    "aslr_rollout_smem": [_I, _I, _I, _I, _I],
-    # the launch of K4 at (28, 7) and of K3 / K6 at nl 7 at a batch: itemsize,
-    # B, out (K3 / K6: ntrials first); out[0 .. 4) = grid, threads a block,
-    # dynamic shared memory, blocks resident an SM
+    # nl, ntrials, sea, gaps, wide (K3's layout), itemsize: the rollout's
+    # dynamic shared memory a block
+    "aslr_rollout_smem": [_I, _I, _I, _I, _I, _I],
+    # the launch of K4 at (28, 7), of K3 / K6 and of K1 at nl 7 at a batch:
+    # itemsize, B, out (K3 / K6: ntrials first; K1: T before B); out[0 .. 4)
+    # = grid, threads a block, dynamic shared memory, blocks resident an SM,
+    # and for K3 / K6 out[4] the layout (1 wide)
     "aslr_riccati_fddp_n7_launch": [_I, _I, _P],
     "aslr_rollout_n7_launch": [_I, _I, _I, _P],
+    "aslr_linearize_n7_launch": [_I, _I, _I, _P],
 }
 _SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",),
              "aslr_riccati_fddp_smem": ("",), "aslr_rollout_smem": ("",),
-             "aslr_riccati_fddp_n7_launch": ("",), "aslr_rollout_n7_launch": ("",)}
+             "aslr_riccati_fddp_n7_launch": ("",), "aslr_rollout_n7_launch": ("",),
+             "aslr_linearize_n7_launch": ("",)}
 
 _lib = None
 build_log = ""
@@ -241,23 +245,30 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch_of(kernel: str, dtype, B: int) -> dict:
-    """The launch of K4 at (28, 7) ("riccati_fddp") or of K3 / K6 at nl 7
-    ("rollout2", "rollout1") for a float32 or float64 batch of B: grid,
-    threads a block, dynamic shared memory in bytes and the blocks the card
-    keeps resident an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+def launch_of(kernel: str, dtype, B: int, T: int = 100) -> dict:
+    """The launch of K4 at (28, 7) ("riccati_fddp"), of K3 / K6 at nl 7
+    ("rollout2", "rollout1") or of K1 at nl 7 over T knots ("linearize")
+    for a float32 or float64 batch of B: grid, threads a block, dynamic
+    shared memory in bytes and the blocks the card keeps resident an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for K3 / K6 also the
+    layout that the launch takes at B ("wide" or "general")."""
     import torch
 
     size = torch.empty(0, dtype=dtype).element_size()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     if kernel == "riccati_fddp":
         code = lib().aslr_riccati_fddp_n7_launch(size, B, out)
+    elif kernel == "linearize":
+        code = lib().aslr_linearize_n7_launch(size, T, B, out)
     else:
         code = lib().aslr_rollout_n7_launch({"rollout1": 1, "rollout2": 2}[kernel], size, B,
                                             out)
     if code != 0:
         raise RuntimeError(f"{kernel}: the launch query failed with error {code}")
-    return dict(grid=out[0], threads=out[1], smem=out[2], blocks_per_sm=out[3])
+    info = dict(grid=out[0], threads=out[1], smem=out[2], blocks_per_sm=out[3])
+    if kernel.startswith("rollout"):
+        info["layout"] = "wide" if out[4] else "general"
+    return info
 
 
 def stream_of(t):

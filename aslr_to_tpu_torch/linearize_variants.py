@@ -20,9 +20,17 @@ from ptxas, are printed per
 instantiation.
 
   base         the source as it is: a (knot, scenario) on 2 lanes, the
-               outputs stored straight to global memory
-  group1/4/8   1, 4 or 8 lanes a (knot, scenario) (1: one thread runs every
-               seed and sweep in series, as the earlier design did)
+               outputs stored straight to global memory; at nl 7 the wide
+               layout (each joint's rotation and each column solve once a
+               group, through the group's tile in shared memory) on
+               kLinGroupN7 lanes
+  group1/4/8   1, 4 or 8 lanes a (knot, scenario) at nl 2 (1: one thread
+               runs every seed and sweep in series, as the earlier design
+               did)
+  n7_group1/2/4/8  the same for the wide layout at nl 7
+  n7_own_rot   the wide layout with each goal seed, sweep and RNEA seed
+               computing the joints' rotations itself (its column solves
+               still once a group)
   staged       the outputs through the block's shared memory, written out
                along the batch axis at the end (also at 4 lanes)
   unroll       every loop of the sources fully unrolled (also at 4 lanes):
@@ -80,6 +88,27 @@ def _no_stores(f, src):
     return src
 
 
+def _own_rot(f, src):
+    """The wide layout's rotations computed at each evaluation: no tile of
+    rotations, and no rotation source given to goal_cost, the sweeps and
+    the RNEA seeds."""
+    if f != "linearize.cuh":
+        return src
+    for old, new in (
+            ("  if constexpr (WIDE) {  // joint i's rotation on lane i mod G, into the group's "
+             "tile", "  if constexpr (false) {"),
+            ("goal_cost<D, NL, true>(P, qd, terminal, row, rd, TileRot<S>{gt, g})",
+             "goal_cost<D, NL>(P, qd, terminal, row, rd)"),
+            ("mass_nle_sweep<S, NL, true>(P, x, v_l, cs, sw[m], TileRotValue<S>{gt})",
+             "mass_nle_sweep<S, NL>(P, x, v_l, cs, sw[m])"),
+            ("rnea<D, NL, true>(P, qd, vd, ad, true, tau, TileRot<S>{gt, s < NL ? s : -1})",
+             "rnea<D, NL>(P, qd, vd, ad, true, tau)")):
+        if old not in src:
+            raise ValueError(f"own_rot: {old!r} is not in {f}")
+        src = src.replace(old, new, 1)
+    return src
+
+
 # each variant a list of steps: (declaration, value) sets one constexpr of
 # linearize.cuh; a function (file, text) -> text rewrites any file
 VARIANTS = {
@@ -87,6 +116,11 @@ VARIANTS = {
     "group1": [("int kLinGroup", "1")],
     "group4": [("int kLinGroup", "4")],
     "group8": [("int kLinGroup", "8")],
+    "n7_group1": [("int kLinGroupN7", "1")],
+    "n7_group2": [("int kLinGroupN7", "2")],
+    "n7_group4": [("int kLinGroupN7", "4")],
+    "n7_group8": [("int kLinGroupN7", "8")],
+    "n7_own_rot": [_own_rot],
     "staged": [("bool kStageOut", "true")],
     "group4_staged": [("int kLinGroup", "4"), ("bool kStageOut", "true")],
     "unroll": [_unroll],
@@ -197,22 +231,27 @@ def main(argv=None):
     from .kernels import vsa_kernels as vk
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[4096, 16384])
-    ap.add_argument("--only", nargs="+", choices=list(VARIANTS), help="variants to build")
+    ap.add_argument("--batch", type=int, nargs="+",
+                    help="batches (default 4096 16384; 1024 4096 for the 7-DoF arm alone)")
+    ap.add_argument("--only", nargs="+", choices=list(VARIANTS),
+                    help="variants to build (default: those of the arms' chain lengths)")
     ap.add_argument("--arms", nargs="+", choices=["vsa", "sea", "sea7"], default=["vsa", "sea"])
     args = ap.parse_args(argv)
+    n7_only = args.arms == ["sea7"]
+    batches = args.batch or ([1024, 4096] if n7_only else [4096, 16384])
+    default = [n for n in VARIANTS if n.startswith("n7_") == n7_only]
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the variants are timed on the card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    names = ["base"] + [n for n in (args.only or VARIANTS) if n != "base"]
+    names = ["base"] + [n for n in (args.only or default) if n != "base"]
     t0 = time.perf_counter()
     libs = build_variants(names, n7="sea7" in args.arms)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     own = build._lib
     try:
-        for B in args.batch:
+        for B in batches:
             for case, kargs in lin_inputs(B, args.arms).items():
                 build._lib = libs["base"]
                 want = _flat(vk.linearize(*kargs))

@@ -32,21 +32,28 @@ kernel's: the exact ones must equal it to the bit.
   direct_k3_threads256  direct_loads and k3_threads256 together
   fma            -fmad=true (inexact)
 
-At nl 7 (``--nl 7``; K6 there in the wide layout of ``rollout.cuh``: 8
-lanes a trajectory, blocks of 64 threads, each joint's rotation computed
-by one lane of the group, the deferred cost's knot in registers in f32):
+At nl 7 (``--nl 7``; the wide layout of ``rollout.cuh``: 8 lanes a
+trajectory, each joint's rotation computed by one lane of the group, the
+deferred cost's knot in registers in f32; K6 in it in blocks of 64
+threads, K3 in blocks of 128 where its general layout, 4 lanes and 16
+scenarios a block, would leave SMs without a block, else in the general
+one):
 
-  n7_parent               K6 in the general layout (4 lanes, 128 threads),
-                          as K3 there
+  n7_parent               the wide layouts in the general one's shape (4
+                          lanes, 128 threads)
   n7_group4_threads64     K6 on 4 lanes in blocks of 64 threads (16
-                          trajectories a block, as K3's blocks at nl 7)
+                          trajectories a block, as K3's general blocks)
   n7_threads32/128        K6's 8-lane groups in blocks of 32 or 128 threads
-  n7_k3_wide              K3 in K6's wide layout too
-  n7_k3_wide_threads128   both in the wide layout, blocks of 128 threads
+  n7_k3_always_general    K3 in its general layout at every batch (its
+                          design before the batch rule)
+  n7_k3_always_wide       K3 in its wide layout at every batch
+  n7_k3_threads64/256     K3's wide groups in blocks of 64 or 256 threads
+                          (4 or 16 scenarios)
   n7_k3_own_copies        each of K3's trials stages its own copy of the
-                          knot (own_copies), so its threads issue K6's
-                          general-layout count of copies a knot
+                          knot (own_copies), so its threads issue twice
+                          the copies a knot
   n7_own_rot              every sweep computes the joints' rotations itself
+                          (K6, and K3 where wide)
   n7_kept_smem_f32        the knot whose running cost a lane defers kept in
                           a shared-memory slot of its own in f32 too (as in
                           f64), not in registers
@@ -78,6 +85,12 @@ def _set(*pairs):
     return [("rollout.cuh", f"constexpr {decl} = ", value) for decl, value in pairs]
 
 
+def _k3_layout(wide):
+    """K3's batch rule at nl 7 (rollout2_wide) made one layout at every
+    batch."""
+    return [("rollout.cuh", "return grid < sms", " || true" if wide else " && false")]
+
+
 # the wide layout's deferred knot in shared memory in f32 too, not in f64 only
 _KEPT_F32 = ("int KEPT", "WIDE ? THREADS * (NDX + NU) : 0")
 
@@ -99,8 +112,10 @@ VARIANTS = {
     "n7_group4_threads64": _set(("int kRollGroupN7", "4")),
     "n7_threads32": _set(("int kRollThreadsN7", "32")),
     "n7_threads128": _set(("int kRollThreadsN7", "128")),
-    "n7_k3_wide": _set(("bool kWideK3N7", "true")),
-    "n7_k3_wide_threads128": _set(("bool kWideK3N7", "true"), ("int kRollThreadsN7", "128")),
+    "n7_k3_always_general": _k3_layout(False),
+    "n7_k3_always_wide": _k3_layout(True),
+    "n7_k3_threads64": _set(("int kRollThreads2N7", "64")),
+    "n7_k3_threads256": _set(("int kRollThreads2N7", "256")),
     "n7_k3_own_copies": _set(("bool kShareStage", "false")),
     "n7_own_rot": _set(("bool kShareRotN7", "false")),
     "n7_kept_smem_f32": _set(_KEPT_F32),

@@ -23,15 +23,18 @@ Phases, each printed with its result and time:
      probe: P (aslr_to_tpu_torch/probe.py) in each configuration (ilp 1,
      2, 4, 8; B 65536, 1048576; mul+add and fma) against its plain
      version, with its time, GFLOP/s and bound;
-     n-DoF kernels: the launch of K6 at nl 7 and of K4 at (28, 7) (their
-     wide layouts) at B=1024 and 4096 in f32 and f64 (grid, threads a
-     block, dynamic shared memory, the blocks resident an SM by
+     n-DoF kernels: the launch of K6, K3 and K1 at nl 7 and of K4 at
+     (28, 7) (their own layouts; K3's picked by the batch) at B=1024 and
+     4096 in f32 and f64 (grid, threads a block, dynamic shared memory,
+     the blocks resident an SM by
      cudaOccupancyMaxActiveBlocksPerMultiprocessor) with each one's ptxas
      line; K1, K4, K3 and K6 at the 3- and 7-DoF SEA arms' instances (nl 3
      and 7; K4 at (12, 3) and (28, 7); the rollouts unboxed with gaps)
      against their plain versions to the bit in f64 and f32 at T=100,
      B=1024 (K6 also against K3's first trial), timed in f32 there and at
-     B=4096, with the plain version's time at B=1024 and the bound;
+     B=4096 (K3 at nl 7, in its other layout there, first held to the bit
+     again in f64 and f32), with the plain version's time at B=1024 and
+     the bound;
   4. main path: BoxDDP, make_batched_solver(..., use_fast_path="lanes") on
      two_dof_vsa_boxddp, T=100, B=4096, float32, maxiter=20;
   5. SEA warm: FDDP on two_dof_sea, T=100, B=4096, float32, maxiter=60,
@@ -108,6 +111,7 @@ record.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -423,18 +427,30 @@ def kernel_ptxas(build_log, lib):
         return f"{dict(box='K2', boxfddp='K5', fddp='K4')[kind]} {{}} (ndx {ndx}, nu {nu}, " \
                f"{g} lanes a scenario)", smem
 
-    def roll(nt, s, nl, sea, boxed, gaps, tab):
+    def roll(nt, s, nl, sea, boxed, gaps, tab, wide):
+        # K3's layout where it has two (nl 7): " wide" or " general"
+        layout = "" if wide is None or int(nl) + 1 <= 4 else (" wide" if wide == "1" else
+                                                               " general")
         return (f"{'K3' if nt == '2' else 'K6'} {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}"
                 f"{' box' if boxed == '1' else ''}{' gaps' if gaps == '1' else ''}"
-                f"{TABLE_MODES[tab]}",
-                lib.aslr_rollout_smem(int(nl), int(nt), int(sea), int(gaps),
+                f"{TABLE_MODES[tab]}{layout}",
+                lib.aslr_rollout_smem(int(nl), int(nt), int(sea), int(gaps), int(wide == "1"),
                                       4 if s == "f" else 8))
 
-    kinds = [(r"linearize_kernelI([fd])Li(\d+)ELb([01])ELi(\d)E",
-              lambda s, nl, sea, tab: (f"K1 {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}"
-                                       f"{TABLE_MODES[tab]}", 0), 0),
+    def lin(s, nl, sea, tab):
+        # the group tiles of the wide layout (nl 7), by its launch query
+        smem = 0
+        if nl == "7":
+            out = (ctypes.c_int * 5)()
+            if lib.aslr_linearize_n7_launch(4 if s == "f" else 8, 1, 1, out) != 0:
+                raise AssertionError("K1 nl 7: the launch query failed")
+            smem = out[2]
+        return f"K1 {{}} nl {nl} {'SEA' if sea == '1' else 'VSA'}{TABLE_MODES[tab]}", smem
+
+    kinds = [(r"linearize_kernelI([fd])Li(\d+)ELb([01])ELi(\d)E", lin, 0),
              (r"riccati_(box|boxfddp|fddp)_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E", box, 1),
-             (r"rollout([12])_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])ELi(\d)E", roll, 1)]
+             (r"rollout([12])_kernelI([fd])Li(\d+)ELb([01])ELb([01])ELb([01])ELi(\d)E"
+              r"(?:Lb([01])E)?", roll, 1)]
     lines, name, frame = [], None, ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -650,8 +666,10 @@ def ndof_kernels_phase(report):
     versions in f64 and f32 (K6 also against K3's first trial), and in f32
     the kernel's time, the plain version's time (the call that was
     compared), its operations and the bound; then the kernel's time and
-    bound at 4 B_NDOF. The 7-DoF instances are their kernels' rows
-    ``<name>_n7``, the 3-DoF ones variants of those rows."""
+    bound at 4 B_NDOF, where K3 at nl 7, whose layout the batch picks, is
+    held to the bit against its plain version again in f64 and f32. The
+    7-DoF instances are their kernels' rows ``<name>_n7``, the 3-DoF ones
+    variants of those rows."""
     from aslr_to_tpu_torch.kernels import build
     from aslr_to_tpu_torch.measure import T_PATH
 
@@ -659,23 +677,28 @@ def ndof_kernels_phase(report):
         row = report[f"{name}_n7"]
         return row if "sea7" in label else row.setdefault("variants", {}).setdefault(label, {})
 
-    # the 7-DoF instances of K6 and K4 (their own layouts): each launch at
-    # B_NDOF and 4 B_NDOF, the blocks the card keeps resident an SM, and the
-    # ptxas line of the instance
+    # the 7-DoF instances of K6, K3, K4 and K1 (their own layouts; K3's by
+    # the batch): each launch at B_NDOF and 4 B_NDOF, the blocks the card
+    # keeps resident an SM, and the ptxas line of the instance (of K3's
+    # layout at that batch)
     ptxas = kernel_ptxas(build.build_log, build.lib())
     for name, prefix in (("rollout1", "K6 {} nl 7 SEA gaps:"),
-                         ("riccati_fddp", "K4 {} (ndx 28, nu 7,")):
+                         ("rollout2", "K3 {} nl 7 SEA gaps {}:"),
+                         ("riccati_fddp", "K4 {} (ndx 28, nu 7,"),
+                         ("linearize", "K1 {} nl 7 SEA either:")):
         for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
             for B in (B_NDOF, 4 * B_NDOF):
-                info = build.launch_of(name, dtype, B)
+                info = build.launch_of(name, dtype, B, T=T_PATH)
+                layout = f", the {info['layout']} layout" if "layout" in info else ""
                 log(f"  {name}_n7 {tag} B={B}: grid {info['grid']}, {info['threads']} threads a "
                     f"block, {info['smem']} bytes of dynamic shared memory, "
-                    f"{info['blocks_per_sm']} blocks resident an SM")
+                    f"{info['blocks_per_sm']} blocks resident an SM{layout}")
                 report[f"{name}_n7"].setdefault("launch", {})[f"{tag} B={B}"] = info
-            line = [x for x in ptxas if x.startswith(prefix.format(tag))]
-            if len(line) != 1:
-                raise AssertionError(f"{name}_n7 {tag}: no single ptxas line in {ptxas}")
-            log(f"  {name}_n7 {tag} ptxas: {line[0]}")
+                line = [x for x in ptxas if x.startswith(prefix.format(tag, info.get("layout")))]
+                if len(line) != 1:
+                    raise AssertionError(f"{name}_n7 {tag}: no single ptxas line in {ptxas}")
+                if B == B_NDOF or "layout" in info:
+                    log(f"  {name}_n7 {tag} B={B} ptxas: {line[0]}")
 
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
@@ -714,18 +737,45 @@ def ndof_kernels_phase(report):
                 f"{plain_ms:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
                 f"{nbytes} bytes, {t['ops']} ops)")
         del cases
-    # the kernels at four times the batch, kernel only; their operations
-    # scale with B (elementwise per scenario)
+    # the kernels at four times the batch, timed (kernel only; their
+    # operations scale with B, elementwise per scenario); K3 at nl 7, whose
+    # layout the batch picks, first held to the bit against its plain
+    # version there, in f64 and f32
     B = 4 * B_NDOF
-    for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(
+    k3 = "rollout2[sea7 gaps]"
+    for label, (kern, plain, *_) in kernel_cases(torch.float64, B, ("sea7",), T=T_PATH).items():
+        if label == k3:
+            check_at_batch(label, "f64", kern, plain, B)
+    for label, (kern, plain, io_kw, name, ndx, nu) in kernel_cases(
             torch.float32, B, ("sea3", "sea7"), T=T_PATH).items():
         t = report[f"{name}_n7"].setdefault("variants", {}).setdefault(f"{label} B={B}", {})
+        if label == k3:
+            t["max_abs_err_f32"] = check_at_batch(label, "f32", kern, plain, B)
         t["ms"] = cuda_ms(kern, 10)
         ops = target(label, name)["ops"] * (B // B_NDOF)
         t["bound_ms"], t["bound_by"], nbytes = bound(
             ops, *io_values(name, T_PATH, ndx, nu, **io_kw), B, 4)
         log(f"  {label} f32 T={T_PATH} B={B}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} bytes, {ops} ops)")
+
+
+def check_at_batch(label, tag, kern, plain, B):
+    """The kernel's outputs equal to its plain version's to the bit at batch
+    B (raises otherwise); returns the max abs error, 0."""
+    from aslr_to_tpu_torch.measure import T_PATH
+
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    _, err = compare(label, got, want, None)
+    want_f = flat(want)
+    differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
+    if differ:
+        raise AssertionError(f"{label} {tag} B={B}: {differ} differ from the plain version "
+                             f"(max abs err {err:.3e}); the kernel is built to equal it to the bit")
+    log(f"  {label} {tag} T={T_PATH} B={B}: equal to the plain version to the bit (max abs err "
+        f"{err:.3e})")
+    return err
 
 
 def timed_once(fn):

@@ -26,7 +26,19 @@ using std::isfinite;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// the card's SMs as a launcher reads them: an H100's 132, which a test may
+// set (cpu_cuda_sm_count) to steer a launch that picks its layout by them
+extern "C" int cpu_cuda_sm_count;
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = cpu_cuda_sm_count;
+  return cudaSuccess;
+}
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F*, int, int) { return cudaSuccess; }
 // the CPU runs one block at a time

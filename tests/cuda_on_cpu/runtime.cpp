@@ -2,6 +2,7 @@
 #include "cuda_runtime.h"
 
 thread_local dim3_ threadIdx;
+int cpu_cuda_sm_count = 132;
 dim3_ blockIdx, blockDim;
 
 namespace cpu_cuda {

@@ -18,7 +18,10 @@ batches to the bit (K1, K3 and K6 also at the 3- and 7-DoF arms), and
 tables of equal rows against the shared route; K6 at nl 7 and K4 at
 (28, 7) in their wide layouts with one NaN scenario among B=15 and 200,
 and their launches on the card (K6's grid fills the SMs at B=1024, two
-blocks of K4 fit an SM in f32); P against its plain version:
+blocks of K4 fit an SM in f32); K1 at nl 7 and K3 at nl 7 in the layout
+its batch picks (wide to B=1024, general at 4096), shared and with a
+target table, on ragged batches and with one NaN scenario, and K3's
+launch at both batches; P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -771,3 +774,83 @@ def test_wide_layouts_fill_the_card(cuda):
     assert k6["grid"] == 128 and k6["grid"] <= sms * k6["blocks_per_sm"]
     assert k4["blocks_per_sm"] >= 2 and k4["grid"] <= sms * k4["blocks_per_sm"]
 
+
+
+def _k3_layout_at(batch):
+    """The layout K3 at nl 7 takes at a batch (rollout.cuh::rollout2_wide):
+    wide while its general layout's blocks of 16 scenarios are fewer than
+    the card's SMs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return "wide" if (batch + 15) // 16 < sms else "general"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200, 1024, 4096])
+def test_k3_and_k1_nl7_match_plain_version_to_the_bit(cuda, batch, dtype):
+    """K1 at nl 7 (its wide layout: each rotation and column solve once a
+    group) and K3 at nl 7 in the layout its batch picks (wide up to 1024,
+    general at 4096), in the shared and the table instances (a target a
+    knot), equal their plain versions to the bit on ragged batches, and
+    K3's first trial equals K6."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(7, dtype, cuda, batch, seed=4)
+    assert build.launch_of("rollout2", dtype, batch)["layout"] == _k3_layout_at(batch)
+    pk, tgt = per_knot_target(spec, T, dtype)
+    tgt = tgt.to(cuda)
+    for s, table in ((spec, None), (pk, tgt)):
+        _assert_all_bits(vsa_kernels.linearize(s, xs, us, wterm, table),
+                         vsa_kernels.linearize_plain(s, xs, us, wterm, table))
+    bw = riccati.riccati_fddp_plain(*derivs, fs, reg)
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    ones = torch.ones(batch, dtype=dtype, device=cuda)
+    infeas = (torch.arange(batch, device=cuda) % 3 == 0).to(dtype)
+    for s, table in ((spec, None), (pk, tgt)):
+        args = (s, xs, us, k, K, xs[0].contiguous(), ones, 0.5 * ones, wterm, None, None, fs,
+                infeas, table)
+        before = build.LAUNCHES["rollout2"]
+        got = vsa_kernels.rollout2(*args)
+        assert build.LAUNCHES["rollout2"] == before + 1
+        _assert_all_bits(got, vsa_kernels.rollout2_plain(*args))
+        _assert_all_bits(vsa_kernels.rollout1(*args[:6], *args[7:]), got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [15, 200, 4096])
+def test_k3_and_k1_nl7_keep_a_scenario_in_its_group(cuda, batch, dtype):
+    """K1 and K3 at nl 7 with scenario 5's states (K1) or gains (K3) NaN:
+    it fails alone, its neighbours of a group's warp stay finite, and every
+    output equals the plain version to the bit (K3 in its wide layout at
+    B=15 and 200, its general one at 4096)."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(7, dtype, cuda, batch, seed=5)
+    bad = xs.clone()
+    bad[0, :, 5] = float("nan")
+    lin = vsa_kernels.linearize(spec, bad, us, wterm)
+    _assert_all_bits(lin, vsa_kernels.linearize_plain(spec, bad, us, wterm))
+    assert not bool(lin.ok[5]) and bool(lin.ok[[4, 6, 7]].all())
+    bw = riccati.riccati_fddp_plain(*derivs, fs, reg)
+    k, K = torch.where(bw.ok, bw.k, 0.0).clone(), torch.where(bw.ok, bw.K, 0.0)
+    k[..., 5] = float("nan")
+    ones = torch.ones(batch, dtype=dtype, device=cuda)
+    infeas = (torch.arange(batch, device=cuda) % 2).to(dtype)
+    args = (spec, xs, us, k, K, xs[0].contiguous(), ones, 0.5 * ones, wterm, None, None, fs,
+            infeas)
+    got = vsa_kernels.rollout2(*args)
+    _assert_all_bits(got, vsa_kernels.rollout2_plain(*args))
+    for trial in got:
+        assert bool(trial.cost[5].isnan())
+        assert bool(torch.isfinite(trial.cost[[4, 6, 7]]).all())
+
+
+def test_k3_nl7_layout_follows_the_batch(cuda):
+    """K3 at nl 7: at the 7-DoF path's B=1024 its general layout would run
+    64 blocks on 132 SMs, so it takes the wide one, 128 blocks of 128
+    threads in one wave; at B=4096 the general one, 256 blocks of 16
+    scenarios. K1 there runs blocks of 128 threads, its groups' tiles in
+    shared memory."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide = build.launch_of("rollout2", torch.float32, 1024)
+    general = build.launch_of("rollout2", torch.float32, 4096)
+    assert wide["layout"] == _k3_layout_at(1024) == "wide"
+    assert wide["grid"] == 128 and wide["grid"] <= sms * wide["blocks_per_sm"]
+    assert general["layout"] == "general" and general["grid"] == 256
+    k1 = build.launch_of("linearize", torch.float32, 1024, T=100)
+    assert k1["threads"] == 128 and k1["smem"] > 0 and k1["blocks_per_sm"] >= 1

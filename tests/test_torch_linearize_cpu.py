@@ -10,9 +10,9 @@ terminal knot of some scenarios beside the running knots of others), the
 terminal knot included. Scenario 7 sits at a goal rotation of pi at
 every knot, where ``log3`` takes its branch near pi and its sanitized
 tangents. The 3-DoF SEA arm's instance runs the same cases (T=6; B=1, 15
-and 33, a NaN scenario) and the 7-DoF arm's one at T=4, B=9, with scenario
-7 at one posture and the goal target turned so that its residual is a
-rotation by pi. A target a knot, every row different, goes through the
+and 33, a NaN scenario) and the 7-DoF arm's one (its wide layout) at T=4,
+B=1, 9 and 33 and with a NaN scenario, with scenario 7 at one posture and
+the goal target turned so that its residual is a rotation by pi. A target a knot, every row different, goes through the
 [T, 12] table on both arms at B=1, 15 and 200.
 
 The kernel performs its plain version's operations in the same order, so
@@ -157,10 +157,13 @@ def _assert_equal_to_plain(got, want):
 
 @pytest.mark.parametrize("nl,batch,dtype", [
     (3, 1, torch.float64), (3, 15, torch.float64), (3, 33, torch.float64),
-    (3, 33, torch.float32), (7, 9, torch.float64)], ids=lambda v: str(v).replace("torch.", ""))
+    (3, 33, torch.float32), (7, 1, torch.float32), (7, 9, torch.float64),
+    (7, 33, torch.float32), (7, 33, torch.float64)], ids=lambda v: str(v).replace("torch.", ""))
 def test_ndof_linearize_on_cpu_matches_plain_version(lin_lib, nl, batch, dtype):
-    """K1's 3- and 7-DoF SEA instances (T=6 at nl 3, T=4 at nl 7), the
-    terminal knot and the goal's pi branch included."""
+    """K1's 3- and 7-DoF SEA instances (T=6 at nl 3, T=4 at nl 7: the wide
+    layout, whose groups solve each column of the acceleration Jacobian
+    once and read the joints' rotations from their tile), the terminal knot
+    and the goal's pi branch included; B=1, 9 and 33 end in partial blocks."""
     args = _ndof_args(nl, batch, dtype, T_=6 if nl == 3 else 4)
     before = build.LAUNCHES["linearize"]
     got = vsa_kernels.linearize(*args)
@@ -172,10 +175,13 @@ def test_ndof_linearize_on_cpu_matches_plain_version(lin_lib, nl, batch, dtype):
         assert bool(torch.isfinite(J).all()) and bool((J != 0).any())
 
 
-def test_ndof_linearize_on_cpu_keeps_a_scenario_in_its_group(lin_lib):
-    """The 3-DoF arm with scenario 9's states at knot 0 NaN: its flag falls
-    alone, and every output equals the plain version's."""
-    spec, xs, us, wterm = _ndof_args(3, 33, torch.float64)
+@pytest.mark.parametrize("nl", [3, 7])
+def test_ndof_linearize_on_cpu_keeps_a_scenario_in_its_group(lin_lib, nl):
+    """The 3- and 7-DoF arms with scenario 9's states at knot 0 NaN (at nl 7
+    its rotations, its tile's columns and the 0 * NaN of its seeds' zero
+    tangents): its flag falls alone, and every output equals the plain
+    version's."""
+    spec, xs, us, wterm = _ndof_args(nl, 33, torch.float64, T_=6 if nl == 3 else 4)
     xs = xs.clone()
     xs[0, :, 9] = float("nan")
     got = vsa_kernels.linearize(spec, xs, us, wterm)
@@ -217,8 +223,8 @@ def test_linearize_on_cpu_reads_the_target_table(lin_lib, arm, batch, dtype):
 
 
 @pytest.mark.parametrize("nl,batch,dtype", [
-    (3, 15, torch.float64), (3, 33, torch.float32), (7, 9, torch.float64)],
-    ids=lambda v: str(v).replace("torch.", ""))
+    (3, 15, torch.float64), (3, 33, torch.float32), (7, 9, torch.float64),
+    (7, 15, torch.float32)], ids=lambda v: str(v).replace("torch.", ""))
 def test_ndof_linearize_on_cpu_reads_the_target_table(lin_lib, nl, batch, dtype):
     """K1's 3- and 7-DoF instances with a target a knot (T=6 at nl 3, T=4 at
     nl 7): equal to the plain version to the bit."""

@@ -17,7 +17,10 @@ at T=6 on the same batches (and one NaN trajectory), the 7-DoF arm's at
 T=5, B=9; K6 at nl 7, whose wide layout puts a trajectory on 8 lanes in
 blocks of 8 trajectories, at B=1, 15 and 200 with and without the target
 table, with one NaN trajectory among the four of its warp, and its launch
-(grid, block, shared memory) beside K3's there. The per-knot tables (a
+(grid, block, shared memory) beside K3's there. K3 at nl 7 in both of its
+layouts (the SM count that the stand-in reports, ``cpu_cuda_sm_count``,
+steers its batch rule): B=1, 12 and 15 at T=5, shared and with the target
+table, and one NaN scenario in each. The per-knot tables (a
 target a knot; [T, nu] boxes with one knot pinched; every row different) run on the VSA's box and the SEA's gaps at
 B=1, 15 and 200, and tables of equal rows against the shared route.
 
@@ -28,6 +31,8 @@ library's sin, cos and atan2 (and a correctly rounded square root) in place
 of PyTorch's CPU kernels, whose vectorized loops round some results
 differently in the last bit.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -365,17 +370,100 @@ def test_k6_nl7_wide_layout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib):
     assert bool(torch.isfinite(got.cost[[24, 26, 27]]).all())
 
 
-@pytest.mark.parametrize("dtype,kept", [(torch.float32, 0), (torch.float64, 64 * 35)],
-                         ids=["f32", "f64"])
-def test_nl7_rollout_launches_on_cpu(roll_lib, dtype, kept):
-    """At B=1024, T=100: K6 at nl 7 runs 128 blocks of 64 threads (8
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_nl7_rollout_launches_on_cpu(roll_lib, dtype):
+    """At nl 7 on an H100's 132 SMs, K6 runs blocks of 64 threads (8
     trajectories a block) on two stages of a 266-row tile (8 columns and 32
     bytes), and in f64 a slot a thread for the 35 values of the knot whose
-    running cost it defers; K3 there keeps 64 blocks of 128 threads (16
-    scenarios, two trials)."""
+    running cost it defers: 128 blocks at B=1024. K3 takes its wide layout
+    at B=1024, where its general one would fill 64 blocks of 16 scenarios:
+    128 blocks of 128 threads (8 scenarios, two trials; a tile row of 8
+    columns and 32 bytes, the f64 slots), and its general one at B=4096,
+    256 blocks (a row of 16 columns and 32 bytes)."""
     size = torch.empty(0, dtype=dtype).element_size()
     rows = 28 + 7 + 7 + 7 * 28 + 28
-    assert build.launch_of("rollout1", dtype, 1024) | dict(blocks_per_sm=0) == dict(
-        grid=128, threads=64, smem=(2 * rows * (8 + 32 // size) + kept) * size, blocks_per_sm=0)
-    assert build.launch_of("rollout2", dtype, 1024) | dict(blocks_per_sm=0) == dict(
-        grid=64, threads=128, smem=2 * rows * (16 + 32 // size) * size, blocks_per_sm=0)
+    kept = 35 if size == 8 else 0
+
+    def launch(kernel, B):
+        return build.launch_of(kernel, dtype, B) | dict(blocks_per_sm=0)
+
+    assert launch("rollout1", 1024) == dict(
+        grid=128, threads=64, smem=(2 * rows * (8 + 32 // size) + 64 * kept) * size,
+        blocks_per_sm=0, layout="wide")
+    assert launch("rollout2", 1024) == dict(
+        grid=128, threads=128, smem=(2 * rows * (8 + 32 // size) + 128 * kept) * size,
+        blocks_per_sm=0, layout="wide")
+    assert launch("rollout2", 4096) == dict(
+        grid=256, threads=128, smem=2 * rows * (16 + 32 // size) * size, blocks_per_sm=0,
+        layout="general")
+
+
+@pytest.fixture
+def sm_count(roll_lib):
+    """The SMs that the CPU stand-in reports to a launcher, restored after
+    the test."""
+    count = ctypes.c_int.in_dll(roll_lib, "cpu_cuda_sm_count")
+    saved = count.value
+    yield count
+    count.value = saved
+
+
+# the SMs the stand-in reports for each of K3's layouts at nl 7: at an
+# H100's 132 the general layout's blocks of 16 scenarios would leave SMs
+# free at these batches, so the launch takes the wide one; at 1, every
+# batch fills the card with general blocks
+K3_LAYOUTS = dict(argnames="layout,sms", argvalues=[("wide", 132), ("general", 1)],
+                  ids=["wide", "general"])
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["shared", "tables"])
+@pytest.mark.parametrize(**DTYPES)
+@pytest.mark.parametrize("batch", [1, 12, 15])
+@pytest.mark.parametrize(**K3_LAYOUTS)
+def test_k3_nl7_layouts_on_cpu_match_plain_version(roll_lib, sm_count, layout, sms, batch,
+                                                   dtype, tables):
+    """K3 at nl 7 in the layout its launch picks (wide: 8 lanes a
+    trajectory, 8 scenarios a block; general: 4 lanes, 16 scenarios), in the
+    shared and the tables instance (a target a knot, every row different),
+    equal to its plain version to the bit at T=5, a multiple of neither
+    group's lanes; B=1, 12 and 15 end in partial blocks of both layouts (12
+    with 16-byte copies), and K3's first trial equals K6 (wide at every
+    batch) at its step length."""
+    sm_count.value = sms
+    assert build.launch_of("rollout2", dtype, batch)["layout"] == layout
+    T_ = 5
+    args = _ndof_args(7, batch, dtype, T_, seed=2)
+    if tables:
+        args = list(args)
+        args[0], tgt = per_knot_target(args[0], T_, dtype)
+        args = tuple(args) + (tgt,)
+    before = build.LAUNCHES["rollout2"]
+    got = vsa_kernels.rollout2(*args)
+    assert build.LAUNCHES["rollout2"] == before + 1
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    assert float(torch.isfinite(got[1].cost).double().mean()) >= 0.5
+    assert not torch.equal(got[0].us, got[1].us)
+    _assert_same_bits(vsa_kernels.rollout1(*args[:6], *args[7:]), got[1])
+
+
+@pytest.mark.parametrize(**K3_LAYOUTS)
+def test_k3_nl7_layouts_on_cpu_keep_a_trajectory_in_its_group(roll_lib, sm_count, layout,
+                                                              sms):
+    """K3 at nl 7 in either layout with scenario 25's gains NaN: both its
+    trials fail alone; the other scenarios of its warp (24-27 in the wide
+    layout, 24-31 in the general one) equal the plain version and stay
+    finite."""
+    sm_count.value = sms
+    assert build.launch_of("rollout2", torch.float64, 40)["layout"] == layout
+    args = list(_ndof_args(7, 40, torch.float64, 5, seed=1))
+    for i in (3, 4):
+        args[i] = args[i].clone()
+        args[i][..., 25] = float("nan")
+    got = vsa_kernels.rollout2(*args)
+    want = vsa_kernels.rollout2_plain(*args)
+    mates = [24, 26, 27] if layout == "wide" else [24, 26, 27, 28, 29, 30, 31]
+    for g, w in zip(got, want):
+        _assert_same_bits(g, w)
+        assert bool(g.cost[25].isnan())
+        assert bool(torch.isfinite(g.cost[mates]).all())
