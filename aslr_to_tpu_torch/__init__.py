@@ -54,6 +54,15 @@ from .workloads.presets import (
     two_dof_vsa_modified,
 )
 from .parallel.batch import convergence_summary, make_batched_solver
+from .solvers.homotopy import (
+    DEFAULT_SCALES,
+    homotopy_solve,
+    rescue_continuation,
+    scale_terminal_costs,
+    stiffness_continuation,
+)
+from .workloads.presets import PRESETS
+from .workloads.run import WorkloadResult, run_workload, solve_workload
 
 __all__ = [name for name in dir() if not name.startswith("_")]
 __version__ = "0.1.0"

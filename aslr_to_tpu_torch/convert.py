@@ -72,3 +72,13 @@ def robot_from_numpy(fields, dtype=torch.float64, device=None) -> RobotModel:
         **{name: t(name) for name in ("joint_rot", "joint_pos", "axis", "mass", "com",
                                       "inertia", "frame_rot", "frame_pos", "gravity")},
     )
+
+
+def stages_from_numpy(scales, ub_stages, dtype=torch.float64, device=None):
+    """A homotopy schedule (``stiffness_continuation``'s or
+    ``rescue_continuation``'s ``(scales, ub_stages)``) from numpy values:
+    the scales as a tuple of floats, ``ub_stages [n_stages, nu]`` as a
+    tensor on ``device`` in ``dtype`` (None stays None)."""
+    ub = None if ub_stages is None else torch.as_tensor(
+        np.array(ub_stages, dtype=np.float64), dtype=dtype, device=device)
+    return tuple(float(s) for s in np.asarray(scales, dtype=np.float64)), ub

@@ -28,6 +28,7 @@ later.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
@@ -38,9 +39,11 @@ from ..solvers.ddp import (
     SolveResult,
     SolverSettings,
     accept_trial,
+    log_set,
     schedule,
 )
 from ..solvers.problem import ShootingProblem
+from . import build as _build
 from .riccati import (
     riccati_box_backward,
     riccati_box_plain,
@@ -90,9 +93,14 @@ def build_lane_solver(
     ``backend="auto"`` sends CUDA tensors through the kernels and CPU
     tensors through their plain versions; ``backend="plain"`` runs the
     plain versions on any device (the card-side reference of the kernels).
+
+    ``solve_batch`` also takes the homotopy's stage inputs:
+    ``wterm_scale`` scales the terminal goal weight (cast to the solve's
+    dtype first), and ``box_ub`` (``[nu]``) overrides a shared box's upper
+    bound, the warm start projected into that effective box. ``keep_log``
+    records the ``SolveLog`` series (``[B, maxiter]``, NaN past a lane's
+    last iteration; a lane's row i is written only while it is active).
     """
-    if keep_log:
-        raise NotImplementedError("keep_log (SolveLog series) comes with the solver slice")
     if ls_trials != 2:
         raise NotImplementedError("the rollout kernel evaluates two trials per launch")
     if settings.boxqp_alphas != 5:
@@ -121,9 +129,8 @@ def build_lane_solver(
         if box_pk and box_ub is not None:
             raise ValueError("box_ub continuation requires a shared "
                              "(non-per-knot) control box")
-        if wterm_scale is not None or box_ub is not None:
-            raise NotImplementedError("wterm_scale / box_ub (homotopy) come with the "
-                                      "homotopy slice")
+        if box_ub is not None and not boxed:
+            raise ValueError("box_ub requires bounds")
         check_device(dev, x0s=x0s, xs_init=xs_init, us_init=us_init)
         B = x0s.shape[0]
         dtype = x0s.dtype
@@ -140,8 +147,10 @@ def build_lane_solver(
             # project the warm start into the box (solvers/ddp.py::_solve_impl)
             us = torch.minimum(torch.maximum(us, lb[:, :, None]), ub[:, :, None])
         elif boxed:
+            # box_ub, the stage's upper bound, overrides the shared one
             lb = torch.as_tensor(spec.lb, dtype=dtype, device=dev)[:, None].expand(nu, B)
-            ub = torch.as_tensor(spec.ub, dtype=dtype, device=dev)[:, None].expand(nu, B)
+            ub = torch.as_tensor(spec.ub if box_ub is None else box_ub, dtype=dtype,
+                                 device=dev)[:, None].expand(nu, B)
             lb, ub = lb.contiguous(), ub.contiguous()
             us = torch.minimum(torch.maximum(us, lb), ub)
         tgt = (torch.as_tensor(spec.target_table(T, dtype), device=dev)
@@ -149,6 +158,11 @@ def build_lane_solver(
         zeros_fs = (None if use_gaps or boxed
                     else torch.zeros((T + 1, NDX, B), dtype=dtype, device=dev))
         wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device=dev)
+        if wterm_scale is not None:
+            # a 0-d tensor keeps its device: no copy from the host a stage
+            wterm = wterm * torch.as_tensor(wterm_scale, dtype=dtype)
+        log = SolveLog(*[torch.full((B, s.maxiter if keep_log else 0), float("nan"),
+                                    dtype=dtype, device=dev) for _ in SolveLog._fields])
         alphas = torch.tensor([2.0 ** -i for i in range(s.n_alphas)], dtype=dtype, device=dev)
 
         cost = torch.full((B,), float("inf"), dtype=dtype, device=dev)
@@ -257,6 +271,10 @@ def build_lane_solver(
             sched = schedule(s, any_accept, alpha_b, alphas[-1], reg_bw, bw.ok, bw.retryable,
                              lin_ok, feasible, bw.stop, it1, rej_streak, nrt_streak)
 
+            if keep_log:
+                log = SolveLog(*(log_set(series, it, value, active) for series, value in zip(
+                    log, (cost_b, bw.stop, sched.reg, torch.where(any_accept, alpha_b, 0.0),
+                          dg, dq, gap_norm))))
             # masked merge: finished lanes keep their state (vmap semantics)
             xs = _sel(active, xs_b, xs)
             us = _sel(active, us_b, us)
@@ -272,10 +290,94 @@ def build_lane_solver(
             nrt_streak = torch.where(active, sched.nrt_streak, nrt_streak)
             done = torch.where(active, sched.done, done)
 
-        empty = torch.zeros((B, 0), dtype=dtype, device=dev)
         return SolveResult(
             xs=xs.permute(2, 0, 1), us=us.permute(2, 0, 1), cost=cost, stop=stop,
-            iterations=it, converged=converged, diverged=diverged, reg=reg,
-            log=SolveLog(*[empty for _ in SolveLog._fields]))
+            iterations=it, converged=converged, diverged=diverged, reg=reg, log=log)
 
+    return solve_batch
+
+
+def build_lane_homotopy(
+    problem: ShootingProblem,
+    settings: SolverSettings = SolverSettings(),
+    bounds: Optional[Bounds] = None,
+    use_gaps: bool = False,
+    scales=None,
+    ub_stages=None,
+    keep_log: bool = False,
+    rescue_scales=None,
+    rescue_ub_stages=None,
+    rescue_size: int = 0,
+    backend: str = "auto",
+):
+    """The terminal-weight continuation on the lane route
+    (``solvers/homotopy.py::homotopy_solve`` semantics): each stage runs the
+    lane solver at a scaled terminal goal weight (``wterm_scale``) and, with
+    ``ub_stages [n_stages, nu]``, a stage's control upper bound
+    (``box_ub``), warm-started from the last stage; ``settings.maxiter`` is
+    a stage's budget. Returns ``solve_batch(x0s[, xs_init, us_init])``.
+
+    ``rescue_size`` > 0 adds the diverged-lane rescue: ``R = min(rescue_size,
+    B)`` lanes, the diverged ones first (a stable sort, so the pick is
+    the JAX package's), are solved again cold under ``rescue_scales`` /
+    ``rescue_ub_stages`` (``rescue_continuation``) and a lane is taken
+    from the rescue only where the main pass diverged and the rescue did
+    not. Lanes the main pass solved keep its result to the bit.
+
+    ``solve_batch.stats`` holds the last call's host seconds of the main
+    pass and of the rescue (each lane loop ends in a host read, so they end
+    with the card's work), the counts of lanes the main pass left diverged
+    and of lanes rescued (tensors) and, after each stage, ``("main" or
+    "rescue", stage, build.LAUNCHES)`` (the kernels' launch counts so far,
+    a copy)."""
+    from ..solvers.homotopy import DEFAULT_SCALES, stage_arrays
+
+    if scales is None:
+        scales = DEFAULT_SCALES
+    if ub_stages is not None and bounds is None:
+        raise ValueError("ub_stages requires bounds")
+    if rescue_size and rescue_scales is None:
+        raise ValueError("rescue_size needs rescue_scales")
+    lane = build_lane_solver(problem, settings, bounds, use_gaps=use_gaps, keep_log=keep_log,
+                             backend=backend)
+    dev = problem.x0.device
+
+    def staged(x0s, xs, us, sc, ub, part):
+        scale_arr, ub_arr = stage_arrays(sc, ub, x0s.dtype, dev)
+        for i in range(scale_arr.shape[0]):
+            res = lane(x0s, xs, us, wterm_scale=scale_arr[i],
+                       box_ub=None if ub_arr is None else ub_arr[i])
+            xs, us = res.xs, res.us
+            solve_batch.stats["launches"].append((part, i, dict(_build.LAUNCHES)))
+        return res
+
+    def solve_batch(x0s, xs_init=None, us_init=None):
+        check_device(dev, x0s=x0s, xs_init=xs_init, us_init=us_init)
+        solve_batch.stats = dict(main_s=0.0, rescue_s=0.0, launches=[],
+                                 rescued=torch.zeros((), dtype=torch.int64, device=dev))
+        t0 = time.perf_counter()
+        res = staged(x0s, xs_init, us_init, scales, ub_stages, "main")
+        t1 = time.perf_counter()
+        solve_batch.stats.update(main_s=t1 - t0, main_diverged=res.diverged.sum())
+        if not rescue_size:
+            return res
+        R = min(rescue_size, x0s.shape[0])
+        # diverged lanes first; torch's default sort is not stable
+        idx = torch.argsort((~res.diverged).to(torch.int8), stable=True)[:R]
+        res_r = staged(x0s[idx], None, None, rescue_scales, rescue_ub_stages, "rescue")
+        take = res.diverged[idx] & ~res_r.diverged
+
+        def merge(full, r):
+            if full.dim() == 2 and full.shape[1] == 0:      # an empty log series
+                return full
+            out = full.clone()
+            out[idx] = torch.where(take.view((-1,) + (1,) * (r.dim() - 1)), r, full[idx])
+            return out
+
+        out = SolveResult(*(merge(f, r) for f, r in zip(res[:-1], res_r[:-1])),
+                          log=SolveLog(*(merge(f, r) for f, r in zip(res.log, res_r.log))))
+        solve_batch.stats.update(rescue_s=time.perf_counter() - t1, rescued=take.sum())
+        return out
+
+    solve_batch.stats = {}
     return solve_batch

@@ -288,8 +288,10 @@ def _check_lane(name, t, shape, dtype, device):
 
 
 def to_lanes(x):
-    """``[B, ...]`` -> the kernels' lane layout ``[..., B]`` (a copy)."""
-    return x.permute(*range(1, x.dim()), 0).contiguous()
+    """``[B, ...]`` -> the kernels' lane layout ``[..., B]``: always a copy,
+    also of a tensor that is a permuted view of one in lane layout (a lane
+    solve's result, the next homotopy stage's start)."""
+    return x.permute(*range(1, x.dim()), 0).clone(memory_format=torch.contiguous_format)
 
 
 def from_lanes(x):
@@ -831,7 +833,18 @@ class FastPath(NamedTuple):
     linearize: object   # (xs [B,T+1,nx], us [B,T,nu], wterm [B]) -> (cost, run, term, xnext, ok)
     rollout: object     # (xs, us, k, K, x0, alpha, fs, infeas, wterm) -> (xs_try, us_try, cost)
     backward: object    # riccati.py::riccati_batch_major with this path's backend
-    wterm: float        # the terminal goal weight
+    wterm_of: object    # problem -> its terminal goal weight (a float or a 0-d tensor)
+
+
+def terminal_weight(problem):
+    """The terminal goal weight of ``problem``, read from the problem that
+    is solved (a homotopy stage scales it), never from the one a path was
+    built for: the sum of the terminal cost items' weights (the kernels
+    take goal-only terminal costs)."""
+    w = 0.0
+    for it in problem.terminal.differential.costs.items:
+        w = w + it.weight
+    return w
 
 
 def supports_fast_path(problem, bounds=None):
@@ -916,4 +929,4 @@ def build_fast_path(problem, bounds, use_gaps: bool = False, backend: str = "aut
 
     return FastPath(linearize=lin, rollout=roll,
                     backward=partial(riccati_batch_major, plain=not auto),
-                    wterm=spec.w_goal_term)
+                    wterm_of=terminal_weight)

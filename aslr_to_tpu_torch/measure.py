@@ -6,6 +6,7 @@ batch sizes and a ``torch.profiler`` breakdown of one solve).
     python -m aslr_to_tpu_torch.measure --path boxddp boxfddp --batch 4096 --profile
     python -m aslr_to_tpu_torch.measure --path sevendof --profile
     python -m aslr_to_tpu_torch.measure --path mpc_tracking fast_mpc_tracking pk_boxddp --profile
+    python -m aslr_to_tpu_torch.measure --path homotopy --profile
 
 Paths (T=100, float32, x0s = 0.05 randn from a CUDA generator seeded per
 path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
@@ -42,7 +43,19 @@ path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
             box tables: every row [-2, 2]^2 x [0, 3]^2 but knots 45-54,
             whose torques are held to +-0.05; cold, maxiter=20,
             th_stop=1e-5, boxqp_warm_iters=2, B=4096. K1, K2 and K3 read
-            the box tables.
+            the box tables;
+  homotopy  the staged homotopy with the diverged-lane rescue (the
+            benchmark's quality metric, bench.py:202-229): two_dof_vsa_boxddp,
+            cold, BoxDDP with boxqp_warm_iters=2, maxiter=20 a stage,
+            th_stop=1e-5, stiffness_continuation's 5 stages (the stiffness
+            capped at 3 in the first four), then rescue_continuation's 7
+            stages (capped at 1 in the first six) on the 512 lanes the
+            main pass flagged diverged first (RESCUE_SIZE). A first solve
+            (untimed set-up), then timed solves at x0s + 1e-4 (i + 1).
+            K1, K2 and K3 on the lane route;
+  homotopy_scales  the same solves with stiffness_continuation's scales
+            only (no stage boxes, no rescue), on the lane route;
+  fast_homotopy  homotopy_scales through the fast path (K1, K2, K6).
 
 The lane paths run two trials a line-search round through K3; the fast
 paths one trial a round through K6, with a relayout between the solver's
@@ -76,9 +89,13 @@ import numpy as np
 import torch
 
 PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", "sevendof",
-         "fast_sevendof", "mpc_tracking", "fast_mpc_tracking", "pk_boxddp")
+         "fast_sevendof", "mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "homotopy",
+         "homotopy_scales", "fast_homotopy")
 SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, sevendof=3,
-             fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5)
+             fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5, homotopy=6,
+             homotopy_scales=6, fast_homotopy=6)
+HOMOTOPY_PATHS = ("homotopy", "homotopy_scales", "fast_homotopy")
+RESCUE_SIZE = 512       # bench.py's RESCUE
 T_PATH, B_PATH = 100, 4096
 B_SEVENDOF = 1024       # bench.py's BENCH_7DOF_BATCH
 T_MPC, B_MPC = 60, 2048  # examples/mpc_tracking.py: its horizon and MPC_BATCH
@@ -178,6 +195,9 @@ def build_path(name, B=None, T=None, dtype=torch.float32):
                                     use_fast_path=True if name == "fast_sevendof" else "lanes")
         return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
     x0s = x0_batch(B, dtype, SEEDS[name])
+    if name in HOMOTOPY_PATHS:
+        solve = homotopy_solver(name, T, dtype)
+        return Path(solve, lambda: solve(x0s), lambda i, _: (x0s + WARM_OFFSET * (i + 1),), 20)
     if name in ("sea_warm", "fast_sea"):
         w = two_dof_sea(T=T, dtype=dtype)
         solve = make_batched_solver(w.problem, SolverSettings(maxiter=60, th_stop=1e-5),
@@ -193,6 +213,25 @@ def build_path(name, B=None, T=None, dtype=torch.float32):
                                 bounds=w.bounds,
                                 use_fast_path=True if name == "fast_boxddp" else "lanes")
     return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
+
+
+def homotopy_solver(name, T=T_PATH, dtype=torch.float32, device="cuda", backend="auto",
+                    maxiter=20, rescue_size=RESCUE_SIZE):
+    """The solver of a homotopy path (``HOMOTOPY_PATHS``) at horizon T."""
+    from . import SolverSettings, make_batched_solver, rescue_continuation
+    from . import stiffness_continuation, two_dof_vsa_boxddp
+
+    w = two_dof_vsa_boxddp(T=T, dtype=dtype, device=device)
+    settings = SolverSettings(maxiter=maxiter, th_stop=1e-5, boxqp_warm_iters=2)
+    scales, ub_stages = stiffness_continuation(w.problem, w.bounds)
+    kw = dict(scales=scales)
+    if name == "homotopy":
+        rescue_scales, rescue_ub = rescue_continuation(w.problem, w.bounds)
+        kw.update(ub_stages=ub_stages, rescue_scales=rescue_scales, rescue_ub_stages=rescue_ub,
+                  rescue_size=rescue_size)
+    return make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+                               use_fast_path=True if name == "fast_homotopy" else "lanes",
+                               globalization="homotopy", backend=backend, **kw)
 
 
 def summary(res):
@@ -296,6 +335,14 @@ def main(argv=None):
         print(f"{path} B={B}: " + ", ".join(f"{t:.4f} s ({B / t:.2f} solves/s)"
                                                  for t in times), flush=True)
         print(f"  convergence of the last solve: {summ}", flush=True)
+        stats = getattr(p.solve, "stats", None)
+        if stats:       # the homotopy's main pass and rescue, apart
+            run["homotopy"] = dict(main_s=stats["main_s"], rescue_s=stats["rescue_s"],
+                                   main_diverged=int(stats["main_diverged"]),
+                                   rescued=int(stats["rescued"]))
+            print(f"  main pass {stats['main_s']:.4f} s, rescue {stats['rescue_s']:.4f} s, "
+                  f"lanes diverged after the main pass {int(stats['main_diverged'])}, "
+                  f"rescued {int(stats['rescued'])}", flush=True)
         if args.profile:
             prof = profile_solve(p.solve, inputs)
             run["profile"] = prof

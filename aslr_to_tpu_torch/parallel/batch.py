@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``aslr_to_tpu/parallel/batch.py``:
 ``make_batched_solver`` (the generic per-scenario solver, its fused fast
-path, and the lane solver) and ``convergence_summary``. Sharding over
-several cards comes later.
+path, and the lane solver, each also with the terminal-weight homotopy)
+and ``convergence_summary``. Sharding over several cards comes later.
 """
 from __future__ import annotations
 
@@ -12,9 +12,10 @@ from typing import Optional
 
 import torch
 
-from ..kernels.lane_solver import build_lane_solver, check_device
+from ..kernels.lane_solver import build_lane_homotopy, build_lane_solver, check_device
 from ..kernels.vsa_kernels import build_fast_path
 from ..solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings, solve
+from ..solvers.homotopy import DEFAULT_SCALES, homotopy_solve
 from ..solvers.problem import ShootingProblem
 
 
@@ -27,6 +28,11 @@ def make_batched_solver(
     keep_log: bool = False,
     use_fast_path=False,
     globalization: Optional[str] = None,
+    scales=None,
+    ub_stages=None,
+    rescue_scales=None,
+    rescue_ub_stages=None,
+    rescue_size: int = 0,
     backend: str = "auto",
 ):
     """Build ``solve_batch(x0s) -> SolveResult`` over initial states
@@ -43,15 +49,35 @@ def make_batched_solver(
     ``"lanes"`` the lane solver (``kernels/lane_solver.py``).
     ``warm_start`` starts each scenario from the problem's quasi-static
     controls at its x0 (the reference's ``problem.quasiStatic``).
-    ``keep_log`` keeps the per-iteration ``SolveLog`` series (generic and
-    fast routes). ``backend="plain"`` runs the lane and fast routes'
+    ``keep_log`` keeps the per-iteration ``SolveLog`` series on every
+    route. ``backend="plain"`` runs the lane and fast routes'
     kernels as their plain versions on any device (the generic route's
-    Riccati kernels, under ``use_pallas_backward``, follow the device)."""
-    if globalization is not None:
-        raise NotImplementedError("globalization='homotopy' comes with the homotopy slice")
+    Riccati kernels, under ``use_pallas_backward``, follow the device).
+
+    ``globalization="homotopy"`` runs the terminal-weight continuation
+    (``solvers/homotopy.py``; ``scales``, default ``DEFAULT_SCALES``, and
+    ``ub_stages``, a stage's control upper bound, as from
+    ``stiffness_continuation``), ``settings.maxiter`` a stage's budget: on
+    the lane route ``build_lane_homotopy``, with the diverged-lane rescue
+    when ``rescue_size`` > 0 (``rescue_scales``, ``rescue_ub_stages``, as
+    from ``rescue_continuation``); on the fast route ``homotopy_solve``
+    with the fused kernels (scales only); on the generic route
+    ``homotopy_solve`` on the batched problem."""
+    if globalization not in (None, "homotopy"):
+        raise ValueError(f"globalization must be None or 'homotopy', got {globalization!r}")
+    homotopy = globalization == "homotopy"
+    if rescue_size and not (homotopy and use_fast_path == "lanes"):
+        raise ValueError("the diverged-lane rescue runs on the lane route's homotopy only")
     if use_fast_path == "lanes":
-        lane = build_lane_solver(problem, settings, bounds, use_gaps=use_gaps,
-                                 keep_log=keep_log, backend=backend)
+        if homotopy:
+            lane = build_lane_homotopy(problem, settings, bounds, use_gaps=use_gaps,
+                                       scales=scales, ub_stages=ub_stages, keep_log=keep_log,
+                                       rescue_scales=rescue_scales,
+                                       rescue_ub_stages=rescue_ub_stages,
+                                       rescue_size=rescue_size, backend=backend)
+        else:
+            lane = build_lane_solver(problem, settings, bounds, use_gaps=use_gaps,
+                                     keep_log=keep_log, backend=backend)
         if not warm_start:
             return lane
 
@@ -77,8 +103,13 @@ def make_batched_solver(
         if warm_start:
             xs0 = x0s[:, None, :].expand(x0s.shape[0], problem.T + 1, x0s.shape[1])
             us0 = problem.quasi_static(xs0[:, :-1])
-        res = solve(p, None, us0, settings=settings, use_gaps=use_gaps, bounds=bounds,
-                    fast=fast)
+        if homotopy:
+            res = homotopy_solve(p, None, us0, settings=settings, use_gaps=use_gaps,
+                                 bounds=bounds, fast=fast, scales=scales or DEFAULT_SCALES,
+                                 ub_stages=ub_stages)
+        else:
+            res = solve(p, None, us0, settings=settings, use_gaps=use_gaps, bounds=bounds,
+                        fast=fast)
         if not keep_log:
             empty = torch.zeros((x0s.shape[0], 0), dtype=res.cost.dtype, device=x0s.device)
             res = res._replace(log=SolveLog(*[empty for _ in SolveLog._fields]))

@@ -361,7 +361,7 @@ def schedule(s: SolverSettings, any_accept, alpha_b, alpha_last, reg_bw, bw_ok, 
     return Schedule(reg_new, div_now, conv_now, done_now, rej_new, nrt_new)
 
 
-def _log_set(series, it, value, active):
+def log_set(series, it, value, active):
     """series[b, it[b]] = value[b] on the active lanes (no host read)."""
     idx = it.clamp(max=series.shape[1] - 1).long()[:, None]
     old = series.gather(1, idx)[:, 0]
@@ -394,8 +394,14 @@ def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast):
     rej_streak = torch.zeros_like(it)
     nrt_streak = torch.zeros_like(it)
     warm = s.boxqp_warm_iters > 0 and bounds is not None
-    wterm = (torch.full((B,), fast.wterm, dtype=dtype, device=dev)
-             if fast is not None else None)
+    wterm = None
+    if fast is not None:
+        # the weight of the problem solved here (a homotopy stage's), not
+        # the one the path was built for
+        w = fast.wterm_of(problem)
+        wterm = (w.to(dtype=dtype, device=dev).expand(B).contiguous()
+                 if isinstance(w, torch.Tensor)
+                 else torch.full((B,), w, dtype=dtype, device=dev))
 
     while bool((~done).any()):
         active = ~done
@@ -485,7 +491,7 @@ def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast):
         sched = schedule(s, any_accept, alpha_b, alphas[-1], reg_bw, bw.ok, bw.retryable,
                          lin_ok, feasible, bw.stop, it1, rej_streak, nrt_streak)
 
-        log = SolveLog(*(_log_set(series, it, value, active) for series, value in zip(
+        log = SolveLog(*(log_set(series, it, value, active) for series, value in zip(
             log, (cost_b, bw.stop, sched.reg, torch.where(any_accept, alpha_b, 0.0), dg, dq,
                   gap_norm))))
         # masked merge: finished lanes keep their state (vmap semantics)

@@ -268,3 +268,23 @@ def with_frame_targets(problem: ShootingProblem, rot, trans) -> ShootingProblem:
 
     running = stack_knots([at_knot(t) for t in range(problem.T)])
     return dataclasses.replace(problem, running=running, per_knot=True)
+
+
+class _Presets(dict):
+    """The presets by name; a name of a family the port does not hold yet
+    raises ``KeyError`` saying so."""
+
+    def __missing__(self, name):
+        if name == "double_pendulum":
+            raise KeyError("double_pendulum: the rigid double-pendulum family is not ported "
+                           "yet (it comes with the rigid-arm models)")
+        raise KeyError(f"unknown preset '{name}'; available: {sorted(self)}")
+
+
+PRESETS = _Presets(
+    two_dof_sea=two_dof_sea,
+    two_dof_vsa_boxddp=two_dof_vsa_boxddp,
+    two_dof_vsa_modified=two_dof_vsa_modified,
+    seven_dof_sea=seven_dof_sea,
+    three_dof_sea=three_dof_sea,
+)

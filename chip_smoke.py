@@ -52,7 +52,8 @@ Phases, each printed with its result and time:
      tight box (B=128, T=40, maxiter 10);
   8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
      and the quasi-static-warm T=100 SEA FDDP solve against
-     tests/golden/sea_T100.npz, both float64 through the kernels;
+     tests/golden/sea_T100.npz, both float64 through the kernels (and the
+     T=100 homotopy, phase 13);
   9. 7-DoF: FDDP on seven_dof_sea (nx=28, nu=7), B=1024, T=100, float32,
      warm-started from the quasi-static controls, maxiter=20, th_stop=1e-5
      (bench.py:231-252): the lane route (K1, K4, K3 at nl = 7), two timed
@@ -87,7 +88,33 @@ Phases, each printed with its result and time:
      and fast BoxDDP in the pinched box at T=40), at least B-1 lanes
      agreeing; the generic route against the lanes in f64 at T=20, B=16
      (the MPC and the pinched BoxDDP), at least B-1 lanes agreeing;
- 13. generic: the generic solver (use_fast_path=False, the reference),
+ 13. homotopy: the staged homotopy with the diverged-lane rescue
+     (measure.py path homotopy, the benchmark's quality metric,
+     bench.py:202-229): two_dof_vsa_boxddp, T=100, B=4096, f32, cold,
+     maxiter=20 a stage, th_stop=1e-5, boxqp_warm_iters=2,
+     stiffness_continuation's 5 stages and rescue_continuation's 7 on
+     RESCUE_SIZE=512 lanes, on the lane route (K1, K2, K3): a first solve,
+     then two timed solves at x0s + 1e-4 (i + 1), with solves/s, the main
+     pass's and the rescue's seconds apart, the lanes rescued and the
+     convergence accounting beside the TPU's (median cost 574.68, 0.98%
+     diverged; BENCH_r05); then the fast route's homotopy (K1, K2, K6) and
+     the lane route's on the same inputs with the same scales and no stage
+     boxes, within 3 points (1.5 mean iterations) of each other. The
+     stage-box kernels phase (after the kernels phase) holds K2 and K3 at
+     the first stage's box (stiffness capped at 3) and the rescue's (capped
+     at 1), T=100, B=4096, to their plain versions to the bit in f64 and
+     f32, timed, with their bound; two workers hold the homotopy with
+     rescue in f64 through the kernels to its plain backend lane by lane
+     (T=40, B=64, maxiter 10 a stage, rescue_size 16, one lane at x0 =
+     inf: its main pass in one, its rescue pass on the lanes the kernels
+     pick in the other, with the kernels' rescued solve held to the merge
+     of the two passes), and
+     the golden phase runs the configuration of
+     tests/golden/vsa_homotopy_T100.npz through the kernels in f64 and
+     holds it to the JAX package's lane route on it
+     (tests/data_torch/vsa_homotopy_T100_lanes.npz; the golden, JAX's
+     generic route, is 0.31% away from both lane routes and is printed);
+ 14. generic: the generic solver (use_fast_path=False, the reference),
      the fast path and the lane path in float64 at T=40, B=64, maxiter=20
      (BoxDDP in the tight box with cold QPs, SEA FDDP), at least B-1 lanes
      equal in iterations and flags with cost within rtol 1e-8 (a lane
@@ -97,13 +124,14 @@ Phases, each printed with its result and time:
      route at T=100, B=256 with the main path's settings and maxiter=2
      (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP.
 
-Phases 7 and 13 solve on the plain backend and the generic route, whose
+Phases 7 and 14 (and the homotopy's f64 parity) solve on the plain
+backend and the generic route, whose
 thousands of small kernels a loop pass wait on the host and leave the card
 idle. So once the timed phases are done, they run in worker processes of
 their own (``python3 chip_smoke.py --check NAME ...``, CHECK_WORKERS),
 side by side with each other and with the checks of phase 12 and phase 8
 in this process, which then prints each worker's output and fails if a
-worker failed; 13's timed solves and its golden run before, alone.
+worker failed; 14's timed solves and its golden run before, alone.
 
 Any failed check raises, so the script exits non-zero. The line before the
 card's line is the kernel table as JSON; the last line is the device
@@ -130,7 +158,9 @@ from torch.overrides import TorchFunctionMode
 # BENCH_r05.json), printed beside the card's for reference only
 TPU_REFERENCE = dict(boxddp=dict(converged_frac=0.0, diverged_frac=0.211, mean_iterations=18.4),
                      sea_warm=dict(converged_frac=0.9998),
-                     sevendof=dict(converged_frac=0.9316, solves_per_s_on_tpu=1984.58))
+                     sevendof=dict(converged_frac=0.9316, solves_per_s_on_tpu=1984.58),
+                     homotopy=dict(median_cost=574.68, diverged_frac=0.0098,
+                                   solves_per_s_on_tpu=4878.11))
 KERNELS = {
     "linearize": dict(source="aslr_to_tpu_torch/csrc/linearize.cu",
                       replaces="aslr_to_tpu/pallas/vsa_kernels.py:797"),
@@ -173,6 +203,17 @@ KERNELS = {
                                replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
     "rollout1:box_table": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
                                replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
+    # K2 and K3 at the homotopy's stage boxes: the stiffness channels capped
+    # at 3 (stiffness_continuation's first four stages) and at 1 (the
+    # rescue's first six); launches those of the capped stages
+    "riccati_box:cap3": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                             replaces="aslr_to_tpu/pallas/riccati.py:200"),
+    "riccati_box:cap1": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                             replaces="aslr_to_tpu/pallas/riccati.py:200"),
+    "rollout2:cap3": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                          replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
+    "rollout2:cap1": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
+                          replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
 }
 # the case each kernel's row is timed on, and the path its launches come
 # from; the other cases of a kernel are reported as its variants
@@ -187,12 +228,20 @@ ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp"
             "rollout2:target_table": "mpc_tracking", "rollout1:target_table": "fast_mpc_tracking",
             "riccati_box:box_table": "pk_boxddp", "rollout2:box_table": "pk_boxddp",
             "riccati_boxfddp:box_table": "pk_parity_boxfddp",
-            "rollout1:box_table": "pk_parity_fast_boxddp"}
+            "rollout1:box_table": "pk_parity_fast_boxddp", "riccati_box:cap3": "homotopy",
+            "riccati_box:cap1": "homotopy", "rollout2:cap3": "homotopy",
+            "rollout2:cap1": "homotopy"}
 # the launch counter (build.LAUNCHES) of each row, and the paths that run
 # the 7-DoF instances and the per-knot tables
 ROW_KERNEL = {row: row.split(":")[0].removesuffix("_n7") for row in ROW_PATH}
 NDOF_PATHS = ("sevendof", "fast_sevendof")
-TABLE_ROWS = tuple(row for row in ROW_PATH if ":" in row)
+TABLE_ROWS = tuple(row for row in ROW_PATH if row.endswith("_table"))
+# the stage-box rows: their launches come from the homotopy's stages
+# (homotopy_phase), the stages each cap runs in
+STAGE_ROWS = {row: row.split(":")[1] for row in ROW_PATH if ":cap" in row}
+CAP_STAGES = dict(cap3=("main", range(4)), cap1=("rescue", range(6)))
+B_HOMOTOPY_PARITY, T_HOMOTOPY_PARITY, MAXITER_HOMOTOPY_PARITY = 64, 40, 10
+RESCUE_HOMOTOPY_PARITY, INF_LANE = 16, 5
 PK_PATHS = ("mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "pk_parity_mpc",
             "pk_parity_boxddp", "pk_parity_boxfddp", "pk_parity_fast_boxddp")
 # the per-knot phase: the TPU's converged share of the tracking MPC at
@@ -478,10 +527,11 @@ def tight_box(dtype):
     return Bounds(t([-2.0, -2.0, 0.0, 0.0]), t([2.0, 2.0, 3.0, 3.0]))
 
 
-def kernel_cases(dtype, B=None, arms=("vsa", "sea"), T=None):
+def kernel_cases(dtype, B=None, arms=("vsa", "sea"), T=None, box_ub=None):
     """{row: (kernel call, plain call, io_values kwargs, name, ndx, nu)} at
     the paths' shapes (T=100, B=4096 unless given). Arms: the 2-DoF VSA and
-    SEA arms, and the 3- and 7-DoF SEA arms (sea3, sea7)."""
+    SEA arms, and the 3- and 7-DoF SEA arms (sea3, sea7). ``box_ub`` ([nu])
+    replaces the VSA box's upper bound (a homotopy stage's box)."""
     from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
     from aslr_to_tpu_torch.kernels import riccati as rk
     from aslr_to_tpu_torch.kernels import vsa_kernels as vk
@@ -519,7 +569,8 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea"), T=None):
                                       dict(), "linearize", ndx, nu)
         if arm == "vsa":
             lb = torch.as_tensor(spec.lb, dtype=dtype, device="cuda")[:, None].expand(nu, B)
-            ub = torch.as_tensor(spec.ub, dtype=dtype, device="cuda")[:, None].expand(nu, B)
+            ub = torch.as_tensor(spec.ub if box_ub is None else box_ub, dtype=dtype,
+                                 device="cuda")[:, None].expand(nu, B)
             lb, ub = lb.contiguous(), ub.contiguous()
             kprev = torch.zeros(T, nu, B, dtype=dtype, device="cuda")
             box_args = derivs + (us, kprev, lb, ub, reg, 2)
@@ -657,6 +708,50 @@ def kernels_phase(report):
         report[name].setdefault("variants", {})[f"{label} B={B_FILL}"] = dict(
             ms=ms, bound_ms=bms, bound_by=by)
         log(f"  {label} f32 time at B={B_FILL}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+@phase("stage-box kernels")
+def stage_box_kernels_phase(report):
+    """K2 and K3 at the homotopy's capped stage boxes (the stiffness at most
+    3, the first stage's; at most 1, the rescue's), T=100, B=4096: equal to
+    their plain versions to the bit in f64 and f32, timed in f32, with the
+    bound and the share of K3's trial controls on the capped bound."""
+    from aslr_to_tpu_torch import rescue_continuation, stiffness_continuation
+    from aslr_to_tpu_torch import two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import B_PATH, T_PATH
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        w = two_dof_vsa_boxddp(T=T_PATH, dtype=dtype)
+        caps = dict(cap3=stiffness_continuation(w.problem, w.bounds)[1][0],
+                    cap1=rescue_continuation(w.problem, w.bounds)[1][0])
+        for cap, box_ub in caps.items():
+            cases = kernel_cases(dtype, arms=("vsa",), box_ub=box_ub)
+            for label, row in (("riccati_box[vsa]", f"riccati_box:{cap}"),
+                               ("rollout2[vsa box]", f"rollout2:{cap}")):
+                kern, plain, io_kw, name, ndx, nu = cases[label]
+                before = build.LAUNCHES[name]
+                err = check_at_batch(f"{row} (ub {box_ub.tolist()})", tag, kern, plain, B_PATH)
+                if build.LAUNCHES[name] != before + 1:
+                    raise AssertionError(f"{row}: the wrapper did not launch its kernel")
+                if name == "rollout2":
+                    on_cap = (kern()[0].us[:, 2:] == box_ub[2:, None]).double().mean()
+                    log(f"  {row} {tag}: share of trial 0's stiffness controls on the cap "
+                        f"{float(on_cap):.4f}")
+                target = report[row]
+                target["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+                if tag == "f32":
+                    target["ms"] = cuda_ms(kern, 20)
+                    target["plain_ms"] = cuda_ms(plain, 2)
+                    ops = count_ops(plain)
+                    n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
+                    target["bound_ms"], target["bound_by"], nbytes = bound(
+                        ops, n_in, n_out, n_flags, B_PATH, 4)
+                    target["ops"], target["bytes"] = ops, nbytes
+                    log(f"  {row} f32 time: kernel {target['ms']:.4f} ms, plain "
+                        f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
+                        f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
 
 
 @phase("n-DoF kernels")
@@ -846,6 +941,8 @@ def drive(path, report, fn, expect):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
     for row, kernel in ROW_KERNEL.items():
+        if row in STAGE_ROWS:       # counted by stage (homotopy_phase)
+            continue
         # the row's instance or variant ran there
         if (row.endswith("_n7") == (path in NDOF_PATHS)
                 and (row in TABLE_ROWS) == (path in PK_PATHS)):
@@ -965,6 +1062,63 @@ def fast_path_phase(report, card, lanes_boxddp, lanes_sea_cold):
     summ = solve_path("fast_sea", report, card, ("linearize", "riccati_fddp", "rollout1"),
                       2, 1)[1]
     close_to_lanes("fast SEA FDDP (cold)", summ, lanes_sea_cold)
+
+
+def stage_launches(stats, part, stages, kernel):
+    """The launches of ``kernel`` in the stages ``stages`` of the homotopy's
+    ``part`` ("main" or "rescue"), from the launch counts its solve kept
+    after each stage (``build_lane_homotopy``'s ``stats``)."""
+    total, prev = 0, 0
+    for p, i, counts in stats["launches"]:
+        if p == part and i in stages:
+            total += counts[kernel] - prev
+        prev = counts[kernel]
+    return total
+
+
+@phase("homotopy")
+def homotopy_phase(report, card):
+    """The staged homotopy with the rescue on the lane route (K1, K2, K3),
+    its main pass and rescue timed apart; then the fast route's homotopy
+    (K1, K2, K6) against the lane route's on the same inputs with the same
+    scales and no stage boxes."""
+    from aslr_to_tpu_torch.measure import RESCUE_SIZE, build_path
+
+    name, B, T, expect = "homotopy", 4096, 100, ("linearize", "riccati_box", "rollout2")
+    p = build_path(name)
+    prep, t = drive(name, report, p.setup, expect)
+    log(f"  first solve: {t:.4f} s")
+    for i in range(2):
+        inputs = p.args(i, prep)
+        res, t = drive(name, report, lambda: p.solve(*inputs), expect)
+        st = p.solve.stats
+        log(f"  solve {i}: {t:.4f} s, {B / t:.2f} solves/s on {card} (T={T}, B={B}, f32, "
+            f"maxiter={p.maxiter} a stage, rescue_size={RESCUE_SIZE}); main pass "
+            f"{st['main_s']:.4f} s, rescue {st['rescue_s']:.4f} s; lanes diverged after the "
+            f"main pass {int(st['main_diverged'])}, rescued {int(st['rescued'])}")
+    for row, cap in STAGE_ROWS.items():
+        part, stages = CAP_STAGES[cap]
+        kernel = ROW_KERNEL[row]
+        report[row]["launches"] = stage_launches(st, part, stages, kernel)
+        report[row]["launches_by_path"] = {name: report[row]["launches"]}
+        if report[row]["launches"] <= 0:
+            raise AssertionError(f"{row}: no launch in the stages at {cap}")
+    log("  launches a stage (K1, K2, K3): " + "; ".join(
+        f"{part} {i}: {tuple(c[k] for k in expect)}" for part, i, c in st["launches"]))
+    summ = summarize(res, B, T, 4, f"{name}, last solve, f32")
+    tpu = TPU_REFERENCE[name]
+    log(f"  quality against the TPU's (BENCH_r05, f32, B=4096, a cross-check of "
+        f"convergence only): median cost {summ['median_cost']} (TPU {tpu['median_cost']}, "
+        f"{100 * (summ['median_cost'] / tpu['median_cost'] - 1):+.2f}%), diverged "
+        f"{summ['diverged_frac']} (TPU {tpu['diverged_frac']}, "
+        f"{100 * (summ['diverged_frac'] - tpu['diverged_frac']):+.2f} points)")
+    got = {}
+    for path, kern in (("homotopy_scales", "rollout2"), ("fast_homotopy", "rollout1")):
+        q = build_path(path)
+        out, t = drive(path, report, q.setup, ("linearize", "riccati_box", kern))
+        log(f"  {path} on the homotopy's inputs: {t:.4f} s, {B / t:.2f} solves/s")
+        got[path] = summarize(out, B, T, 4, f"{path}, f32")
+    close_to_lanes("fast homotopy (scales only)", got["fast_homotopy"], got["homotopy_scales"])
 
 
 def first_parting(a, b, rtol=1e-8):
@@ -1125,7 +1279,13 @@ def parity(label, w, bounds, use_gaps, B, settings, seed):
         res[backend] = solve(x0s)
         torch.cuda.synchronize()
         log(f"  {label} {backend} backend: {time.perf_counter() - t0:.3f} s")
-    k, p = res["auto"], res["plain"]
+    backends_agree(label, res["auto"], res["plain"], B)
+
+
+def backends_agree(label, k, p, B):
+    """At least B - 1 lanes of the kernel backend's result ``k`` equal the
+    plain backend's ``p`` in iterations and flags, with cost within rtol
+    1e-8 in those lanes."""
     same = ((k.iterations == p.iterations) & (k.converged == p.converged)
             & (k.diverged == p.diverged))
     n_same = int(same.sum())
@@ -1166,6 +1326,76 @@ def parity_check(label):
                B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)
 
 
+def homotopy_parity_check(part):
+    """The homotopy with the rescue in f64 through the kernels against its
+    plain backend, lane by lane: the production schedules at T=40, B=64,
+    maxiter 10 a stage, rescue_size 16, lane INF_LANE at x0 = inf (it must
+    stay diverged). Its two passes run in two workers, since the plain
+    backend's 12 stages of small kernels take 243 s on the card alone and
+    447 s beside the other workers in one process: ``part`` "main", the 5
+    main stages on the 64 lanes; "rescue", the 7 rescue stages, cold, on
+    the 16 lanes that the kernels' main pass picks (diverged first, by
+    the stable sort of ``build_lane_homotopy``; the main part holds its
+    flags to the plain backend's), and the kernels' homotopy with the
+    rescue against those two passes of its own, to the bit."""
+    from aslr_to_tpu_torch import (SolverSettings, make_batched_solver, rescue_continuation,
+                                   stiffness_continuation, two_dof_vsa_boxddp)
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import SEEDS, homotopy_solver, x0_batch
+
+    w = two_dof_vsa_boxddp(T=T_HOMOTOPY_PARITY, dtype=torch.float64)
+    settings = SolverSettings(maxiter=MAXITER_HOMOTOPY_PARITY, th_stop=1e-5, boxqp_warm_iters=2)
+    schedule = dict(main=stiffness_continuation(w.problem, w.bounds),
+                    rescue=rescue_continuation(w.problem, w.bounds))
+
+    def solver(stages, backend):
+        return make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+                                   use_fast_path="lanes", globalization="homotopy",
+                                   scales=schedule[stages][0], ub_stages=schedule[stages][1],
+                                   backend=backend)
+
+    x0s = x0_batch(B_HOMOTOPY_PARITY, torch.float64, SEEDS["homotopy"])
+    x0s[INF_LANE, 0] = float("inf")
+    kernel_main = solver("main", "auto")(x0s)
+    inputs, inf_lane = x0s, INF_LANE
+    if part == "rescue":
+        idx = torch.argsort((~kernel_main.diverged).to(torch.int8),
+                            stable=True)[:RESCUE_HOMOTOPY_PARITY]
+        inputs, inf_lane = x0s[idx], int(torch.nonzero(idx == INF_LANE)[0, 0])
+    res = {}
+    for backend in ("auto", "plain"):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res[backend] = solver(part, backend)(inputs)
+        torch.cuda.synchronize()
+        launched = sum(build.LAUNCHES.values())
+        log(f"  homotopy {part} pass f64 T={T_HOMOTOPY_PARITY} B={inputs.shape[0]} {backend} "
+            f"backend: {time.perf_counter() - t0:.3f} s, lanes diverged "
+            f"{int(res[backend].diverged.sum())}, kernel launches {launched}")
+        if (launched > 0) != (backend == "auto"):
+            raise AssertionError(f"homotopy parity: the {backend} backend launched {launched}")
+        if not bool(res[backend].diverged[inf_lane]):
+            raise AssertionError("homotopy parity: the lane at x0 = inf did not diverge")
+    backends_agree(f"homotopy {part} pass", res["auto"], res["plain"], inputs.shape[0])
+    if part == "main":
+        return
+    # the kernels' homotopy with the rescue is its main pass with the picked
+    # lanes that the main pass left diverged and the rescue did not replaced
+    full = homotopy_solver("homotopy", T_HOMOTOPY_PARITY, torch.float64,
+                           maxiter=MAXITER_HOMOTOPY_PARITY,
+                           rescue_size=RESCUE_HOMOTOPY_PARITY)(x0s)
+    rescue = res["auto"]
+    take = kernel_main.diverged[idx] & ~rescue.diverged
+    for f in ("xs", "us", "cost", "stop", "iterations", "converged", "diverged", "reg"):
+        want = getattr(kernel_main, f).clone()
+        want[idx[take]] = getattr(rescue, f)[take]
+        if not same_bits(getattr(full, f).double(), want.double()):
+            raise AssertionError(f"homotopy parity: the rescued solve's {f} is not the merge "
+                                 f"of its two passes")
+    log(f"  homotopy with the rescue through the kernels: the merge of its two passes to the "
+        f"bit ({int(take.sum())} lanes taken from the rescue)")
+
+
 # the checks that solve on the plain backend or the generic route, each a
 # worker process's: those solves run thousands of small kernels a loop
 # pass, so each waits on its host and leaves the card idle, and side by
@@ -1174,9 +1404,12 @@ CHECKS = {"parity BoxDDP": partial(parity_check, "BoxDDP"),
           "parity SEA FDDP": partial(parity_check, "SEA FDDP"),
           "parity BoxFDDP": partial(parity_check, "BoxFDDP"),
           "generic BoxDDP": partial(generic_check, "BoxDDP"),
-          "generic SEA FDDP": partial(generic_check, "SEA FDDP")}
+          "generic SEA FDDP": partial(generic_check, "SEA FDDP"),
+          "parity homotopy main": partial(homotopy_parity_check, "main"),
+          "parity homotopy rescue": partial(homotopy_parity_check, "rescue")}
 CHECK_WORKERS = (("parity BoxDDP",), ("generic BoxDDP",), ("parity BoxFDDP",),
-                 ("parity SEA FDDP", "generic SEA FDDP"))
+                 ("parity SEA FDDP", "generic SEA FDDP"), ("parity homotopy main",),
+                 ("parity homotopy rescue",))
 
 
 def run_checks(names):
@@ -1224,14 +1457,18 @@ def stop_checks(running):
             proc.wait()
 
 
-def golden(label, fname, w, settings, use_gaps, bounds, warm_start):
+def golden(label, fname, w, settings, use_gaps, bounds, warm_start, **homotopy):
+    """The lane route's f64 solve from x0 = 0 against ``tests/<fname>``: cost
+    rtol 1e-8, iterations equal, us atol 1e-6 (tests/test_golden.py).
+    Returns the solve's cost."""
     from aslr_to_tpu_torch import make_batched_solver
 
-    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "tests", "golden", fname))
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", fname))
     res = make_batched_solver(w.problem, settings, use_gaps=use_gaps, bounds=bounds,
-                              warm_start=warm_start, use_fast_path="lanes")(
+                              warm_start=warm_start, use_fast_path="lanes", **homotopy)(
         torch.zeros(1, 8, dtype=torch.float64, device="cuda"))
+    if bool(res.diverged[0]):
+        raise AssertionError(f"the {label} solve diverged")
     cost, iters = float(res.cost[0]), int(res.iterations[0])
     us_err = float(np.abs(res.us[0].cpu().numpy() - ref["us"]).max())
     log(f"  {label}: cost {cost} (golden {float(ref['cost'])}), iterations {iters} "
@@ -1239,18 +1476,34 @@ def golden(label, fname, w, settings, use_gaps, bounds, warm_start):
     if not (abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"]))
             and iters == int(ref["iters"]) and us_err <= 1e-6):
         raise AssertionError(f"the {label} solve does not reproduce {fname}")
+    return cost
 
 
 @phase("golden")
 def golden_phase():
-    from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch import SolverSettings, stiffness_continuation, two_dof_sea
+    from aslr_to_tpu_torch import two_dof_vsa_boxddp
 
     w = two_dof_vsa_boxddp(T=30, dtype=torch.float64)
-    golden("BoxDDP T=30", "vsa_boxddp_T30.npz", w, SolverSettings(maxiter=25, th_stop=1e-7),
-           False, w.bounds, False)
-    golden("SEA FDDP T=100, quasi-static warm", "sea_T100.npz",
+    golden("BoxDDP T=30", "golden/vsa_boxddp_T30.npz", w,
+           SolverSettings(maxiter=25, th_stop=1e-7), False, w.bounds, False)
+    golden("SEA FDDP T=100, quasi-static warm", "golden/sea_T100.npz",
            two_dof_sea(T=100, dtype=torch.float64), SolverSettings(maxiter=100, th_stop=1e-7),
            True, None, True)
+    # the staged stiffness-bound continuation of tests/test_golden.py:55-74.
+    # Its golden pins the JAX package's generic route; the lane routes end
+    # 0.31% higher on this chaotic solve, the port's where JAX's does
+    # (tests/data_torch/gen_vsa_homotopy_T100_lanes.py): held to that
+    w = two_dof_vsa_boxddp(T=100, dtype=torch.float64)
+    scales, ub_stages = stiffness_continuation(w.problem, w.bounds)
+    cost = golden("homotopy T=100 (the JAX package's lane route)",
+                  "data_torch/vsa_homotopy_T100_lanes.npz", w,
+                  SolverSettings(maxiter=20, th_stop=1e-5), False, w.bounds, False,
+                  globalization="homotopy", scales=scales, ub_stages=ub_stages)
+    generic = float(np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                         "golden", "vsa_homotopy_T100.npz"))["cost"])
+    log(f"  homotopy T=100 against the generic route's golden vsa_homotopy_T100.npz: cost "
+        f"{cost} against {generic} ({cost / generic - 1:+.3e} relative; not held, as above)")
 
 
 def table_kernel_cases(dtype, B_target=None, B_box=None):
@@ -1563,6 +1816,7 @@ def main():
     report = {name: dict(name=name, route="cuda", **meta, library_ms=None,
                          library_note=NO_LIBRARY) for name, meta in KERNELS.items()}
     kernels_phase(report)
+    stage_box_kernels_phase(report)
     probe_phase(report)
     ndof_kernels_phase(report)
     lanes_boxddp = main_path_phase(report, smi)
@@ -1572,6 +1826,7 @@ def main():
     fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
     table_kernels_phase(report)
     per_knot_phase(report, smi)
+    homotopy_phase(report, smi)
     generic_timed_phase(smi)
     # the checks below time nothing: the workers run beside this process
     running = start_checks()

@@ -21,7 +21,9 @@ and their launches on the card (K6's grid fills the SMs at B=1024, two
 blocks of K4 fit an SM in f32); K1 at nl 7 and K3 at nl 7 in the layout
 its batch picks (wide to B=1024, general at 4096), shared and with a
 target table, on ragged batches and with one NaN scenario, and K3's
-launch at both batches; P against its plain version:
+launch at both batches; the staged homotopy with the diverged-lane
+rescue against its plain backend in f64, and the rescue keeping the lanes
+it does not take to the bit; P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -854,3 +856,54 @@ def test_k3_nl7_layout_follows_the_batch(cuda):
     assert general["layout"] == "general" and general["grid"] == 256
     k1 = build.launch_of("linearize", torch.float32, 1024, T=100)
     assert k1["threads"] == 128 and k1["smem"] > 0 and k1["blocks_per_sm"] >= 1
+
+
+def _homotopy_x0s(cuda, B, inf_lane):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x0s = 0.05 * torch.randn(B, 8, generator=g, device=cuda, dtype=torch.float64)
+    x0s[inf_lane, 0] = float("inf")
+    return x0s
+
+
+def test_homotopy_with_rescue_kernels_match_plain_on_card(cuda):
+    """The staged homotopy with the diverged-lane rescue (the production
+    schedules, 5 + 7 stages) through K1, K2 and K3 against its plain
+    backend in f64; the lane at x0 = inf stays diverged."""
+    from aslr_to_tpu_torch.measure import homotopy_solver
+
+    x0s = _homotopy_x0s(cuda, 64, 3)
+    res = {}
+    for backend in ("auto", "plain"):
+        solve = homotopy_solver("homotopy", T, torch.float64, device=cuda, backend=backend,
+                                maxiter=4, rescue_size=8)
+        build.reset_launches()
+        res[backend] = solve(x0s)
+        assert (build.LAUNCHES["riccati_box"] > 0) == (backend == "auto"), backend
+    k, p = res["auto"], res["plain"]
+    assert bool(k.diverged[3]) and bool(p.diverged[3])
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.converged, p.converged) and torch.equal(k.diverged, p.diverged)
+    live = ~p.diverged
+    torch.testing.assert_close(k.cost[live], p.cost[live], rtol=1e-8, atol=0)
+    torch.testing.assert_close(k.us[live], p.us[live], rtol=0, atol=1e-8)
+
+
+def test_rescue_keeps_the_solved_lanes_on_card(cuda):
+    """Through the kernels, the lanes that are not taken from the rescue
+    keep the main pass's result to the bit (f32, rescue_size below the
+    batch)."""
+    from aslr_to_tpu_torch.measure import homotopy_solver
+
+    x0s = (20.0 * _homotopy_x0s(cuda, B, 7)).float()
+    plain = homotopy_solver("homotopy", T, torch.float32, device=cuda, maxiter=4,
+                            rescue_size=0)(x0s)
+    solve = homotopy_solver("homotopy", T, torch.float32, device=cuda, maxiter=4,
+                            rescue_size=16)
+    res = solve(x0s)
+    taken = plain.diverged & ~res.diverged
+    assert int(taken.sum()) == int(solve.stats["rescued"])
+    kept = ~taken
+    for a, b in zip(list(plain[:-1]) + list(plain.log), list(res[:-1]) + list(res.log)):
+        a, b = a[kept].double(), b[kept].double()
+        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0),
+                                                                 b.nan_to_num(0.0))
