@@ -7,6 +7,7 @@ batch sizes and a ``torch.profiler`` breakdown of one solve).
     python -m aslr_to_tpu_torch.measure --path sevendof --profile
     python -m aslr_to_tpu_torch.measure --path mpc_tracking fast_mpc_tracking pk_boxddp --profile
     python -m aslr_to_tpu_torch.measure --path homotopy --profile
+    python -m aslr_to_tpu_torch.measure --path double_pendulum --profile
 
 Paths (T=100, float32, x0s = 0.05 randn from a CUDA generator seeded per
 path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
@@ -55,7 +56,16 @@ path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
             K1, K2 and K3 on the lane route;
   homotopy_scales  the same solves with stiffness_continuation's scales
             only (no stage boxes, no rescue), on the lane route;
-  fast_homotopy  homotopy_scales through the fast path (K1, K2, K6).
+  fast_homotopy  homotopy_scales through the fast path (K1, K2, K6);
+  double_pendulum  the soft-actuated double-pendulum swing-up of
+            examples/double_pendulum.py (the preset, T=10, FDDP, no box,
+            cold) at its budget, maxiter=100, th_stop=1e-9, over B=4096
+            initial states: x0s = the preset's x0 [3.14, 0, ...] plus the
+            path's 0.05 randn. The fast path refuses its actuation, so it
+            runs on the generic route (use_fast_path=False) with
+            use_pallas_backward=True: its FDDP backward is K4 at (8, 2). A
+            first solve (untimed set-up), then timed solves at x0s + 1e-4
+            (i + 1).
 
 The lane paths run two trials a line-search round through K3; the fast
 paths one trial a round through K6, with a relayout between the solver's
@@ -63,7 +73,8 @@ batch-major tensors and the kernels' lane layout at each kernel call.
 
 The kernels are built before anything is timed. For each batch size the
 path's set-up runs, then ``--reps`` timed solves, each ending in
-``torch.cuda.synchronize()``; solves/s is B over the host wall time. The
+``torch.cuda.synchronize()``; solves/s is B over the host wall time, and
+each kernel's launches in the last timed solve are printed. The
 convergence line adds the largest iteration count, which is the number of
 loop passes the whole batch ran, and the count of lanes at each iteration
 count. ``--profile`` traces the last timed solve once more (same inputs)
@@ -90,10 +101,10 @@ import torch
 
 PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", "sevendof",
          "fast_sevendof", "mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "homotopy",
-         "homotopy_scales", "fast_homotopy")
+         "homotopy_scales", "fast_homotopy", "double_pendulum")
 SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, sevendof=3,
              fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5, homotopy=6,
-             homotopy_scales=6, fast_homotopy=6)
+             homotopy_scales=6, fast_homotopy=6, double_pendulum=7)
 HOMOTOPY_PATHS = ("homotopy", "homotopy_scales", "fast_homotopy")
 RESCUE_SIZE = 512       # bench.py's RESCUE
 T_PATH, B_PATH = 100, 4096
@@ -102,6 +113,7 @@ T_MPC, B_MPC = 60, 2048  # examples/mpc_tracking.py: its horizon and MPC_BATCH
 MPC_SOLVES = 3          # its bench_lane_batch's timed solves
 PINCHED = range(45, 55)  # pk_boxddp's knots whose torques are held to +-0.05
 PINCH = 0.05
+T_PENDULUM, MAXITER_PENDULUM = 10, 100   # examples/double_pendulum.py's horizon and budget
 TIGHT_BOX = ([-2.0, -2.0, 0.0, 0.0], [2.0, 2.0, 3.0, 3.0])
 WARM_OFFSET = 1e-4
 KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_boxfddp_kernel",
@@ -140,7 +152,9 @@ def path_batch(name):
 
 
 def path_T(name):
-    """The path's horizon: 60 for the MPC, else 100."""
+    """The path's horizon: 60 for the MPC, 10 for the pendulum, else 100."""
+    if name == "double_pendulum":
+        return T_PENDULUM
     return T_MPC if name.endswith("mpc_tracking") else T_PATH
 
 
@@ -171,6 +185,11 @@ def build_path(name, B=None, T=None, dtype=torch.float32):
 
     B = B or path_batch(name)
     T = T or path_T(name)
+    if name == "double_pendulum":
+        w, solve = pendulum_solver(T, dtype)
+        x0s = pendulum_x0s(w, B, SEEDS[name])
+        return Path(solve, lambda: solve(x0s), lambda i, _: (x0s + WARM_OFFSET * (i + 1),),
+                    MAXITER_PENDULUM)
     if name in ("mpc_tracking", "fast_mpc_tracking"):
         x0s = x0_batch(B, dtype, SEEDS[name])
         solve = make_batched_solver(mpc_problem(T, dtype), SolverSettings(maxiter=30, th_stop=1e-5),
@@ -213,6 +232,28 @@ def build_path(name, B=None, T=None, dtype=torch.float32):
                                 bounds=w.bounds,
                                 use_fast_path=True if name == "fast_boxddp" else "lanes")
     return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
+
+
+def pendulum_solver(T=T_PENDULUM, dtype=torch.float32, device="cuda",
+                    use_pallas_backward=True, maxiter=MAXITER_PENDULUM, keep_log=False):
+    """The double-pendulum preset and its path's solver: the generic route,
+    FDDP without a box, cold, th_stop=1e-9; ``use_pallas_backward`` sends
+    the backward to K4 (else the generic sweep). Returns (workload,
+    solver)."""
+    from . import SolverSettings, double_pendulum, make_batched_solver
+
+    w = double_pendulum(T=T, dtype=dtype, device=device)
+    settings = SolverSettings(maxiter=maxiter, th_stop=1e-9,
+                              use_pallas_backward=use_pallas_backward)
+    return w, make_batched_solver(w.problem, settings, use_gaps=True, bounds=None,
+                                  keep_log=keep_log, use_fast_path=False)
+
+
+def pendulum_x0s(w, B, seed=SEEDS["double_pendulum"]):
+    """The pendulum path's initial states: the preset's x0 (hanging) plus
+    ``x0_batch``'s 0.05 randn."""
+    x0 = w.problem.x0
+    return x0 + x0_batch(B, x0.dtype, seed, nx=x0.shape[-1])
 
 
 def homotopy_solver(name, T=T_PATH, dtype=torch.float32, device="cuda", backend="auto",
@@ -324,16 +365,20 @@ def main(argv=None):
         for i in range(args.reps):
             inputs = p.args(i, prep)
             torch.cuda.synchronize()
+            build.reset_launches()
             t0 = time.perf_counter()
             res = p.solve(*inputs)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if i == 0 and args.save_lanes and path == "sea_warm" and B == batches[path][0]:
                 save_lanes(args.save_lanes, inputs, res, p.maxiter)
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
         summ = summary(res)
-        run = dict(path=path, B=B, seconds=times, solves_per_s=[B / t for t in times], **summ)
+        run = dict(path=path, B=B, seconds=times, solves_per_s=[B / t for t in times],
+                   launches=launches, **summ)
         print(f"{path} B={B}: " + ", ".join(f"{t:.4f} s ({B / t:.2f} solves/s)"
                                                  for t in times), flush=True)
+        print(f"  kernel launches in the last solve: {launches}", flush=True)
         print(f"  convergence of the last solve: {summ}", flush=True)
         stats = getattr(p.solve, "stats", None)
         if stats:       # the homotopy's main pass and rescue, apart

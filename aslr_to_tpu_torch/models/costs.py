@@ -1,8 +1,10 @@
 """Cost library: activations, residuals, residual costs and cost sums.
 
-PyTorch counterpart of the classes of ``aslr_to_tpu/models/costs.py`` that
-the VSA and SEA presets build, with ``calc`` and ``calc_diff``. Derivatives
-follow Crocoddyl's Gauss-Newton convention (``Lxx = Rx' Arr Rx``). Every
+PyTorch counterpart of ``aslr_to_tpu/models/costs.py``, with ``calc`` and
+``calc_diff``. Derivatives follow Crocoddyl's Gauss-Newton convention
+(``Lxx = Rx' Arr Rx``), except the swing-up cost
+``CostModelDoublePendulum``, which keeps the reference's hand-rolled
+diagonal second-order model. Every
 method batches over the leading dims of ``x [..., nx]`` and ``u [..., nu]``;
 a residual Jacobian is ``[..., nr, ndx]``.
 """
@@ -76,6 +78,33 @@ class ActivationModelWeightedQuad:
         return self.weights * r, self.weights.expand_as(r)
 
 
+class ActivationBounds(NamedTuple):
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ActivationModelQuadraticBarrier:
+    """Quadratic penalty outside ``[lb, ub]`` (Crocoddyl's semantics; the
+    reference's condensed soft-dynamics tests bound the spring deflection
+    with it, ``unittest/test_softdyn_residual.py:24-26``)."""
+
+    bounds: ActivationBounds
+
+    def _parts(self, r):
+        lo = torch.clamp(r - self.bounds.lb, max=0.0)
+        hi = torch.clamp(r - self.bounds.ub, min=0.0)
+        return lo, hi
+
+    def calc(self, r):
+        lo, hi = self._parts(r)
+        return 0.5 * ((lo * lo).sum(-1) + (hi * hi).sum(-1))
+
+    def calc_diff(self, r):
+        lo, hi = self._parts(r)
+        return lo + hi, ((lo < 0.0) | (hi > 0.0)).to(r.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class ResidualModelState:
     """r = diff(xref, x)."""
@@ -131,6 +160,38 @@ class ResidualModelFramePlacementASR:
         return Rx, _zeros_jac(x, 6, self.nu)
 
 
+def _pendulum_trig(x):
+    return torch.cos(x[..., 0]), torch.cos(x[..., 1]), torch.sin(x[..., 0]), torch.sin(x[..., 1])
+
+
+def _sparse_rows(x, ndx, entries):
+    """A ``[..., 6, ndx]`` matrix, zero but at ``entries`` {(i, j): value}."""
+    M = _zeros_jac(x, 6, ndx)
+    for (i, j), v in entries.items():
+        M[..., i, j] = v
+    return M
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualModelDoublePendulum:
+    """Swing-up residual ``r = [s1, s2, 1 + c1, 1 - c2, v1, v2]`` with its
+    analytic Rx, the reference's sign conventions included
+    (``python/aslr_to/residual_acrobot.py:5-29``: ``Rx[3, 1] = +s2``)."""
+
+    state: StateASR
+    nu: int
+
+    def calc(self, x, u, kin):
+        c1, c2, s1, s2 = _pendulum_trig(x)
+        return torch.stack([s1, s2, 1.0 + c1, 1.0 - c2, x[..., 4], x[..., 5]], dim=-1)
+
+    def calc_diff(self, x, u, kin):
+        c1, c2, s1, s2 = _pendulum_trig(x)
+        Rx = _sparse_rows(x, self.state.ndx, {(0, 0): c1, (1, 1): c2, (2, 0): -s1,
+                                              (3, 1): s2, (4, 4): 1.0, (5, 5): 1.0})
+        return Rx, _zeros_jac(x, 6, self.nu)
+
+
 @dataclasses.dataclass(frozen=True)
 class CostModelResidual:
     """cost = activation(residual(x, u)), Gauss-Newton derivatives."""
@@ -183,6 +244,41 @@ class CostModelStiffness:
         lam = torch.as_tensor(self.lamda, dtype=x.dtype, device=x.device)
         Lu = torch.cat([d.Lu[..., :half], (lam * torch.ones_like(d.Lu[..., half:]))], dim=-1)
         return d._replace(Lu=Lu)
+
+
+@dataclasses.dataclass(frozen=True)
+class CostModelDoublePendulum:
+    """The reference's self-contained swing-up cost
+    (``python/aslr_to/__init__.py:223-259``): the residual ``[s1, s2, 1 +
+    c1, 1 + c2, v1, v2]`` (against the residual model's ``1 - c2``), and
+    the hand-rolled diagonal second-order model ``Lxx = diag(Rxx' Arr)``
+    with the reference's Rxx rows, verbatim; it is negative where ``c1^2 <
+    s1^2``, at the hanging start among others."""
+
+    state: StateASR
+    activation: object
+    nu: int
+
+    def _residual(self, x):
+        c1, c2, s1, s2 = _pendulum_trig(x)
+        return torch.stack([s1, s2, 1.0 + c1, 1.0 + c2, x[..., 4], x[..., 5]], dim=-1)
+
+    def calc(self, x, u, kin):
+        return self.activation.calc(self._residual(x))
+
+    def calc_diff(self, x, u, kin) -> CostDerivs:
+        ndx = self.state.ndx
+        c1, c2, s1, s2 = _pendulum_trig(x)
+        Ar, Arr = self.activation.calc_diff(self._residual(x))
+        Rx = _sparse_rows(x, ndx, {(0, 0): c1, (1, 1): c2, (2, 0): -s1, (3, 1): -s2,
+                                   (4, 4): 1.0, (5, 5): 1.0})
+        Rxx = _sparse_rows(x, ndx, {(0, 0): c1 ** 2 - s1 ** 2, (1, 1): c2 ** 2 - s2 ** 2,
+                                    (2, 0): s1 ** 2 + (1.0 - c1) * c1,
+                                    (3, 1): s2 ** 2 + (1.0 - c2) * c2,
+                                    (4, 4): 1.0, (5, 5): 1.0})
+        d = zero_derivs(ndx, self.nu, x)
+        return d._replace(Lx=(Rx.transpose(-1, -2) @ Ar[..., None])[..., 0],
+                          Lxx=torch.diag_embed((Rxx.transpose(-1, -2) @ Arr[..., None])[..., 0]))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,13 @@
-"""Soft-actuation forward dynamics: series-elastic (SEA) and variable
-stiffness (VSA).
+"""Forward dynamics: series-elastic (SEA) and variable stiffness (VSA)
+actuation, and the rigid robot.
 
 PyTorch counterpart of ``aslr_to_tpu/models/dynamics.py``
-(``DifferentialSEADynamics`` and ``DifferentialVSADynamics``: ``calc``,
-``calc_diff`` and ``quasi_static``; the lane solver takes its derivatives
-from the linearization kernel, the generic solver from ``calc_diff``). With
-the spring torque ``tau_c = K (q_l - q_m)``:
+(``DifferentialSEADynamics``, ``DifferentialVSADynamics`` and
+``DifferentialFreeFwdDynamics``: ``calc``, ``calc_diff`` and
+``quasi_static``; the lane solver takes its derivatives from the
+linearization kernel, the generic solver from ``calc_diff``). The rigid
+model's accelerations are ``aba``'s, ``a = M^-1 (u - nle)``. With the
+spring torque ``tau_c = K (q_l - q_m)``:
 
     a_l = M(q_l)^-1 (tau_link - nle - tau_c)
     a_m = B^-1      (tau_motor + tau_c)
@@ -23,7 +25,7 @@ import torch
 
 from ..ops import rigid_body as rbd
 from .costs import CostDerivs, CostModelSum, KinData
-from .state import StateASR
+from .state import StateASR, StateMultibody
 
 
 class DiffData(NamedTuple):
@@ -192,3 +194,42 @@ class DifferentialVSADynamics:
         gravity torque, the stiffness command is zero."""
         tau_g = _gravity_torques(self.state, x)
         return torch.cat([tau_g, torch.zeros_like(tau_g)], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DifferentialFreeFwdDynamics:
+    """Rigid free forward dynamics ``a = M^-1 (tau - nle)`` with ``tau = u``
+    (Crocoddyl's ``DifferentialActionModelFreeFwdDynamics``, the base of the
+    reference's condensed formulation,
+    ``unittest/test_softdyn_residual.py:33``)."""
+
+    state: StateMultibody
+    costs: CostModelSum
+
+    @property
+    def nu(self) -> int:
+        return self.state.nv
+
+    def calc(self, x, u) -> DiffData:
+        q, v = self.state.split(x)
+        a = rbd.aba(self.state.robot, q, v, u)
+        rots, trans = rbd.forward_kinematics(self.state.robot, q)
+        kin = KinData(rots=rots, trans=trans)
+        return DiffData(xout=a, cost=self.costs.calc(x, u, kin), kin=kin)
+
+    def calc_diff(self, x, u, data: Optional[DiffData] = None) -> DiffDerivs:
+        """Fx = Minv [-dtau_dq, -dtau_dv] from the RNEA partials at (q, v,
+        a); Fu = Minv."""
+        q, v = self.state.split(x)
+        if data is None:
+            data = self.calc(x, u)
+        dtau_dq, dtau_dv = rbd.rnea_derivatives(self.state.robot, q, v, data.xout)
+        Minv = _inv(rbd.mass_matrix(self.state.robot, q))
+        Fx = torch.cat([Minv @ (-dtau_dq), Minv @ (-dtau_dv)], dim=-1)
+        return DiffDerivs(Fx=Fx, Fu=Minv, costs=self.costs.calc_diff(x, u, data.kin))
+
+    def quasi_static(self, x):
+        """The gravity torques at q: RNEA at zero velocity and acceleration."""
+        q = self.state.split(x)[0]
+        zeros = torch.zeros_like(q)
+        return rbd.rnea(self.state.robot, q, zeros, zeros)

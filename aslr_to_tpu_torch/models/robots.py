@@ -1,10 +1,8 @@
-"""Robot models: the serial-chain builder, the 2-DoF soft arm, the 7-DoF
-arm, and a name registry.
+"""Robot models: the serial-chain builder, the 2-DoF soft arm, the double
+pendulum, the 7-DoF arm, and a name registry.
 
 PyTorch counterpart of ``aslr_to_tpu/models/robots.py`` (``make_chain``,
-``asr_twodof``, ``seven_dof_arm`` and ``load``; ``double_pendulum`` comes
-with the rigid-arm models, and until then ``load`` refuses its name as it
-refuses any unknown one).
+``asr_twodof``, ``double_pendulum``, ``seven_dof_arm`` and ``load``).
 """
 from __future__ import annotations
 
@@ -80,6 +78,31 @@ def asr_twodof(dtype=torch.float64, device=None) -> RobotModel:
     )
 
 
+def double_pendulum(dtype=torch.float64, device=None) -> RobotModel:
+    """2-DoF pendulum ('double_pendulum'): planar in x-z, joints about +y;
+    q=0 points up (+z), so the reference's initial state ``x0 = [3.14, 0,
+    ...]`` (``examples/double_pendulum.py:52``) hangs down. A "tip" frame
+    at the end of the second link; default gravity [0, 0, -9.81]."""
+    eye = np.eye(3)
+    l1, l2 = 0.2, 0.2
+    m1, m2 = 0.3, 0.3
+    return make_chain(
+        name="double_pendulum",
+        joint_pos=[[0.0, 0.0, 0.1], [0.0, 0.0, l1]],
+        joint_rot=[eye, eye],
+        axes=[[0.0, 1.0, 0.0], [0.0, 1.0, 0.0]],
+        masses=[m1, m2],
+        coms=[[0.0, 0.0, l1 / 2], [0.0, 0.0, l2 / 2]],
+        inertias=[
+            [m1 * l1 ** 2 / 12, m1 * l1 ** 2 / 12, 1e-5],
+            [m2 * l2 ** 2 / 12, m2 * l2 ** 2 / 12, 1e-5],
+        ],
+        frames=[("tip", 1, eye, [0.0, 0.0, l2])],
+        dtype=dtype,
+        device=device,
+    )
+
+
 def seven_dof_arm(dtype=torch.float64, device=None) -> RobotModel:
     """7-DoF serial arm with mixed axes and offsets ('seven_dof_arm', the
     JAX package's stand-in for the reference's ``talos_arm``): a deeper
@@ -105,6 +128,7 @@ def seven_dof_arm(dtype=torch.float64, device=None) -> RobotModel:
 
 _REGISTRY = {
     "asr_twodof": asr_twodof,
+    "double_pendulum": double_pendulum,
     "seven_dof_arm": seven_dof_arm,
 }
 

@@ -1,5 +1,5 @@
 """Rigid-body dynamics: forward kinematics, frame Jacobians, RNEA and its
-derivatives, mass matrix.
+derivatives, mass matrix, forward dynamics (``aba``).
 
 PyTorch counterpart of ``aslr_to_tpu/ops/rigid_body.py``. The chain
 topology is static Python metadata and the per-joint loops unroll; every
@@ -202,3 +202,13 @@ def rnea_derivatives(model: RobotModel, q, v, a):
     dtau_dq = jacfwd(lambda q_: rnea(model, q_, v.expand_as(q_), a.expand_as(q_)), q)
     dtau_dv = jacfwd(lambda v_: rnea(model, q.expand_as(v_), v_, a.expand_as(v_)), v)
     return dtau_dq, dtau_dv
+
+
+def aba(model: RobotModel, q, v, tau):
+    """Forward dynamics accelerations ``M(q)^-1 (tau - nle(q, v))`` (the
+    reference's ``pinocchio.aba``) by a dense solve; NaN where M is
+    singular, as ``jnp.linalg.solve`` gives, instead of raising."""
+    M, b = compute_all_terms(model, q, v)
+    rhs = tau - b
+    a, info = torch.linalg.solve_ex(M.expand(rhs.shape[:-1] + M.shape[-2:]), rhs)
+    return torch.where((info == 0)[..., None], a, torch.nan)

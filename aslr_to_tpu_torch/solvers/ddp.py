@@ -11,7 +11,9 @@ and returns what ``vmap(solve)`` of the JAX package returns, lane by lane:
 each of JAX's ``while_loop``\\ s becomes a Python loop that runs while any
 lane's condition holds and masks each lane's update with its own
 condition (one host read a round). The line search runs one trial a
-round with early exit.
+round with early exit on the fast route; the generic route rolls out
+every step length at once (``_all_trials_at_once``), which gives each
+lane the same first accepting step length in one launch sequence.
 
 The linearization (``calc_with_diff`` over the knots), the backward
 sweep (a loop over the knots, batched over the scenarios) and the
@@ -368,6 +370,23 @@ def log_set(series, it, value, active):
     return series.scatter(1, idx, torch.where(active, value, old)[:, None])
 
 
+def _all_trials_at_once(fast) -> bool:
+    """Whether the line search rolls out every step length in one batched
+    rollout instead of one trial a round with early exit. Both give each
+    lane its first accepting step length (to the bit on the CPU; on the
+    card a batch of another size may round a trial otherwise). The generic
+    route takes the batch: a round costs the launches of its T knots'
+    models (about 1,000 small torch calls a knot) more than their
+    arithmetic, so on an H100 the batch ran the double pendulum 5.8-6.0x
+    and a 2-DoF BoxDDP 4.7x faster, and on the CPU (4 threads) the
+    pendulum 1.8-3.0x and the BoxDDP 2.2x faster, and a 2-DoF SEA FDDP,
+    which mostly takes the full step, 7-13% slower (``line_search_ab.py``).
+    The fast route keeps one K6 launch a round, as before: there the batch
+    took 25-26% less time on the 2-DoF BoxDDP and 2-8% more on the SEA
+    FDDP on the H100 (on the CPU 3.5-4.1x less and 9-12% more)."""
+    return fast is None
+
+
 def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast):
     T, nu = problem.T, problem.nu
     x0 = problem.x0
@@ -445,45 +464,69 @@ def _solve_impl(problem, xs_init, us_init, s, use_gaps, bounds, fast):
         else:
             dg, dq = bw.dg, bw.dq
 
-        def try_alpha(alpha):
+        def try_alpha(alpha, n=1):
+            """Trials at the step lengths ``alpha [n B]``: n copies of the
+            batch, copy j at its lanes' alpha[j B: (j + 1) B]."""
+            def rep(t):
+                return t.repeat((n,) + (1,) * (t.dim() - 1)) if n > 1 else t
+
+            xs_n, infeas_n = rep(xs), rep(infeasible_f)
             if fast is not None:
-                xs_t, us_t, cost_t = fast.rollout(xs, us, bw.k, bw.K, problem.x0, alpha, fs,
-                                                  ~feasible, wterm)
+                xs_t, us_t, cost_t = fast.rollout(xs_n, rep(us), rep(bw.k), rep(bw.K),
+                                                  rep(problem.x0), alpha, rep(fs),
+                                                  rep(~feasible), rep(wterm))
             else:
-                xs_t, us_t, cost_t = _rollout(problem, xs, us, bw.k, bw.K, fs, alpha,
-                                              ~feasible, use_gaps, bounds)
+                p_n = problem if n == 1 else dataclasses.replace(problem, x0=rep(problem.x0))
+                xs_t, us_t, cost_t = _rollout(p_n, xs_n, rep(us), rep(bw.k), rep(bw.K), rep(fs),
+                                              alpha, rep(~feasible), use_gaps, bounds)
             if use_gaps:
                 # dv = -sum_t w_t . dx_t, dx = xs (-) xs_try
-                dx = problem.state.diff(xs_t, xs)
-                dv = -torch.einsum("bti,bti->b", bw.w, dx) * infeasible_f
-                d1 = dg + dv
-                d2 = dq - 2.0 * dv
+                dx = problem.state.diff(xs_t, xs_n)
+                dv = -torch.einsum("bti,bti->b", rep(bw.w), dx) * infeas_n
+                d1 = rep(dg) + dv
+                d2 = rep(dq) - 2.0 * dv
             else:
-                d1, d2 = dg, dq
+                d1, d2 = rep(dg), rep(dq)
             finite = torch.isfinite(cost_t) & torch.isfinite(xs_t).flatten(1).all(1)
-            accept = accept_trial(s, use_gaps, alpha, d1, d2, cost_lin - cost_t, finite,
-                                  feasible)
+            accept = accept_trial(s, use_gaps, alpha, d1, d2, rep(cost_lin) - cost_t, finite,
+                                  rep(feasible))
             return accept, xs_t, us_t, cost_t
 
-        # -- early-exit backtracking line search, one trial a round -------
-        # finished lanes and failed backwards start "accepted"
-        i = torch.zeros_like(it)
+        # -- backtracking line search: a lane takes its first accepting
+        # step length; finished lanes and failed backwards start "accepted"
         accepted = done | bw_failed
         xs_b, us_b, cost_b = xs, us, cost_lin
         alpha_b = torch.zeros_like(cost_lin)
-        while True:
-            pred = (~accepted) & (i < s.n_alphas)
-            if not bool(pred.any()):
-                break
-            alpha = alphas[i.clamp(max=s.n_alphas - 1).long()]
-            accept, xs_t, us_t, cost_t = try_alpha(alpha)
-            take = accept & pred
-            i = i + pred.to(i.dtype)
+        if _all_trials_at_once(fast):
+            # every step length in one batched rollout (copies of the batch):
+            # the rounds' result lane for lane, in one launch sequence
+            n = s.n_alphas
+            accept, xs_t, us_t, cost_t = try_alpha(alphas.repeat_interleave(B), n)
+            hit = accept.view(n, B) & ~accepted
+            take = hit.any(0)
+            first = hit.to(torch.int32).argmax(0)
+            pick = first * B + torch.arange(B, device=dev)
+            xs_b = torch.where(take[:, None, None], xs_t[pick], xs_b)
+            us_b = torch.where(take[:, None, None], us_t[pick], us_b)
+            cost_b = torch.where(take, cost_t[pick], cost_b)
+            alpha_b = torch.where(take, alphas[first], alpha_b)
             accepted = accepted | take
-            xs_b = torch.where(take[:, None, None], xs_t, xs_b)
-            us_b = torch.where(take[:, None, None], us_t, us_b)
-            cost_b = torch.where(take, cost_t, cost_b)
-            alpha_b = torch.where(take, alpha, alpha_b)
+        else:
+            # early exit, one trial a round
+            i = torch.zeros_like(it)
+            while True:
+                pred = (~accepted) & (i < s.n_alphas)
+                if not bool(pred.any()):
+                    break
+                alpha = alphas[i.clamp(max=s.n_alphas - 1).long()]
+                accept, xs_t, us_t, cost_t = try_alpha(alpha)
+                take = accept & pred
+                i = i + pred.to(i.dtype)
+                accepted = accepted | take
+                xs_b = torch.where(take[:, None, None], xs_t, xs_b)
+                us_b = torch.where(take[:, None, None], us_t, us_b)
+                cost_b = torch.where(take, cost_t, cost_b)
+                alpha_b = torch.where(take, alpha, alpha_b)
         any_accept = accepted
 
         # -- regularization schedule / termination -------------------------

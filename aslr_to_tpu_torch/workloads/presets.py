@@ -1,9 +1,10 @@
-"""The soft-arm reach workloads as declarative configs.
+"""The reference workloads as declarative configs.
 
-PyTorch counterpart of ``two_dof_sea``, ``three_dof_sea``,
+PyTorch counterpart of ``double_pendulum``, ``two_dof_sea``, ``three_dof_sea``,
 ``seven_dof_sea``, ``_two_dof_vsa``, ``two_dof_vsa_boxddp`` and
 ``two_dof_vsa_modified`` in ``aslr_to_tpu/workloads/presets.py``: the
-reference ``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the
+reference ``examples/double_pendulum.py`` (the soft-actuated swing-up, an
+underactuated SEA pendulum, FDDP, cold), ``examples/two_dof_sea.py`` (FDDP, quasi-static warm start; the
 benchmark's warm re-solve headline), the same SEA reach on a 3-DoF chain and
 on the 7-DoF arm (the benchmark's 7-DoF metric, ``bench.py:231-252``),
 ``examples/two_dof_vsa_boxddp.py`` (u in [-100, 100]^2 x [0, 100]^2; the
@@ -22,10 +23,11 @@ import numpy as np
 import torch
 
 from ..models import robots
-from ..models.actuation import ASRActuation, VSAASRActuation
+from ..models.actuation import ActuationModelDoublePendulum, ASRActuation, VSAASRActuation
 from ..models.costs import (
     ActivationModelQuad,
     ActivationModelWeightedQuad,
+    CostModelDoublePendulum,
     CostModelResidual,
     CostModelStiffness,
     CostModelSum,
@@ -52,6 +54,49 @@ class Workload(NamedTuple):
     warm_start: bool         # quasi-static warm start (two_dof_sea.py:78)
     ee_frame: Optional[int]
     target: Optional[torch.Tensor]
+
+
+def double_pendulum(T: int = 10, dt: float = 1e-2, dtype=torch.float64, device="cuda",
+                    robot=None) -> Workload:
+    """Soft-actuated double-pendulum swing-up (reference
+    ``examples/double_pendulum.py``): the SEA pendulum with the first motor
+    driven (``ActuationModelDoublePendulum``, the second control column
+    zero and unweighted), the swing-up cost ``CostModelDoublePendulum``,
+    FDDP, no box, cold from the hanging ``x0 = [3.14, 0, ...]``."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    model = robot if robot is not None else robots.double_pendulum(dtype=dtype, device=device)
+    state = StateASR(model)
+    act = ActuationModelDoublePendulum(state, act_link=0, nu_=2)
+    nu = act.nu
+
+    xact = ActivationModelWeightedQuad(t([1.0] * 2 + [0.0] * 2 + [1.0] * 2 + [0.0] * 2))
+    xreg = CostModelResidual(state, xact, ResidualModelState(state, state.zero(), nu))
+    uact = ActivationModelWeightedQuad(t([1.0, 0.0]))
+    ureg = CostModelResidual(state, uact, ResidualModelControl(state, nu))
+    pend_w = ActivationModelWeightedQuad(t([1.0] * 4 + [0.1] * 2))
+    x_pend = CostModelDoublePendulum(state, pend_w, nu)
+
+    running_costs = (
+        CostModelSum(state, nu)
+        .add_cost("uReg", ureg, 1e-1)
+        .add_cost("xReg", xreg, 1e-2)
+        .add_cost("xGoalR", x_pend, 1e-1)
+    )
+    terminal_costs = CostModelSum(state, nu).add_cost("xGoal", x_pend, 1e4)
+
+    K = 1.0 * torch.eye(2, dtype=dtype, device=device)
+    B = 1e-3 * torch.eye(2, dtype=dtype, device=device)
+    running = IntegratedActionEuler(DifferentialSEADynamics(state, act, running_costs, K, B), dt)
+    terminal = IntegratedActionEuler(
+        DifferentialSEADynamics(state, act, terminal_costs, K, B), 0.0)
+
+    x0 = t([3.14, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+    problem = ShootingProblem(x0=x0, running=running, terminal=terminal, T=T)
+    return Workload(
+        name="double_pendulum", problem=problem, bounds=None, solver="fddp",
+        maxiter=100, th_stop=1e-9, warm_start=False, ee_frame=None, target=None)
 
 
 def two_dof_sea(T: int = 100, dt: float = 1e-2, dtype=torch.float64, device="cuda",
@@ -271,17 +316,15 @@ def with_frame_targets(problem: ShootingProblem, rot, trans) -> ShootingProblem:
 
 
 class _Presets(dict):
-    """The presets by name; a name of a family the port does not hold yet
-    raises ``KeyError`` saying so."""
+    """The presets by name; an unknown name raises ``KeyError`` naming the
+    presets there are."""
 
     def __missing__(self, name):
-        if name == "double_pendulum":
-            raise KeyError("double_pendulum: the rigid double-pendulum family is not ported "
-                           "yet (it comes with the rigid-arm models)")
         raise KeyError(f"unknown preset '{name}'; available: {sorted(self)}")
 
 
 PRESETS = _Presets(
+    double_pendulum=double_pendulum,
     two_dof_sea=two_dof_sea,
     two_dof_vsa_boxddp=two_dof_vsa_boxddp,
     two_dof_vsa_modified=two_dof_vsa_modified,

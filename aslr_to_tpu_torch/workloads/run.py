@@ -23,6 +23,10 @@ class WorkloadResult(NamedTuple):
     u_sq: torch.Tensor        # per-channel control effort
 
 
+def _on_card(problem) -> bool:
+    return problem.x0.is_cuda
+
+
 def solve_workload(w: Workload, settings: SolverSettings = None,
                    use_fast_path="auto", globalization: str = None,
                    verbose: bool = False) -> SolveResult:
@@ -31,7 +35,8 @@ def solve_workload(w: Workload, settings: SolverSettings = None,
 
     ``use_fast_path``: ``"auto"`` takes the lane route (the kernels) when
     the problem lives on a CUDA device and ``supports_fast_path`` accepts
-    it, else the generic route; ``True`` or ``"lanes"`` the lane route,
+    it, else the generic route (with a warning that names the reason on a
+    CUDA problem it refuses, as the JAX package warns); ``True`` or ``"lanes"`` the lane route,
     ``False`` the generic one. ``globalization="homotopy"`` runs the
     stiffness-bound continuation (``solvers/homotopy.py``) with a stage
     budget of ``maxiter // n_stages``, so the total budget is the
@@ -53,7 +58,13 @@ def solve_workload(w: Workload, settings: SolverSettings = None,
             maxiter = max(1, maxiter // len(scales))
         settings = SolverSettings(maxiter=maxiter, th_stop=w.th_stop)
     if use_fast_path == "auto":
-        use_fast_path = p.x0.is_cuda and supports_fast_path(p, bounds)[0]
+        use_fast_path = False
+        if _on_card(p):
+            use_fast_path, reason = supports_fast_path(p, bounds)
+            if not use_fast_path:
+                import warnings
+                warnings.warn(f"fast path unavailable for this problem ({reason}); "
+                              "using the generic path", stacklevel=2)
     route = "lanes" if use_fast_path in (True, "lanes") else False
     fn = make_batched_solver(p, settings, use_gaps=use_gaps, bounds=bounds,
                              warm_start=w.warm_start, keep_log=verbose or not route,

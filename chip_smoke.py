@@ -122,10 +122,37 @@ Phases, each printed with its result and time:
      logs part re-run to the parting with the controls that sit on a
      bound in one route only printed; one timed f32 solve of each
      route at T=100, B=256 with the main path's settings and maxiter=2
-     (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP.
+     (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP;
+ 15. double pendulum: the soft-actuated swing-up of
+     examples/double_pendulum.py (measure.py path double_pendulum: the
+     preset at T=10, FDDP, no box, cold, maxiter=100, th_stop=1e-9, B=4096,
+     f32, x0s the hanging x0 plus 0.05 randn, seed 7) on the generic route,
+     whose FDDP backward is K4 at (8, 2) (use_pallas_backward=True; the fast
+     path refuses the underactuated actuation): a first solve, then two
+     timed solves at x0s + 1e-4 (i + 1) with solves/s and the convergence
+     accounting, K4 the only kernel launched, its launches a solve, and its
+     launches and device time by torch.profiler over the first 10 passes. The
+     pendulum kernels phase (after the
+     n-DoF kernels) holds K4 on the path's data to its plain version to the
+     bit in f64 and f32, ok and retryable included, at the cold start and at
+     the first pass of PENDULUM_PASSES where Quu fails to factor on some
+     lanes only (k[:, 1] and K[:, 1] exactly 0 where a lane factors), timed
+     at B=4096 and 16384 (device time by torch.profiler, the events' beside)
+     with its bound; a worker holds the K4 route in f64
+     (T=10, B=64, maxiter 100) to the bit against the same route through
+     K4's plain version, its every backward's ok and retryable to the
+     generic sweep's on the same linearization and its k, K, w and sums
+     within rtol 1e-7, and at least B-1 lanes to the generic sweep's
+     iterations and flags, with costs within rtol 1e-8 and equal steps and
+     regularizations over the first 16 passes, the final costs reported
+     (they part by amplified rounding in this solve, which does not
+     converge); the
+     north-star solve (one f64 scenario from the preset's x0
+     through run_workload at the reference's budget) is held to
+     docs/northstar.json's cost within rtol 1e-6.
 
-Phases 7 and 14 (and the homotopy's f64 parity) solve on the plain
-backend and the generic route, whose
+Phases 7 and 14 (and the homotopy's and the pendulum's f64 parity) solve
+on the plain backend and the generic route, whose
 thousands of small kernels a loop pass wait on the host and leave the card
 idle. So once the timed phases are done, they run in worker processes of
 their own (``python3 chip_smoke.py --check NAME ...``, CHECK_WORKERS),
@@ -214,6 +241,10 @@ KERNELS = {
                           replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
     "rollout2:cap1": dict(source="aslr_to_tpu_torch/csrc/rollout.cu",
                           replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
+    # K4 at (8, 2) on the double pendulum's data (T=10; a zero Fu column,
+    # Quu failing to factor on some lanes), launched by the generic route
+    "riccati_fddp:pendulum": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                                  replaces="aslr_to_tpu/pallas/riccati.py:294"),
 }
 # the case each kernel's row is timed on, and the path its launches come
 # from; the other cases of a kernel are reported as its variants
@@ -230,7 +261,7 @@ ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp"
             "riccati_boxfddp:box_table": "pk_parity_boxfddp",
             "rollout1:box_table": "pk_parity_fast_boxddp", "riccati_box:cap3": "homotopy",
             "riccati_box:cap1": "homotopy", "rollout2:cap3": "homotopy",
-            "rollout2:cap1": "homotopy"}
+            "rollout2:cap1": "homotopy", "riccati_fddp:pendulum": "double_pendulum"}
 # the launch counter (build.LAUNCHES) of each row, and the paths that run
 # the 7-DoF instances and the per-knot tables
 ROW_KERNEL = {row: row.split(":")[0].removesuffix("_n7") for row in ROW_PATH}
@@ -274,6 +305,20 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 REG = 1e-9
 B_FILL = 16384                     # the kernels' batch-filling variant
+# the double pendulum: the passes of the path's solve tried for K4's
+# mid-solve inputs (the first at which Quu fails to factor on some lanes
+# and factors on others), the f64 parity's batch, and the north-star record
+PENDULUM_PASSES = (8, 12, 16, 24, 32, 48)
+B_PENDULUM_PARITY = 64
+# the pendulum's f64 parity: K4's sweep against the generic sweep on one
+# linearization (largest per-lane relative difference 5.2e-9 on the H100),
+# and the passes over which the two routes' cost logs are held within rtol
+# 1e-8 (in this solve, which does not converge, rounding differences grow
+# to 1e-8 from pass 18 on)
+PENDULUM_SWEEP_RTOL = 1e-7
+PENDULUM_LOG_PASSES = 16
+PENDULUM_PROFILED = 10             # the passes traced for K4's device time
+NORTHSTAR = os.path.join("docs", "northstar.json")
 
 
 def log(msg):
@@ -1396,11 +1441,347 @@ def homotopy_parity_check(part):
         f"bit ({int(take.sum())} lanes taken from the rescue)")
 
 
+def pendulum_k4_cases(dtype, B):
+    """K4's inputs (lane tensors) from the double-pendulum path at T=10,
+    batch B: {"cold": its cold start (xs = x0s, us = 0), "pass m": its
+    iterate after m passes}, m the first of PENDULUM_PASSES at which Quu
+    fails to factor on some lanes and factors on the others at the
+    solver's reg (by the plain version; raises if none does)."""
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.kernels.vsa_kernels import to_lanes
+    from aslr_to_tpu_torch.measure import T_PENDULUM, pendulum_solver, pendulum_x0s
+    from aslr_to_tpu_torch.solvers import ddp
+
+    T = T_PENDULUM
+    w, _ = pendulum_solver(T, dtype)
+    x0s = pendulum_x0s(w, B)
+    p = dataclasses.replace(w.problem, x0=x0s)
+    reg = torch.full((B,), REG, dtype=dtype, device="cuda")
+
+    def inputs(xs, us):
+        _, run, term, xnext, _ = ddp._linearize_core(p, xs, us)
+        fs = ddp._gaps(p, xs, xnext)
+        derivs = [to_lanes(getattr(run, n)) for n in ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")]
+        return tuple(derivs + [to_lanes(term.Lx), to_lanes(term.Lxx), to_lanes(fs), reg])
+
+    cases = {"cold": inputs(x0s[:, None].expand(B, T + 1, x0s.shape[1]).contiguous(),
+                            torch.zeros(B, T, 2, dtype=dtype, device="cuda"))}
+    for m in PENDULUM_PASSES:
+        res = pendulum_solver(T, dtype, maxiter=m)[1](x0s)
+        args = inputs(res.xs, res.us)
+        ok = rk.riccati_fddp_plain(*args).ok
+        if bool(ok.any()) and not bool(ok.all()):
+            cases[f"pass {m}"] = args
+            return cases
+    raise AssertionError(f"double pendulum: no pass of {PENDULUM_PASSES} leaves Quu failing to "
+                         f"factor on some lanes only")
+
+
+def zero_column_kept(out):
+    """k[:, 1] and K[:, 1, :] exactly 0 on every lane whose sweep factored
+    (the second control has no column in Fu, no weight in Luu)."""
+    ok = out.ok
+    return bool((out.k[:, 1][:, ok] == 0).all()) and bool((out.K[:, 1][..., ok] == 0).all())
+
+
+@phase("pendulum kernels")
+def pendulum_kernels_phase(report):
+    """K4 at (8, 2) on the double pendulum's data (T=10, B=4096): its cold
+    start and a mid-solve pass where Quu fails to factor on some lanes
+    (``pendulum_k4_cases``), each to the bit against the plain version in
+    f64 and f32, ok and retryable included; the data's zero Fu column and
+    zero Luu[1, 1] and its indefinite terminal Lxx checked, and k[:, 1],
+    K[:, 1, :] exactly 0 in both versions where a lane factors; timed in
+    f32 at B=4096 and, on the inputs repeated four times, at 16384 (the
+    device time by torch.profiler, since a T=10 launch is shorter than its
+    wrapper's host time, and the CUDA events' beside), with the plain
+    version's time and the bound. The row is the mid-solve pass's."""
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.measure import B_PATH, T_PENDULUM
+
+    T, ndx, nu, B = T_PENDULUM, 8, 2, B_PATH
+    row = report["riccati_fddp:pendulum"]
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for label, args in pendulum_k4_cases(dtype, B).items():
+            Fu, Luu, tLxx = args[1], args[6], args[8]
+            indef = float((torch.linalg.eigvalsh(tLxx.permute(2, 0, 1).double())[:, 0] < 0)
+                          .double().mean())
+            if not (bool((Fu[:, :, 1] == 0).all()) and bool((Luu[:, 1, 1] == 0).all())):
+                raise AssertionError(f"K4 pendulum {label} {tag}: Fu's second column or "
+                                     f"Luu[1, 1] is not zero")
+            kern = partial(rk.riccati_fddp_backward, *args)
+            plain = partial(rk.riccati_fddp_plain, *args)
+            before = build.LAUNCHES["riccati_fddp"]
+            got = kern()
+            torch.cuda.synchronize()
+            if build.LAUNCHES["riccati_fddp"] != before + 1:
+                raise AssertionError(f"K4 pendulum {label}: the wrapper did not launch its kernel")
+            want = plain()
+            _, err = compare(f"K4 pendulum {label}", got, want, None)
+            want_f = flat(want)
+            differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
+            if differ:
+                raise AssertionError(f"K4 pendulum {label} {tag}: {differ} differ from the plain "
+                                     f"version (max abs err {err:.3e}); the kernel is built to "
+                                     f"equal it to the bit")
+            if not (zero_column_kept(got) and zero_column_kept(want)):
+                raise AssertionError(f"K4 pendulum {label} {tag}: k[:, 1] or K[:, 1] is not 0 "
+                                     f"on a lane that factored")
+            log(f"  K4 pendulum {label} {tag} T={T} B={B}: equal to the plain version to the bit, "
+                f"ok and retryable included (ok on {int(got.ok.sum())}, retryable on "
+                f"{int(got.retryable.sum())} of {B} lanes; terminal Lxx indefinite on "
+                f"{100 * indef:.2f}% of them); k[:, 1] and K[:, 1] zero where a lane factors")
+            target = row if label != "cold" else row.setdefault("variants", {}).setdefault(
+                "cold start", {})
+            target["case"] = label
+            target["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+            target[f"ok_lanes_{tag}"] = int(got.ok.sum())
+            if tag == "f64":
+                continue
+            # at T=10 a launch is shorter than its wrapper's host time: the
+            # kernel's device time by the profiler, the CUDA events' beside
+            target["ms"] = device_ms(kern, 20, "riccati_fddp_kernel")
+            target["events_ms"], target["plain_ms"] = cuda_ms(kern, 20), cuda_ms(plain, 2)
+            ops = count_ops(plain)
+            n_in, n_out, n_flags = io_values("riccati_fddp", T, ndx, nu)
+            target["bound_ms"], target["bound_by"], nbytes = bound(ops, n_in, n_out, n_flags, B, 4)
+            target["ops"], target["bytes"] = ops, nbytes
+            log(f"  K4 pendulum {label} f32 T={T} B={B}: kernel {target['ms']:.4f} ms (device; "
+                f"events {target['events_ms']:.4f}), plain {target['plain_ms']:.4f} ms, bound "
+                f"{target['bound_ms']:.4f} ms ({target['bound_by']}: {nbytes} bytes, {ops} ops)")
+            big = tuple(a.repeat(*([1] * (a.dim() - 1)), B_FILL // B) for a in args)
+            fill = partial(rk.riccati_fddp_backward, *big)
+            ms, ev = device_ms(fill, 10, "riccati_fddp_kernel"), cuda_ms(fill, 10)
+            bms, by, _ = bound(ops * (B_FILL // B), n_in, n_out, n_flags, B_FILL, 4)
+            target.setdefault("variants", {})[f"B={B_FILL}"] = dict(ms=ms, events_ms=ev,
+                                                                   bound_ms=bms, bound_by=by)
+            log(f"  K4 pendulum {label} f32 T={T} B={B_FILL} (the inputs repeated): kernel "
+                f"{ms:.4f} ms (device; events {ev:.4f}), bound {bms:.4f} ms ({by})")
+            del big, fill
+
+
+def kernel_device_time(fn, kernel):
+    """(device ms, launches) of ``kernel`` (a kernel function's name) in one
+    call of ``fn``, by torch.profiler; the window opens with a launch of its
+    own, which takes a record the tracer may drop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aslr_to_tpu_torch.measure import _device_us
+
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad.add_(1.0)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and kernel in evt.key:
+            us += _device_us(evt)
+            n += evt.count
+    return us / 1e3, n
+
+
+@phase("double pendulum")
+def pendulum_phase(report, card):
+    """The double-pendulum swing-up (measure.py path double_pendulum: the
+    generic route with K4 at (8, 2), T=10, B=4096, f32, maxiter 100, cold
+    from the hanging x0 plus 0.05 randn): a first solve, then two timed ones
+    at x0s + 1e-4 (i + 1), with solves/s and the convergence accounting; K4
+    the only kernel launched; its launches a solve, and its launches and
+    device time by torch.profiler over the first PENDULUM_PROFILED passes of
+    the last inputs' solve (the row's ``profiled_*`` keys)."""
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import build_path, path_T, pendulum_solver
+
+    name, expect = "double_pendulum", ("riccati_fddp",)
+    p, T = build_path(name), path_T(name)
+    prep, t = drive(name, report, p.setup, expect)
+    log(f"  first solve: {t:.4f} s")
+    for i in range(2):
+        inputs = p.args(i, prep)
+        res, t = drive(name, report, lambda: p.solve(*inputs), expect)
+        B = res.us.shape[0]
+        log(f"  solve {i}: {t:.4f} s, {B / t:.2f} solves/s on {card} (T={T}, B={B}, f32, "
+            f"maxiter={p.maxiter}, the generic route)")
+    others = {k: n for k, n in build.LAUNCHES.items() if n and k != "riccati_fddp"}
+    if others:
+        raise AssertionError(f"the double-pendulum path launched other kernels: {others}")
+    row = report["riccati_fddp:pendulum"]
+    # the profiler takes minutes over a whole solve's million launches: it
+    # traces the first PENDULUM_PROFILED passes of the last solve's inputs
+    short = pendulum_solver(T, torch.float32, maxiter=PENDULUM_PROFILED)[1]
+    build.reset_launches()
+    ms, seen = kernel_device_time(lambda: short(*inputs), "riccati_fddp_kernel")
+    counted = build.LAUNCHES["riccati_fddp"]
+    if seen != counted:
+        log(f"  K4: the trace holds {seen} of the {counted} launches")
+    row.update(profiled_passes=PENDULUM_PROFILED, profiled_launches=seen, profiled_ms=ms)
+    log(f"  K4 in a solve: {row['launches']} launches; in the first {PENDULUM_PROFILED} passes "
+        f"{counted} launches, {seen} traced, {ms:.4f} ms of device time by the profiler "
+        f"({ms / max(seen, 1):.4f} ms a traced launch), on {card}")
+    return summarize(res, B, T, 2, f"{name}, last solve, f32")
+
+
+def pendulum_parity_check():
+    """The double pendulum's generic route in f64 through K4
+    (``use_pallas_backward=True``) against the generic sweep on the same
+    inputs: T=10, B=64, maxiter 100, the path's x0s. Held: the K4 route
+    equals itself with K4's plain version in K4's place to the bit, every
+    lane and log; at every pass of it, the generic sweep on the same
+    linearization gives the same ok and retryable on every lane, and its k,
+    K, w and sums within PENDULUM_SWEEP_RTOL of the sweep's;
+    end to end, ``pendulum_lanes_agree``: at least B-1 lanes equal in
+    iterations and flags, with equal step lengths and regularizations and
+    costs within rtol 1e-8 over the first PENDULUM_LOG_PASSES passes. Over
+    100 passes of this solve, which does not converge, rounding differences
+    of the two sweeps grow from about 1e-14 to 1e-8 by pass 20 and to 1e-5
+    by pass 100 in some lanes (the same on the CPU), so the final costs are
+    reported, not held."""
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.measure import (MAXITER_PENDULUM, T_PENDULUM, pendulum_solver,
+                                           pendulum_x0s)
+    from aslr_to_tpu_torch.solvers import ddp
+
+    B, res, passes = B_PENDULUM_PARITY, {}, []
+    backward = ddp._backward
+
+    def lockstep(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, settings,
+                 kprev=None, fast=None):
+        out = backward(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, settings,
+                       kprev, fast)
+        ref = ddp._backward_scan(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds,
+                                 settings, kprev, settings.boxqp_iters)
+        flags = torch.equal(out.ok, ref.ok) and torch.equal(out.retryable, ref.retryable)
+        errs = [rel_err(getattr(out, f).reshape(B, -1).T, getattr(ref, f).reshape(B, -1).T)[0]
+                for f in ("k", "K", "w", "dg", "dq", "dg_gap", "dq_gap", "stop")]
+        passes.append((flags, max(errs), int((~out.ok).sum())))
+        return out
+
+    for route in ("kernel", "plain", "sweep"):
+        w, solve = pendulum_solver(T_PENDULUM, torch.float64, use_pallas_backward=route != "sweep",
+                                   keep_log=True)
+        x0s = pendulum_x0s(w, B)
+        build.reset_launches()
+        route_of = rk._route
+        t0 = time.perf_counter()
+        try:
+            if route == "kernel":
+                ddp._backward = lockstep
+            elif route == "plain":
+                rk._route = lambda t: "plain"
+            res[route] = solve(x0s)
+            torch.cuda.synchronize()
+        finally:
+            ddp._backward, rk._route = backward, route_of
+        n = build.LAUNCHES["riccati_fddp"]
+        log(f"  double pendulum f64 T={T_PENDULUM} B={B} maxiter={MAXITER_PENDULUM}, {route} "
+            f"route: {time.perf_counter() - t0:.3f} s, K4 launches {n}")
+        if (n > 0) != (route == "kernel") or sum(build.LAUNCHES.values()) != n:
+            raise AssertionError(f"double pendulum parity: launches {dict(build.LAUNCHES)}")
+    k, p = res["kernel"], res["plain"]
+    for f in k._fields[:-1]:
+        if not same_bits(getattr(k, f).double(), getattr(p, f).double()):
+            raise AssertionError(f"double pendulum: the K4 route's {f} differs from the route "
+                                 f"through K4's plain version")
+    for f in k.log._fields:
+        if not same_bits(getattr(k.log, f), getattr(p.log, f)):
+            raise AssertionError(f"double pendulum: the K4 route's log {f} differs from the "
+                                 f"route through K4's plain version")
+    log(f"  double pendulum f64: the K4 route equals the route through K4's plain version to "
+        f"the bit ({B} lanes, results and logs)")
+    flags_ok = all(f for f, _, _ in passes)
+    log(f"  double pendulum f64, each of the K4 route's {len(passes)} backward sweeps against the "
+        f"generic sweep on its linearization: ok and retryable "
+        f"{'equal on every lane' if flags_ok else 'DIFFER'} ({sum(n for *_, n in passes)} "
+        f"lane-sweeps failed to factor in both); largest per-lane relative difference of k, K, "
+        f"w and the sums {max(e for _, e, _ in passes):.3e}")
+    if not flags_ok:
+        raise AssertionError("double pendulum: K4's ok or retryable differ from the generic "
+                             "sweep's on the same linearization")
+    worst = max(e for _, e, _ in passes)
+    if not worst <= PENDULUM_SWEEP_RTOL:
+        raise AssertionError(f"double pendulum: K4's k, K, w or sums differ from the generic "
+                             f"sweep's by {worst:.3e} > {PENDULUM_SWEEP_RTOL:g}")
+    pendulum_lanes_agree(k, res["sweep"], B, x0s)
+
+
+def pendulum_lanes_agree(a, b, B, x0s):
+    """The pendulum's K4 route ``a`` against the generic sweep ``b``: at
+    least B - 1 lanes agree, that is equal in iterations and flags and,
+    unless the lane diverged in both, over the first PENDULUM_LOG_PASSES
+    passes with its cost log within rtol 1e-8 and its step-length and
+    regularization logs equal. The final costs are printed, with the pass
+    at which each lane's cost logs part."""
+    n = PENDULUM_LOG_PASSES
+    same = ((a.iterations == b.iterations) & (a.converged == b.converged)
+            & (a.diverged == b.diverged))
+    agree = same.clone()
+    for lane in torch.nonzero(same & ~b.diverged).flatten().tolist():
+        agree[lane] = all(first_parting(getattr(a.log, f)[lane, :n], getattr(b.log, f)[lane, :n],
+                                        rtol) is None
+                          for f, rtol in (("costs", 1e-8), ("steps", 0.0), ("regs", 0.0)))
+    live = same & ~b.diverged
+    early = ((a.log.costs[live, :n] - b.log.costs[live, :n]).abs()
+             / b.log.costs[live, :n].abs()).nan_to_num(0.0)
+    c_rel = ((a.cost - b.cost).abs() / b.cost.abs())[live]
+    log(f"  double pendulum f64, the K4 route against the generic sweep: {int(agree.sum())}/{B} "
+        f"lanes agree ({int(same.sum())} equal in iterations and flags, "
+        f"{int((same & b.diverged).sum())} of them diverged in both); largest cost-log rel err "
+        f"over passes 0-{n - 1} {float(early.max()) if early.numel() else 0.0:.3e}; final cost "
+        f"rel err, reported: largest {float(c_rel.max()) if c_rel.numel() else 0.0:.3e}, "
+        f"{int((c_rel > 1e-8).sum())} lanes above 1e-8")
+    for lane in range(B):
+        j = first_parting(a.log.costs[lane], b.log.costs[lane])
+        if j is not None or not bool(agree[lane]):
+            log(f"    lane {lane}: iterations {int(a.iterations[lane])} / "
+                f"{int(b.iterations[lane])}, flags {'equal' if bool(same[lane]) else 'DIFFER'}, "
+                f"cost {float(a.cost[lane])!r} / {float(b.cost[lane])!r}, cost logs part first "
+                f"at pass {j}")
+    if int(agree.sum()) < B - 1:
+        raise AssertionError(f"double pendulum f64: only {int(agree.sum())} of {B} lanes agree")
+
+
+@phase("pendulum north star")
+def pendulum_northstar_phase():
+    """One f64 scenario of the double pendulum from the preset's x0 through
+    ``run_workload`` (the "auto" route: the generic one, with the fast
+    path's refusal warned) at the reference's budget, beside
+    ``docs/northstar.json``'s record of the JAX package's solve (CPU,
+    f64): cost within rtol 1e-6."""
+    import warnings
+
+    from aslr_to_tpu_torch import run_workload
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), NORTHSTAR)) as f:
+        ref = next(r for r in json.load(f) if r["workload"] == "double_pendulum")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = run_workload("double_pendulum", dtype=torch.float64)
+        torch.cuda.synchronize()
+    for w in caught:
+        log(f"  warning: {w.message}")
+    r = out.result
+    cost, stop, iters = float(r.cost), float(r.stop), int(r.iterations)
+    log(f"  double pendulum f64 T={ref['T']} maxiter={ref['maxiter']} on the card: iterations "
+        f"{iters} (north star {ref['iterations']}), cost {cost!r} (north star {ref['cost']}, "
+        f"{cost / ref['cost'] - 1:+.3e} relative), stop {stop!r} (north star {ref['stop']}), "
+        f"converged {bool(r.converged)}, {time.perf_counter() - t0:.3f} s")
+    if not abs(cost - ref["cost"]) <= 1e-6 * abs(ref["cost"]):
+        raise AssertionError("the double pendulum's north-star cost is not met within rtol 1e-6")
+
+
 # the checks that solve on the plain backend or the generic route, each a
 # worker process's: those solves run thousands of small kernels a loop
 # pass, so each waits on its host and leaves the card idle, and side by
 # side they take the time of the longest. The tuples are the workers.
-CHECKS = {"parity BoxDDP": partial(parity_check, "BoxDDP"),
+CHECKS = {"parity double pendulum": pendulum_parity_check,
+          "parity BoxDDP": partial(parity_check, "BoxDDP"),
           "parity SEA FDDP": partial(parity_check, "SEA FDDP"),
           "parity BoxFDDP": partial(parity_check, "BoxFDDP"),
           "generic BoxDDP": partial(generic_check, "BoxDDP"),
@@ -1409,7 +1790,7 @@ CHECKS = {"parity BoxDDP": partial(parity_check, "BoxDDP"),
           "parity homotopy rescue": partial(homotopy_parity_check, "rescue")}
 CHECK_WORKERS = (("parity BoxDDP",), ("generic BoxDDP",), ("parity BoxFDDP",),
                  ("parity SEA FDDP", "generic SEA FDDP"), ("parity homotopy main",),
-                 ("parity homotopy rescue",))
+                 ("parity homotopy rescue",), ("parity double pendulum",))
 
 
 def run_checks(names):
@@ -1819,6 +2200,7 @@ def main():
     stage_box_kernels_phase(report)
     probe_phase(report)
     ndof_kernels_phase(report)
+    pendulum_kernels_phase(report)
     lanes_boxddp = main_path_phase(report, smi)
     lanes_sea_cold = sea_warm_phase(report, smi)
     boxfddp_phase(report, smi)
@@ -1827,12 +2209,14 @@ def main():
     table_kernels_phase(report)
     per_knot_phase(report, smi)
     homotopy_phase(report, smi)
+    pendulum_phase(report, smi)
     generic_timed_phase(smi)
     # the checks below time nothing: the workers run beside this process
     running = start_checks()
     try:
         per_knot_checks_phase(report)
         golden_phase()
+        pendulum_northstar_phase()
         finish_checks(running)
     finally:
         stop_checks(running)

@@ -23,7 +23,11 @@ its batch picks (wide to B=1024, general at 4096), shared and with a
 target table, on ragged batches and with one NaN scenario, and K3's
 launch at both batches; the staged homotopy with the diverged-lane
 rescue against its plain backend in f64, and the rescue keeping the lanes
-it does not take to the bit; P against its plain version:
+it does not take to the bit; K4 on the double pendulum's data (T=10) to
+the bit at B=1, 15, 200 and 4096, and the pendulum's generic route through
+K4 against the generic sweep in f64, and its line search's two forms (all
+step lengths at once, one a round) against each other; P against its
+plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -907,3 +911,73 @@ def test_rescue_keeps_the_solved_lanes_on_card(cuda):
         a, b = a[kept].double(), b[kept].double()
         assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0),
                                                                  b.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200, 4096])
+def test_k4_matches_plain_on_the_double_pendulum(cuda, batch, dtype):
+    """K4 at (8, 2) on the double pendulum's data (T=10: a zero Fu column,
+    Luu[1, 1] zero, an indefinite terminal Lxx, lanes that fail to factor):
+    to the bit against its plain version, ok and retryable included, and
+    k[:, 1], K[:, 1] exactly zero where a lane factors."""
+    from cuda_on_cpu.pendulum import pendulum_k4_inputs, zero_column_kept
+
+    args = pendulum_k4_inputs(batch, dtype, device=cuda)
+    before = build.LAUNCHES["riccati_fddp"]
+    got = riccati.riccati_fddp_backward(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["riccati_fddp"] == before + 1
+    want = riccati.riccati_fddp_plain(*args)
+    _assert_same_bits(got, want)
+    assert zero_column_kept(got) and zero_column_kept(want)
+    assert not bool(got.ok[0])
+    if batch > 1:
+        assert bool(got.ok.any())
+
+
+def test_double_pendulum_k4_route_against_scan_on_card(cuda):
+    """The double pendulum's generic route through K4 against the generic
+    sweep, f64, T=10, B=16, maxiter 20 (where the CPU tests hold both to
+    JAX): iterations and flags equal, cost within rtol 1e-8; K4 launched
+    only on its route."""
+    from aslr_to_tpu_torch.measure import pendulum_solver
+
+    w, _ = pendulum_solver(10, torch.float64, device=cuda)
+    noise = 0.05 * np.random.default_rng(3).standard_normal((16, 8))
+    x0s = w.problem.x0 + torch.tensor(noise, device=cuda)
+    res, launched = {}, {}
+    for k4 in (True, False):
+        _, solve = pendulum_solver(10, torch.float64, device=cuda, use_pallas_backward=k4,
+                                   maxiter=20)
+        build.reset_launches()
+        res[k4] = solve(x0s)
+        torch.cuda.synchronize()
+        launched[k4] = build.LAUNCHES["riccati_fddp"]
+    assert launched[True] > 0 and launched[False] == 0
+    a, b = res[True], res[False]
+    assert torch.equal(a.iterations, b.iterations)
+    assert torch.equal(a.converged, b.converged) and torch.equal(a.diverged, b.diverged)
+    np.testing.assert_allclose(a.cost.cpu().numpy(), b.cost.cpu().numpy(), rtol=1e-8)
+
+
+def test_generic_line_search_forms_agree_on_card(cuda, monkeypatch):
+    """The generic route's line search on the card, all step lengths in one
+    batched rollout against one trial a round with early exit, on the
+    double pendulum (f64, T=10, B=16, maxiter 20, K4's route): iterations,
+    flags and the step-length log equal, cost within rtol 1e-8."""
+    from aslr_to_tpu_torch.measure import pendulum_solver
+    from aslr_to_tpu_torch.solvers import ddp
+
+    w, solve = pendulum_solver(10, torch.float64, device=cuda, maxiter=20, keep_log=True)
+    noise = 0.05 * np.random.default_rng(5).standard_normal((16, 8))
+    x0s = w.problem.x0 + torch.tensor(noise, device=cuda)
+    res = {}
+    for batched in (True, False):
+        monkeypatch.setattr(ddp, "_all_trials_at_once", lambda fast, b=batched: b)
+        res[batched] = solve(x0s)
+        torch.cuda.synchronize()
+    a, b = res[True], res[False]
+    assert torch.equal(a.iterations, b.iterations)
+    assert torch.equal(a.converged, b.converged) and torch.equal(a.diverged, b.diverged)
+    assert torch.equal(a.log.steps.nan_to_num(-1.0), b.log.steps.nan_to_num(-1.0))
+    np.testing.assert_allclose(a.cost.cpu().numpy(), b.cost.cpu().numpy(), rtol=1e-8)

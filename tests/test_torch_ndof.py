@@ -87,8 +87,12 @@ def test_seven_dof_arm_matches_jax():
 def test_load_names_the_robots_it_has():
     assert robots.load("seven_dof_arm").name == "seven_dof_arm"
     assert robots.load("asr_twodof", device="cpu").nq == 2
-    with pytest.raises(KeyError, match="available: \\['asr_twodof', 'seven_dof_arm'\\]"):
-        robots.load("double_pendulum")
+    pendulum = robots.load("double_pendulum", dtype=torch.float32)
+    assert pendulum.name == "double_pendulum" and pendulum.frame_names == ("tip",)
+    assert pendulum.mass.dtype == torch.float32
+    with pytest.raises(KeyError, match="available: \\['asr_twodof', 'double_pendulum', "
+                                       "'seven_dof_arm'\\]"):
+        robots.load("no_such_robot")
 
 
 @pytest.mark.parametrize("name", list(PRESETS))

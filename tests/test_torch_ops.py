@@ -36,7 +36,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _robots():
+def _robots(name="asr_twodof"):
+    """The robot ``name`` of both packages: the soft arm with the SEA
+    presets' gravity along x, the double pendulum with its own."""
+    if name == "double_pendulum":
+        return jrobots.double_pendulum(), trobots.double_pendulum()
     g = [9.81, 0.0, 0.0]
     return jrobots.asr_twodof().with_gravity(g), trobots.asr_twodof().with_gravity(g)
 
@@ -74,7 +78,15 @@ def test_log3_log6_exp6_match_jax():
 
 
 def test_rnea_mass_placement_match_jax():
-    jr, tr = _robots()
+    _check_rnea_mass_placement("asr_twodof")
+
+
+def test_rnea_mass_placement_match_jax_double_pendulum():
+    _check_rnea_mass_placement("double_pendulum")
+
+
+def _check_rnea_mass_placement(name):
+    jr, tr = _robots(name)
     rng = np.random.default_rng(1)
     q, v, a = (rng.standard_normal((7, 2)) for _ in range(3))
     tau_j = _jv(lambda q_, v_, a_: jrbd.rnea(jr, q_, v_, a_))(q, v, a)
@@ -97,7 +109,15 @@ def _lanes(arr, mod):
 
 
 def test_lane_dynamics_twins_match_jax():
-    jr, tr = _robots()
+    _check_lane_dynamics_twins("asr_twodof")
+
+
+def test_lane_dynamics_twins_match_jax_double_pendulum():
+    _check_lane_dynamics_twins("double_pendulum")
+
+
+def _check_lane_dynamics_twins(name):
+    jr, tr = _robots(name)
     jrc, trc = jlanes.RobotConsts(jr), tlanes.RobotConsts(tr)
     rng = np.random.default_rng(2)
     q, v, a = (rng.standard_normal((9, 2)) for _ in range(3))

@@ -15,7 +15,9 @@ scenario's knot a tile of its own, 4 scenarios a block) at B=1, 5, 15 and
 with one NaN scenario in its block, and its launch; K2 and K5 with [T, nu]
 box tables (rows all
 different, one knot pinched) at B=1, 15 and 200, and with tables of equal
-rows against the shared box. That checks the
+rows against the shared box; K4 at (8, 2) on the double pendulum's data
+(T=10, a zero Fu column, Luu[1, 1] zero, an indefinite terminal Lxx) at
+B=1, 15 and 200. That checks the
 group mapping, the exchanges, the staging and the ragged block without a
 card.
 
@@ -32,6 +34,7 @@ import torch
 from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea, two_dof_sea, two_dof_vsa_boxddp
 from aslr_to_tpu_torch.kernels import build, riccati, vsa_kernels
 from cuda_on_cpu.gxx import gxx_library, ieee_sqrt
+from cuda_on_cpu.pendulum import pendulum_k4_inputs, zero_column_kept
 from cuda_on_cpu.tables import box_tables
 
 T = 6
@@ -139,6 +142,30 @@ def test_box_kernel_on_cpu_keeps_a_scenario_in_its_group(box_lib, kernel):
     got = fn(*args)
     _assert_same_bits(got, plain(*args))
     assert not bool(got.ok[25]) and bool(got.ok[[24, 26, 27]].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+def test_fddp_kernel_on_cpu_matches_plain_on_the_double_pendulum(box_lib, batch, dtype):
+    """K4 at (8, 2) on the double pendulum's data (T=10, the sweep shorter
+    than any other path's; ``cuda_on_cpu/pendulum.py``): a zero Fu column,
+    Luu[1, 1] zero, an indefinite terminal Lxx, lanes that fail to factor
+    among lanes that do, a ragged last block. To the bit against the plain
+    version, flags included; k[:, 1] and K[:, 1] exactly zero where a lane
+    factors, so no failed lane's NaN reached them."""
+    args = pendulum_k4_inputs(batch, dtype)
+    Fu, Luu, tLxx = args[1], args[6], args[8]
+    assert bool((Fu[:, :, 1] == 0).all()) and bool((Luu[:, 1, 1] == 0).all())
+    assert bool((torch.linalg.eigvalsh(tLxx.permute(2, 0, 1).double())[:, 0] < 0).any())
+    before = build.LAUNCHES["riccati_fddp"]
+    got = riccati.riccati_fddp_backward(*args)
+    assert build.LAUNCHES["riccati_fddp"] == before + 1
+    want = riccati.riccati_fddp_plain(*args)
+    _assert_same_bits(got, want)
+    assert zero_column_kept(got) and zero_column_kept(want)
+    assert not bool(got.ok[0])          # lane 0 at a negative reg
+    if batch > 1:
+        assert bool(got.ok.any()) and bool(got.retryable.any())
 
 
 def _ndof_args(nl, B, dtype, T_, seed=0):

@@ -11,7 +11,10 @@ us atol 1e-8 — 1e-6 for BoxFDDP in the tight box, as
 1e-6, reg rtol 1e-8, equal iterations and flags) and the log series to the
 same tolerances, NaN where JAX has NaN. The golden fixtures
 ``vsa_boxddp_T30`` and ``sea_T40`` go through ``SolverBoxDDP`` and
-``SolverFDDP`` at ``tests/test_golden.py``'s tolerances, with no JAX.
+``SolverFDDP`` at ``tests/test_golden.py``'s tolerances, with no JAX. The
+generic route's line search, every step length in one batched rollout,
+equals one trial a round with early exit to the bit (the double pendulum,
+BoxFDDP in the tight box, DDP).
 """
 import dataclasses
 import os
@@ -152,3 +155,30 @@ def test_indefinite_quu_retries_instead_of_raising():
     # each pass: three x10 bumps in the retry loop, then x10 by the schedule
     assert res.log.regs[:, 0].tolist() == [-1e4] * 3
     assert res.iterations.tolist() == [2] * 3 and not res.converged.any()
+
+
+@pytest.mark.parametrize("case", ["pendulum", "boxfddp", "ddp"])
+def test_line_search_of_all_trials_at_once_equals_the_rounds(case, monkeypatch):
+    """The generic route rolls out every step length at once; one trial a
+    round with early exit (the fast route's line search, forced here on the
+    generic route) gives the same solve to the bit: each lane takes its
+    first accepting step length either way."""
+    from aslr_to_tpu_torch import double_pendulum
+
+    if case == "pendulum":
+        p, tb, use_gaps = double_pendulum(T=10, device="cpu").problem, None, True
+        x0s = torch.tensor([3.14] + [0.0] * 7) + torch.tensor(_x0s(7, 4, 0.05))
+        settings = dict(maxiter=8, th_stop=1e-9)
+    else:
+        arm, box, use_gaps, x0, settings = CASES[case]
+        _, _, p, tb = _problems(arm, box)
+        x0s = torch.tensor(x0)
+    s = SolverSettings(**settings)
+    batched = make_batched_solver(p, s, use_gaps=use_gaps, bounds=tb, keep_log=True)(x0s)
+    monkeypatch.setattr(ddp, "_all_trials_at_once", lambda fast: False)
+    rounds = make_batched_solver(p, s, use_gaps=use_gaps, bounds=tb, keep_log=True)(x0s)
+    for name, a, b in zip(batched._fields[:-1], batched[:-1], rounds[:-1]):
+        assert torch.equal(a, b), name
+    for name, a, b in zip(batched.log._fields, batched.log, rounds.log):
+        assert torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0)), name
+    assert float(np.nanmin(rounds.log.steps.numpy())) < 1.0     # backtracking ran

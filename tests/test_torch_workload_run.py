@@ -12,8 +12,8 @@ package, float64 on the CPU.
 - the lane route's ``keep_log`` (``solve_workload(..., use_fast_path="lanes",
   verbose=True)``, plain versions on the CPU) equals JAX's ``solve`` log, and
   the table it prints is JAX's;
-- ``PRESETS["double_pendulum"]`` raises ``KeyError`` naming the rigid
-  family.
+- ``PRESETS["double_pendulum"]`` builds the swing-up, and an unknown name
+  raises ``KeyError`` naming the presets.
 """
 import functools
 
@@ -99,7 +99,9 @@ def test_lane_keep_log_and_verbose_match_jax(capsys):
 
 
 def test_double_pendulum_names_the_rigid_family():
-    with pytest.raises(KeyError, match="rigid"):
-        PRESETS["double_pendulum"]
-    with pytest.raises(KeyError, match="available"):
+    w = PRESETS["double_pendulum"](T=6, device="cpu")
+    assert w.name == "double_pendulum" and w.problem.T == 6 and w.problem.nu == 2
+    assert w.problem.state.robot.name == "double_pendulum"
+    assert (w.solver, w.maxiter, w.th_stop, w.warm_start) == ("fddp", 100, 1e-9, False)
+    with pytest.raises(KeyError, match="available: .*'double_pendulum'"):
         PRESETS["no_such_preset"]
