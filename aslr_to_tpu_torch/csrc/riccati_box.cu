@@ -44,10 +44,11 @@
 //     __all_sync / __ballot_sync on that mask, never the whole warp's.
 //     Wider groups (16, 32 lanes) run slower: the work every lane of a
 //     group repeats (the QP, the Cholesky) then serves fewer scenarios a
-//     warp instruction. K4 at (12, 3) takes the next power of two at or
-//     above ndx, 16 lanes; the lanes past ndx own no row but meet every
-//     barrier, vote and shuffle of their group. K4 at (28, 7), a whole warp
-//     a scenario, has a layout of its own (fddp_sweep_wide, below);
+//     warp instruction. K4 and K5 at (12, 3) take the next power of two at
+//     or above ndx, 16 lanes; the lanes past ndx own no row but meet every
+//     barrier, vote and shuffle of their group. K4 and K5 at (28, 7), a
+//     whole warp a scenario, have a layout of their own (fddp_sweep_wide,
+//     below);
 //   - stages each knot's inputs in shared memory with cp.async, coalesced
 //     along the batch axis ([rows, scenarios] tiles, 16-byte copies where
 //     the batch stride and the pointers allow, else one element a copy),
@@ -441,7 +442,7 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
   }
 }
 
-// K4 above ndx 16 (the 7-DoF arm's (28, 7)): the wide layout. A scenario
+// K4 and K5 above ndx 16 (the 7-DoF arm's (28, 7)): the wide layout. A scenario
 // is a whole warp there (lane r row r, lanes past ndx repeat the last),
 // and the general layout's [rows, scenarios] tile served it badly: a lane
 // reading its own row (Lxx, Lxu, the exchanged V) or column (Fx) strides
@@ -468,8 +469,15 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
 //     their sums are live, and in f64 a lane's row of Qxx waits out the
 //     factor and solves in the exchange (PARK), where its 56 registers
 //     would spill.
-// box_variants.py --shape 28x7 times each choice against its alternative.
-constexpr int kWideNdx = 16;        // K4 above this ndx takes the wide layout
+// box_variants.py --shape 28x7 times each choice against its alternative
+// (K4's). K5 there (QP): the tile gains the knot's controls and warm start,
+// the scratch the scenario's box; the BoxQP runs on the group of 32 lanes
+// (boxqp_group: lanes 0-4 the Armijo trials) on Quu read from the exchange,
+// not from 49 registers a lane, and the row of Qxx is parked in f32 too:
+// the factor and the QP's iterates hold about 100 values a lane. In the
+// general layout K5 would not fit: two stages of its 2,086 rows and four
+// scratch regions come to about 164 KB a block in f32 and 261 KB in f64.
+constexpr int kWideNdx = 16;        // K4 and K5 above this ndx take the wide layout
 constexpr int kWideThreads = 128;   // a block of the wide layout: a warp a scenario
 
 // n values of `size` bytes rounded up to whole 16 bytes, in values
@@ -478,21 +486,25 @@ constexpr int up16(int n, int size) { return (n * size + 15) / 16 * 16 / size; }
 // past a multiple of 128
 constexpr int spread128(int n, int size) { return ((n * size + 95) / 128 * 128 + 32) / size; }
 
-template <class S, int NDX_, int NU_>
+template <class S, int NDX_, int NU_, bool QP_ = false>
 struct WideSweep {
   static constexpr int NDX = NDX_, NU = NU_, G = 32, THREADS = kWideThreads,
                        SPB = THREADS / G, VEC = 16 / (int)sizeof(S), Z = (int)sizeof(S);
-  // a scenario's knot tile: its sections, each on a 16-byte boundary
+  static constexpr bool QP = QP_;
+  // a scenario's knot tile: its sections, each on a 16-byte boundary (K5:
+  // then the controls and the warm start)
   static constexpr int rFx = 0, rFu = rFx + up16(NDX * NDX, Z), rLxx = rFu + up16(NDX * NU, Z),
                        rLxu = rLxx + up16(NDX * NDX, Z), rLuu = rLxu + up16(NDX * NU, Z),
                        rLx = rLuu + up16(NU * NU, Z), rFs = rLx + up16(NDX, Z),
-                       rLu = rFs + up16(NDX, Z), ROWS = rLu + up16(NU, Z);
+                       rLu = rFs + up16(NDX, Z), rUs = rLu + up16(NU, Z),
+                       rKp = rUs + (QP ? up16(NU, Z) : 0), ROWS = rKp + (QP ? up16(NU, Z) : 0);
   static constexpr int PITCH = spread128(ROWS, Z), STAGE = SPB * PITCH;
-  // scratch, per scenario: as the general layout's, each on a 16-byte boundary
+  // scratch, per scenario: as the general layout's, each on a 16-byte
+  // boundary (K5: then the box, lb and ub)
   static constexpr int oVxx = 0, oVx = up16(NDX * NDX, Z), oW = oVx + up16(NDX, Z),
                        oX = oW + up16(NDX, Z), oQu = oX + up16(NDX * NDX, Z),
                        oQuu = oQu + up16(NU, Z), oK = oQuu + up16(NU * NU, Z),
-                       SC = oK + up16(NU * NDX, Z);
+                       oBx = oK + up16(NU * NDX, Z), SC = oBx + (QP ? up16(2 * NU, Z) : 0);
   static constexpr size_t BYTES = (size_t)(2 * STAGE + SPB * SC) * sizeof(S);
   static_assert(NDX <= G && NDX % VEC == 0, "a warp a scenario; rows of whole 16 bytes");
   static_assert(PITCH * sizeof(S) % 128 == 32, "the copies spread over the banks");
@@ -557,18 +569,23 @@ __device__ inline void wide_stage(const BoxSweep<S>& a, S* stages, long long t, 
   wide_rows<L>(dst + L::rLx, a.Lx, NDX, t, TB, b0, tid);
   wide_rows<L>(dst + L::rFs, a.fs, NDX, t, TB, b0, tid);
   wide_rows<L>(dst + L::rLu, a.Lu, NU, t, TB, b0, tid);
+  if constexpr (L::QP) {
+    wide_rows<L>(dst + L::rUs, a.us, NU, t, TB, b0, tid);
+    if (a.kprev) wide_rows<L>(dst + L::rKp, a.kprev, NU, t, TB, b0, tid);
+  }
   __pipeline_commit();
 }
 
-// K4 in the wide layout: the values and the order of every sum as
-// box_sweep's Cholesky instance with gaps (and its plain version's)
-template <class S, int NDX, int NU>
+// K4 (QP false) and K5 (QP) in the wide layout: the values and the order
+// of every sum as box_sweep's instances with gaps (and their plain
+// versions')
+template <class S, int NDX, int NU, bool QP>
 __device__ inline void fddp_sweep_wide(const BoxSweep<S>& a) {
-  using L = WideSweep<S, NDX, NU>;
+  using L = WideSweep<S, NDX, NU, QP>;
   constexpr int G = L::G;
   // row r of Qxx waits out the factor in shared memory in f64, where its
-  // 56 registers would spill
-  constexpr bool PARK = sizeof(S) == 8;
+  // 56 registers would spill, and in K5's QP in f32 too
+  constexpr bool PARK = sizeof(S) == 8 || QP;
   extern __shared__ __align__(16) unsigned char sweep_smem[];
   S* const stages = reinterpret_cast<S*>(sweep_smem);
   const int tid = threadIdx.x, s = tid / G;
@@ -583,10 +600,16 @@ __device__ inline void fddp_sweep_wide(const BoxSweep<S>& a) {
   S *const vxx = my + L::oVxx, *const vx = my + L::oVx, *const ws = my + L::oW;
   S *const xs = my + L::oX, *const qus = my + L::oQu, *const quus = my + L::oQuu;
   S* const ks = my + L::oK;
+  S* const bx = my + L::oBx;  // K5: the scenario's box, lb then ub
 
   if (a.T > 0) wide_stage<L>(a, stages, a.T - 1, b0, tid);
 
   const S reg = a.reg[bc];
+  if constexpr (QP)
+    if (grp.lane < NU) {
+      bx[grp.lane] = a.lb[grp.lane * TB + bc];
+      bx[NU + grp.lane] = a.ub[grp.lane * TB + bc];
+    }
   // terminal node: Vxx = tLxx + reg I (row r), Vx = tLx + w_T, w_T = Vxx fs_T
   S vrow[NDX];
   for (int m = 0; m < NDX; ++m) {
@@ -685,9 +708,27 @@ __device__ inline void fddp_sweep_wide(const BoxSweep<S>& a) {
     bool quu_ok = true;
     each<NU>(qus, [&](int i, S v) { Qu[i] = v; });
 
-    // k = Quu^-1 Qu; column r of K = Quu^-1 (row r of Qxu)
     S k[NU], kc[NU];
-    {
+    if constexpr (QP) {
+      // box QP on du in (lb - u, ub - u), warm-started from -kprev, on Quu
+      // in the exchange; column r of the free-subspace gains: masked solve
+      // with row r of Qxu
+      const S(&H)[NU][NU] = *reinterpret_cast<const S(*)[NU][NU]>(quus);
+      each<NU * NU>(quus, [&](int, S v) { quu_ok = quu_ok && finite(v); });
+      S low[NU], up[NU], du[NU], free[NU], Lf[NU][NU];
+      for (int j = 0; j < NU; ++j) {
+        const S u_t = in[L::rUs + j];
+        low[j] = bx[j] - u_t;
+        up[j] = bx[NU + j] - u_t;
+        du[j] = a.kprev ? -in[L::rKp + j] : S(0);
+      }
+      boxqp_group<S, NU>(grp, H, Qu, low, up, a.qp_iters, du, free, Lf);
+      for (int j = 0; j < NU; ++j) k[j] = -du[j];
+      S rhs[NU];
+      for (int i = 0; i < NU; ++i) rhs[i] = qxu[i] * free[i];
+      chol_solve<S, NU, true>(Lf, rhs, kc);
+    } else {
+      // k = Quu^-1 Qu; column r of K = Quu^-1 (row r of Qxu)
       S Quu[NU][NU], Lf[NU][NU];
       each<NU * NU>(quus, [&](int e, S v) {
         Quu[e / NU][e % NU] = v;
@@ -801,40 +842,56 @@ __global__ void __launch_bounds__(kSweepThreads) riccati_box_kernel(const BoxSwe
   box_sweep<S, NDX, NU, G, false, true>(a);
 }
 
-template <class S, int NDX, int NU, int G>
-__global__ void __launch_bounds__(kSweepThreads) riccati_boxfddp_kernel(const BoxSweep<S> a) {
-  box_sweep<S, NDX, NU, G, true, true>(a);
-}
-
-// K4's block: the wide layout's above kWideNdx, else the general one's
+// K4's and K5's block: the wide layout's above kWideNdx, else the general
+// one's
 template <int NDX>
 constexpr int kFddpThreads = NDX > kWideNdx ? kWideThreads : kSweepThreads;
 
 template <class S, int NDX, int NU, int G>
+__global__ void __launch_bounds__(kFddpThreads<NDX>) riccati_boxfddp_kernel(const BoxSweep<S> a) {
+  if constexpr (NDX > kWideNdx) fddp_sweep_wide<S, NDX, NU, true>(a);
+  else box_sweep<S, NDX, NU, G, true, true>(a);
+}
+
+template <class S, int NDX, int NU, int G>
 __global__ void __launch_bounds__(kFddpThreads<NDX>) riccati_fddp_kernel(const BoxSweep<S> a) {
-  if constexpr (NDX > kWideNdx) fddp_sweep_wide<S, NDX, NU>(a);
+  if constexpr (NDX > kWideNdx) fddp_sweep_wide<S, NDX, NU, false>(a);
   else box_sweep<S, NDX, NU, G, true, false>(a);
 }
 
-// K4 in the wide layout: the dynamic shared memory its kernel may take, set
-// once (a static function, so that each loaded build of this source sets
-// its own kernel's), and its launch
-template <class S, int NDX, int NU>
+template <class S>
+using SweepKernel = void (*)(const BoxSweep<S>);
+
+// K4 (QP false) or K5 (QP) in the wide layout: its kernel
+template <class S, int NDX, int NU, bool QP>
+static SweepKernel<S> wide_kernel() {
+  if constexpr (QP) return riccati_boxfddp_kernel<S, NDX, NU, 32>;
+  else return riccati_fddp_kernel<S, NDX, NU, 32>;
+}
+
+// the dynamic shared memory the wide kernel may take, set once (a static
+// function, so that each loaded build of this source sets its own
+// kernel's), and its launch
+template <class S, int NDX, int NU, bool QP>
 static cudaError_t wide_allow() {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      riccati_fddp_kernel<S, NDX, NU, 32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)WideSweep<S, NDX, NU>::BYTES);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(wide_kernel<S, NDX, NU, QP>(),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)WideSweep<S, NDX, NU, QP>::BYTES);
   return attr;
 }
 
-template <class S, int NDX, int NU>
+template <class S, int NDX, int NU, bool QP>
 static int launch_wide(const BoxSweep<S>& a, cudaStream_t stream) {
-  using L = WideSweep<S, NDX, NU>;
+  using L = WideSweep<S, NDX, NU, QP>;
   static_assert(L::BYTES <= kMaxSmem, "two stages and the scratch fit in a block");
-  const cudaError_t attr = wide_allow<S, NDX, NU>();
+  const cudaError_t attr = wide_allow<S, NDX, NU, QP>();
   if (attr != cudaSuccess) return (int)attr;
   const int grid = (a.B + L::SPB - 1) / L::SPB;
-  riccati_fddp_kernel<S, NDX, NU, L::G><<<grid, L::THREADS, L::BYTES, stream>>>(a);
+  if constexpr (QP)
+    riccati_boxfddp_kernel<S, NDX, NU, L::G><<<grid, L::THREADS, L::BYTES, stream>>>(a);
+  else
+    riccati_fddp_kernel<S, NDX, NU, L::G><<<grid, L::THREADS, L::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -872,8 +929,12 @@ static int launch_group(const BoxSweep<S>& a, cudaStream_t stream) {
 
 template <class S, int NDX, int NU, bool GAPS, bool QP>
 static int launch_shape(const BoxSweep<S>& a, cudaStream_t stream) {
-  if constexpr (!QP && NDX > kWideNdx) return launch_wide<S, NDX, NU>(a, stream);
-  else return launch_group<S, NDX, NU, GAPS, QP>(a, stream);
+  if constexpr (NDX > kWideNdx) {
+    static_assert(GAPS, "the wide layout: K4 and K5, the FDDP family");
+    return launch_wide<S, NDX, NU, QP>(a, stream);
+  } else {
+    return launch_group<S, NDX, NU, GAPS, QP>(a, stream);
+  }
 }
 
 // 16-byte copies where the batch stride and every staged input allow them
@@ -884,16 +945,25 @@ static void set_vec(BoxSweep<S>& a) {
   for (const void* p : in) a.vec = a.vec && aligned16(p);
 }
 
-// gaps = 0: K2 (fs, w, dgg, dqg unused); gaps = 1: K5. kprev may be null
-// (cold QPs from 0).
+// gaps = 0: K2 (fs, w, dgg, dqg unused) at (8, 4); gaps = 1: K5 at (8, 2),
+// (8, 4) and the 3- and 7-DoF SEA arms' (12, 3) and (28, 7). kprev may be
+// null (cold QPs from 0). The box tables (lbt, ubt) at ndx 8 only; K2
+// above ndx 8 (BoxDDP, which the JAX package's n-DoF lane route cannot
+// take) and the tables above it are not built: kNoInstance
 template <class S>
 static int launch_riccati_box(int ndx, int nu, int gaps, BoxSweep<S> a, void* stream) {
-  if (ndx != 8 || (nu != 4 && !(gaps && nu == 2))) return kNoInstance;
+  if (ndx != 8 && (a.lbt || !gaps)) return kNoInstance;
   set_vec(a);
   cudaStream_t st = (cudaStream_t)stream;
-  if (!gaps) return launch_shape<S, 8, 4, false, true>(a, st);
-  if (nu == 2) return launch_shape<S, 8, 2, true, true>(a, st);
-  return launch_shape<S, 8, 4, true, true>(a, st);
+  if (ndx == 8 && nu == 4) {
+    if (!gaps) return launch_shape<S, 8, 4, false, true>(a, st);
+    return launch_shape<S, 8, 4, true, true>(a, st);
+  }
+  if (!gaps) return kNoInstance;
+  if (ndx == 8 && nu == 2) return launch_shape<S, 8, 2, true, true>(a, st);
+  if (ndx == 12 && nu == 3) return launch_shape<S, 12, 3, true, true>(a, st);
+  if (ndx == 28 && nu == 7) return launch_shape<S, 28, 7, true, true>(a, st);
+  return kNoInstance;
 }
 
 // K4 at (ndx, nu) = (8, 2) and (8, 4) (the 2-DoF SEA and VSA arms), (12, 3)
@@ -911,22 +981,22 @@ static int launch_riccati_fddp(int ndx, int nu, BoxSweep<S> a, void* stream) {
 
 template <class S, int NDX, int NU, bool GAPS, bool QP>
 constexpr int sweep_bytes_of() {
-  if constexpr (!QP && NDX > kWideNdx) return (int)WideSweep<S, NDX, NU>::BYTES;
+  if constexpr (NDX > kWideNdx) return (int)WideSweep<S, NDX, NU, QP>::BYTES;
   else return (int)Sweep<S, NDX, NU, kSweepGroup<NDX>, GAPS, QP>::BYTES;
 }
 
-// K4 at (28, 7) at a batch of B: its grid, threads a block, dynamic shared
-// memory and blocks resident an SM, into out[0 .. 4)
-template <class S>
+// K4 (QP false) or K5 (QP) at (28, 7) at a batch of B: its grid, threads a
+// block, dynamic shared memory and blocks resident an SM, into out[0 .. 4)
+template <class S, bool QP>
 static int fddp_wide_launch(int B, int* out) {
-  using L = WideSweep<S, 28, 7>;
-  const cudaError_t attr = wide_allow<S, 28, 7>();
+  using L = WideSweep<S, 28, 7, QP>;
+  const cudaError_t attr = wide_allow<S, 28, 7, QP>();
   if (attr != cudaSuccess) return (int)attr;
   out[0] = (B + L::SPB - 1) / L::SPB;
   out[1] = L::THREADS;
   out[2] = (int)L::BYTES;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3], riccati_fddp_kernel<S, 28, 7, L::G>, L::THREADS, L::BYTES);
+      &out[3], wide_kernel<S, 28, 7, QP>(), L::THREADS, L::BYTES);
 }
 
 template <class S>
@@ -938,20 +1008,21 @@ static int sweep_bytes(int ndx, int nu, int gaps, int qp) {
     if (ndx == 28 && nu == 7) return sweep_bytes_of<S, 28, 7, true, false>();
     return kNoInstance;
   }
-  if (ndx != 8) return kNoInstance;
-  if (!gaps) return nu == 4 ? sweep_bytes_of<S, 8, 4, false, true>() : kNoInstance;
-  if (nu == 2) return sweep_bytes_of<S, 8, 2, true, true>();
-  return nu == 4 ? sweep_bytes_of<S, 8, 4, true, true>() : kNoInstance;
+  if (!gaps) return ndx == 8 && nu == 4 ? sweep_bytes_of<S, 8, 4, false, true>() : kNoInstance;
+  if (ndx == 8 && nu == 2) return sweep_bytes_of<S, 8, 2, true, true>();
+  if (ndx == 8 && nu == 4) return sweep_bytes_of<S, 8, 4, true, true>();
+  if (ndx == 12 && nu == 3) return sweep_bytes_of<S, 12, 3, true, true>();
+  return ndx == 28 && nu == 7 ? sweep_bytes_of<S, 28, 7, true, true>() : kNoInstance;
 }
 
 }  // namespace aslr
 
-// the dynamic shared memory of one block of the (ndx 8, nu, gaps)
+// the dynamic shared memory of one block of the (ndx, nu, gaps)
 // instantiation of the box kernel (K2, K5) for 4- or 8-byte scalars, in
-// bytes; -1 if there is none
-extern "C" int aslr_riccati_box_smem(int nu, int gaps, int itemsize) {
-  if (itemsize == 4) return aslr::sweep_bytes<float>(8, nu, gaps, 1);
-  return itemsize == 8 ? aslr::sweep_bytes<double>(8, nu, gaps, 1) : aslr::kNoInstance;
+// bytes (without the box tables' slots); -1 if there is none
+extern "C" int aslr_riccati_box_smem(int ndx, int nu, int gaps, int itemsize) {
+  if (itemsize == 4) return aslr::sweep_bytes<float>(ndx, nu, gaps, 1);
+  return itemsize == 8 ? aslr::sweep_bytes<double>(ndx, nu, gaps, 1) : aslr::kNoInstance;
 }
 
 // the same for K4 at (ndx, nu)
@@ -964,8 +1035,14 @@ extern "C" int aslr_riccati_fddp_smem(int ndx, int nu, int itemsize) {
 // dynamic shared memory and blocks resident an SM into out[0 .. 4); the
 // CUDA error, or -1 for another itemsize
 extern "C" int aslr_riccati_fddp_n7_launch(int itemsize, int B, int* out) {
-  if (itemsize == 4) return aslr::fddp_wide_launch<float>(B, out);
-  return itemsize == 8 ? aslr::fddp_wide_launch<double>(B, out) : aslr::kNoInstance;
+  if (itemsize == 4) return aslr::fddp_wide_launch<float, false>(B, out);
+  return itemsize == 8 ? aslr::fddp_wide_launch<double, false>(B, out) : aslr::kNoInstance;
+}
+
+// the same for K5 at (28, 7)
+extern "C" int aslr_riccati_boxfddp_n7_launch(int itemsize, int B, int* out) {
+  if (itemsize == 4) return aslr::fddp_wide_launch<float, true>(B, out);
+  return itemsize == 8 ? aslr::fddp_wide_launch<double, true>(B, out) : aslr::kNoInstance;
 }
 
 #define ASLR_RICCATI_BOX_ENTRY(NAME, S)                                                       \

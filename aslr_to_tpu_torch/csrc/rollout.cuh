@@ -110,8 +110,13 @@
 // skip their loads and stores.
 //
 // This header holds the kernel; rollout.cu instantiates it at nl = 2,
-// rollout_n3.cu and rollout_n7.cu at 3 and 7, each a translation unit of
-// its own so that nvcc compiles them side by side.
+// rollout_n3.cu and rollout_n7.cu at 3 and 7 (the SEA arm's gap instance,
+// FDDP's), each a translation unit of its own so that nvcc compiles them
+// side by side. The other n-DoF variants sit in units of their own too:
+// rollout_n3_sea.cu and rollout_n7_sea.cu (no box, no gaps: DDP's rollout)
+// and rollout_n3_box.cu and rollout_n7_box.cu (the box and gaps: BoxFDDP's);
+// the C entries of rollout_n3.cu and rollout_n7.cu reach them through
+// NdofUnit (below), which each of those units fills as the library loads.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -545,49 +550,16 @@ static int launch_variant(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t
   }
 }
 
-// ntrials 1 (K6: alpha_b and the b outputs unused) or 2 (K3) at the chain
-// length NL of the including unit; lb/ub (or lbt/ubt) null: no box;
-// fs/infeas null: no gaps. Every variant at NL = 2; above it the SEA arm's
-// unboxed FDDP rollout with gaps only (the unboxed DDP family has no
-// backward kernel, kernels/riccati.py::riccati_batch_major). TAB: the
-// unit's instances take no tables (kShared), or some (kTables: the rollout
-// units *_tables.cu). kNoInstance otherwise
-template <class S, int NT, int NL, int TAB>
-static int launch_rollout(const double* params, int nl, Roll<S> a, void* stream) {
-  const bool tables = a.tgt || a.lbt;
-  if (nl != NL || (TAB == kShared && tables) || (TAB == kTables && !tables)) return kNoInstance;
-  const VSAParams<NL> P = unpack_params<NL>(params);
-  const void* staged[] = {a.xs, a.us, a.k, a.K, a.fs};
-  a.vec = a.B % (16 / (int)sizeof(S)) == 0;
-  for (const void* p : staged) a.vec = a.vec && aligned16(p);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int v = (P.sea ? 4 : 0) + (a.lb || a.lbt ? 2 : 0) + (a.fs ? 1 : 0);
-  if constexpr (NL != 2) {
-    return v == 5 ? launch_variant<S, NL, NT, TAB, true, false, true>(P, a, st) : kNoInstance;
-  } else {
-    switch (v) {
-      case 0: return launch_variant<S, NL, NT, TAB, false, false, false>(P, a, st);
-      case 1: return launch_variant<S, NL, NT, TAB, false, false, true>(P, a, st);
-      case 2: return launch_variant<S, NL, NT, TAB, false, true, false>(P, a, st);
-      case 3: return launch_variant<S, NL, NT, TAB, false, true, true>(P, a, st);
-      case 4: return launch_variant<S, NL, NT, TAB, true, false, false>(P, a, st);
-      case 5: return launch_variant<S, NL, NT, TAB, true, false, true>(P, a, st);
-      case 6: return launch_variant<S, NL, NT, TAB, true, true, false>(P, a, st);
-      default: return launch_variant<S, NL, NT, TAB, true, true, true>(P, a, st);
-    }
-  }
-}
-
-// K3 (NT 2) or K6 (1) at the chain length NL, the SEA arm's unboxed gap
-// instance of the shared problem, at a batch of B, in the layout its
-// launch takes there: its grid, threads a block, dynamic shared memory,
-// blocks resident an SM and layout (1 wide), into out[0 .. 5)
-template <class S, int NL, int NT, bool WIDE>
+// K3 (NT 2) or K6 (1) at the chain length NL, the SEA arm's variant of the
+// shared problem (BOXED, GAPS), at a batch of B, in the layout its launch
+// takes there: its grid, threads a block, dynamic shared memory, blocks
+// resident an SM and layout (1 wide), into out[0 .. 5)
+template <class S, int NL, int NT, bool BOXED, bool GAPS, bool WIDE>
 static int roll_launch_layout(int B, int* out) {
-  using L = RollLayout<S, NL, true, true, NT, WIDE>;
+  using L = RollLayout<S, NL, true, GAPS, NT, WIDE>;
   void (*kernel)(const VSAParams<NL>, const Roll<S>);
-  if constexpr (NT == 1) kernel = rollout1_kernel<S, NL, true, false, true, kShared>;
-  else kernel = rollout2_kernel<S, NL, true, false, true, kShared, WIDE>;
+  if constexpr (NT == 1) kernel = rollout1_kernel<S, NL, true, BOXED, GAPS, kShared>;
+  else kernel = rollout2_kernel<S, NL, true, BOXED, GAPS, kShared, WIDE>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (attr != cudaSuccess) return (int)attr;
@@ -599,13 +571,98 @@ static int roll_launch_layout(int B, int* out) {
                                                             L::BYTES);
 }
 
-template <class S, int NL, int NT>
+template <class S, int NL, int NT, bool BOXED, bool GAPS>
 static int roll_launch(int B, int* out) {
   if constexpr (NT == 2 && NL + 1 > kRollGroup) {
-    if (rollout2_wide<S, NL, true, true>(B)) return roll_launch_layout<S, NL, NT, true>(B, out);
-    return roll_launch_layout<S, NL, NT, false>(B, out);
+    if (rollout2_wide<S, NL, true, GAPS>(B))
+      return roll_launch_layout<S, NL, NT, BOXED, GAPS, true>(B, out);
+    return roll_launch_layout<S, NL, NT, BOXED, GAPS, false>(B, out);
   } else {
-    return roll_launch_layout<S, NL, NT, RollLayout<S, NL, true, true, NT>::WIDE>(B, out);
+    return roll_launch_layout<S, NL, NT, BOXED, GAPS, RollLayout<S, NL, true, GAPS, NT>::WIDE>(
+        B, out);
+  }
+}
+
+// The n-DoF SEA variants beside the gap instance, each built in a unit of
+// its own (ASLR_ROLLOUT_NDOF_UNIT): the unit puts its launcher and its
+// launch query here when the library loads, and the C entries of the chain
+// length's unit call them from here. A variant whose unit is not linked
+// stays null, and its launch returns kNoInstance.
+template <class S, int NL, int NT, bool BOXED, bool GAPS>
+struct NdofUnit {
+  static inline int (*launch)(const VSAParams<NL>&, const Roll<S>&, cudaStream_t) = nullptr;
+  static inline int (*query)(int, int*) = nullptr;
+};
+
+template <class S, int NL, int NT, bool BOXED, bool GAPS>
+static int launch_ndof(const VSAParams<NL>& P, const Roll<S>& a, cudaStream_t stream) {
+  const auto fn = NdofUnit<S, NL, NT, BOXED, GAPS>::launch;
+  return fn ? fn(P, a, stream) : kNoInstance;
+}
+
+template <class S, int NL, int NT, bool BOXED, bool GAPS>
+static int query_ndof(int B, int* out) {
+  const auto fn = NdofUnit<S, NL, NT, BOXED, GAPS>::query;
+  return fn ? fn(B, out) : kNoInstance;
+}
+
+// the including unit's variant (BOXED, GAPS) at NL, both scalar types and
+// trial counts, into NdofUnit
+template <int NL, bool BOXED, bool GAPS>
+static bool fill_ndof_unit() {
+  NdofUnit<float, NL, 1, BOXED, GAPS>::launch =
+      launch_variant<float, NL, 1, kShared, true, BOXED, GAPS>;
+  NdofUnit<float, NL, 2, BOXED, GAPS>::launch =
+      launch_variant<float, NL, 2, kShared, true, BOXED, GAPS>;
+  NdofUnit<double, NL, 1, BOXED, GAPS>::launch =
+      launch_variant<double, NL, 1, kShared, true, BOXED, GAPS>;
+  NdofUnit<double, NL, 2, BOXED, GAPS>::launch =
+      launch_variant<double, NL, 2, kShared, true, BOXED, GAPS>;
+  NdofUnit<float, NL, 1, BOXED, GAPS>::query = roll_launch<float, NL, 1, BOXED, GAPS>;
+  NdofUnit<float, NL, 2, BOXED, GAPS>::query = roll_launch<float, NL, 2, BOXED, GAPS>;
+  NdofUnit<double, NL, 1, BOXED, GAPS>::query = roll_launch<double, NL, 1, BOXED, GAPS>;
+  NdofUnit<double, NL, 2, BOXED, GAPS>::query = roll_launch<double, NL, 2, BOXED, GAPS>;
+  return true;
+}
+
+// ntrials 1 (K6: alpha_b and the b outputs unused) or 2 (K3) at the chain
+// length NL of the including unit; lb/ub (or lbt/ubt) null: no box;
+// fs/infeas null: no gaps. Every variant at NL = 2. Above it the SEA arm's
+// variants of the JAX package's n-DoF lane routes: FDDP's (gaps, no box;
+// also with the tables, TAB = kTables), DDP's (neither) and BoxFDDP's (box
+// and gaps), the last two from their units (NdofUnit); BoxDDP's (a box
+// without gaps), which the JAX package's lane route cannot take at n-DoF,
+// and box tables are not built there. TAB: the unit's instances take no
+// tables (kShared), or some (kTables: the rollout units *_tables.cu).
+// kNoInstance otherwise
+template <class S, int NT, int NL, int TAB>
+static int launch_rollout(const double* params, int nl, Roll<S> a, void* stream) {
+  const bool tables = a.tgt || a.lbt;
+  if (nl != NL || (TAB == kShared && tables) || (TAB == kTables && !tables)) return kNoInstance;
+  const VSAParams<NL> P = unpack_params<NL>(params);
+  const void* staged[] = {a.xs, a.us, a.k, a.K, a.fs};
+  a.vec = a.B % (16 / (int)sizeof(S)) == 0;
+  for (const void* p : staged) a.vec = a.vec && aligned16(p);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int v = (P.sea ? 4 : 0) + (a.lb || a.lbt ? 2 : 0) + (a.fs ? 1 : 0);
+  if constexpr (NL != 2) {
+    if (v == 5) return launch_variant<S, NL, NT, TAB, true, false, true>(P, a, st);
+    if constexpr (TAB == kShared) {
+      if (v == 4) return launch_ndof<S, NL, NT, false, false>(P, a, st);
+      if (v == 7) return launch_ndof<S, NL, NT, true, true>(P, a, st);
+    }
+    return kNoInstance;
+  } else {
+    switch (v) {
+      case 0: return launch_variant<S, NL, NT, TAB, false, false, false>(P, a, st);
+      case 1: return launch_variant<S, NL, NT, TAB, false, false, true>(P, a, st);
+      case 2: return launch_variant<S, NL, NT, TAB, false, true, false>(P, a, st);
+      case 3: return launch_variant<S, NL, NT, TAB, false, true, true>(P, a, st);
+      case 4: return launch_variant<S, NL, NT, TAB, true, false, false>(P, a, st);
+      case 5: return launch_variant<S, NL, NT, TAB, true, false, true>(P, a, st);
+      case 6: return launch_variant<S, NL, NT, TAB, true, true, false>(P, a, st);
+      default: return launch_variant<S, NL, NT, TAB, true, true, true>(P, a, st);
+    }
   }
 }
 
@@ -680,19 +737,37 @@ static int roll_bytes(int nl, int ntrials, int sea, int gaps, int wide) {
     return aslr::launch_rollout<S, 1, NL, TAB>(params, nl, a, stream);                     \
   }
 
+namespace aslr {
+// the launch query of one trial count and scalar type: the gap instance of
+// the including unit, or a variant from its unit (NdofUnit)
+template <class S, int NL, int NT>
+static int roll_launch_variant(int box, int gaps, int B, int* out) {
+  if (!box && gaps) return roll_launch<S, NL, NT, false, true>(B, out);
+  if (!box && !gaps) return query_ndof<S, NL, NT, false, false>(B, out);
+  return box && gaps ? query_ndof<S, NL, NT, true, true>(B, out) : kNoInstance;
+}
+}  // namespace aslr
+
 // the launch of K3 (ntrials 2) or K6 (1) at the unit's chain length NL (the
-// SEA arm, unboxed, with gaps) for 4- or 8-byte scalars at a batch of B:
-// grid, threads, dynamic shared memory, blocks resident an SM and the
-// layout (1 wide) into out[0 .. 5); the CUDA error, or -1 for another
-// ntrials or itemsize
+// SEA arm: box and gaps as given, 1 or 0) for 4- or 8-byte scalars at a
+// batch of B: grid, threads, dynamic shared memory, blocks resident an SM
+// and the layout (1 wide) into out[0 .. 5); the CUDA error, or -1 for
+// another ntrials, itemsize or a variant not built
 #define ASLR_ROLLOUT_LAUNCH_ENTRY(NAME, NL)                                              \
-  extern "C" int NAME(int ntrials, int itemsize, int B, int* out) {                        \
+  extern "C" int NAME(int ntrials, int box, int gaps, int itemsize, int B, int* out) {     \
     if (itemsize != 4 && itemsize != 8) return aslr::kNoInstance;                          \
     if (ntrials == 1)                                                                      \
-      return itemsize == 4 ? aslr::roll_launch<float, NL, 1>(B, out)                      \
-                           : aslr::roll_launch<double, NL, 1>(B, out);                    \
+      return itemsize == 4 ? aslr::roll_launch_variant<float, NL, 1>(box, gaps, B, out)   \
+                           : aslr::roll_launch_variant<double, NL, 1>(box, gaps, B, out); \
     if (ntrials == 2)                                                                      \
-      return itemsize == 4 ? aslr::roll_launch<float, NL, 2>(B, out)                      \
-                           : aslr::roll_launch<double, NL, 2>(B, out);                    \
+      return itemsize == 4 ? aslr::roll_launch_variant<float, NL, 2>(box, gaps, B, out)   \
+                           : aslr::roll_launch_variant<double, NL, 2>(box, gaps, B, out); \
     return aslr::kNoInstance;                                                              \
+  }
+
+// a unit of one n-DoF SEA variant (BOXED, GAPS) at the chain length NL:
+// K3 and K6 in f32 and f64, put into NdofUnit as the library loads
+#define ASLR_ROLLOUT_NDOF_UNIT(NL, BOXED, GAPS)                                            \
+  namespace aslr {                                                                         \
+  static const bool ndof_unit_filled = fill_ndof_unit<NL, BOXED, GAPS>();                  \
   }

@@ -1,5 +1,6 @@
 // K3 and K6 at nl = 3: the 3-DoF SEA arm, unboxed, with gaps (the kernel:
-// rollout.cuh).
+// rollout.cuh); its C entries also launch the variants of
+// rollout_n3_sea.cu and rollout_n3_box.cu.
 #include "rollout.cuh"
 
 ASLR_ROLLOUT2_ENTRY(aslr_rollout2_n3_f32, float, 3, aslr::kShared)

@@ -1,0 +1,7 @@
+// K3 and K6 at nl = 3: the 3-DoF SEA arm in a box of the lanes, with
+// gaps, BoxFDDP's clipped, gap-contracting rollout (the kernel:
+// rollout.cuh), a unit of its own so that nvcc compiles it beside
+// rollout_n3.cu, whose C entries launch it.
+#include "rollout.cuh"
+
+ASLR_ROLLOUT_NDOF_UNIT(3, true, true)

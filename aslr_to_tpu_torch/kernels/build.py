@@ -43,17 +43,24 @@ LAUNCHES = {"linearize": 0, "riccati_box": 0, "rollout2": 0, "riccati_fddp": 0,
             "riccati_boxfddp": 0, "rollout1": 0, "probe": 0}
 
 # what each kernel is built for: K1 at nl (chain length) and actuation; K3
-# and K6 at nl, actuation, box and gaps; the Riccati group kernel at (ndx,
-# nu). Above nl = 2 only the SEA arm's unboxed FDDP path is instantiated.
+# and K6 at nl, actuation, box ("box": a box a lane; "box tables": [T, nu]
+# tables) and gaps; the Riccati group kernel at (ndx, nu), K2 and K5 also
+# with box tables. Above nl = 2 the SEA arm's rollouts of the JAX package's
+# n-DoF kernel routes: FDDP's (gaps), DDP's (neither) and BoxFDDP's (box and
+# gaps), and K5 at (12, 3) and (28, 7); not BoxDDP's (K2 and a box without
+# gaps, which the JAX package's n-DoF lane route cannot take) and no box
+# tables.
 _ROLLOUT_INSTANCES = tuple(
-    f"nl=2 {arm}{box}{gaps}" for arm in ("vsa", "sea") for box in ("", " box")
-    for gaps in ("", " gaps")) + ("nl=3 sea gaps", "nl=7 sea gaps")
+    f"nl=2 {arm}{box}{gaps}" for arm in ("vsa", "sea") for box in ("", " box", " box tables")
+    for gaps in ("", " gaps")) + tuple(
+    f"nl={nl} sea{v}" for nl in (3, 7) for v in (" gaps", "", " box gaps"))
 INSTANCES = {
     "linearize": ("nl=2 vsa", "nl=2 sea", "nl=3 sea", "nl=7 sea"),
     "rollout2": _ROLLOUT_INSTANCES,
     "rollout1": _ROLLOUT_INSTANCES,
-    "riccati_box": ("ndx=8 nu=4",),
-    "riccati_boxfddp": ("ndx=8 nu=2", "ndx=8 nu=4"),
+    "riccati_box": ("ndx=8 nu=4", "ndx=8 nu=4 box tables"),
+    "riccati_boxfddp": ("ndx=8 nu=2", "ndx=8 nu=4", "ndx=8 nu=2 box tables",
+                        "ndx=8 nu=4 box tables", "ndx=12 nu=3", "ndx=28 nu=7"),
     "riccati_fddp": ("ndx=8 nu=2", "ndx=8 nu=4", "ndx=12 nu=3", "ndx=28 nu=7"),
 }
 
@@ -83,25 +90,26 @@ _SIGNATURES = {
     "aslr_rollout1_tables": [_P, _I] + [_P] * 14 + [_I, _I] + [_P] * 3 + [_P],
     # x, out, n, ilp, fma, steps, loop, stream (float32 only)
     "aslr_probe": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # nu, gaps, itemsize: the box kernel's dynamic shared memory a block
-    "aslr_riccati_box_smem": [_I, _I, _I],
+    # ndx, nu, gaps, itemsize: the box kernel's dynamic shared memory a block
+    "aslr_riccati_box_smem": [_I, _I, _I, _I],
     # ndx, nu, itemsize: K4's dynamic shared memory a block
     "aslr_riccati_fddp_smem": [_I, _I, _I],
     # nl, ntrials, sea, gaps, wide (K3's layout), itemsize: the rollout's
     # dynamic shared memory a block
     "aslr_rollout_smem": [_I, _I, _I, _I, _I, _I],
-    # the launch of K4 at (28, 7), of K3 / K6 and of K1 at nl 7 at a batch:
-    # itemsize, B, out (K3 / K6: ntrials first; K1: T before B); out[0 .. 4)
-    # = grid, threads a block, dynamic shared memory, blocks resident an SM,
-    # and for K3 / K6 out[4] the layout (1 wide)
+    # the launch of K4 and K5 at (28, 7), of K3 / K6 and of K1 at nl 7 at a
+    # batch: itemsize, B, out (K3 / K6: ntrials, box and gaps first; K1: T
+    # before B); out[0 .. 4) = grid, threads a block, dynamic shared memory,
+    # blocks resident an SM, and for K3 / K6 out[4] the layout (1 wide)
     "aslr_riccati_fddp_n7_launch": [_I, _I, _P],
-    "aslr_rollout_n7_launch": [_I, _I, _I, _P],
+    "aslr_riccati_boxfddp_n7_launch": [_I, _I, _P],
+    "aslr_rollout_n7_launch": [_I, _I, _I, _I, _I, _P],
     "aslr_linearize_n7_launch": [_I, _I, _I, _P],
 }
 _SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",),
              "aslr_riccati_fddp_smem": ("",), "aslr_rollout_smem": ("",),
-             "aslr_riccati_fddp_n7_launch": ("",), "aslr_rollout_n7_launch": ("",),
-             "aslr_linearize_n7_launch": ("",)}
+             "aslr_riccati_fddp_n7_launch": ("",), "aslr_riccati_boxfddp_n7_launch": ("",),
+             "aslr_rollout_n7_launch": ("",), "aslr_linearize_n7_launch": ("",)}
 
 _lib = None
 build_log = ""
@@ -245,9 +253,10 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch_of(kernel: str, dtype, B: int, T: int = 100) -> dict:
-    """The launch of K4 at (28, 7) ("riccati_fddp"), of K3 / K6 at nl 7
-    ("rollout2", "rollout1") or of K1 at nl 7 over T knots ("linearize")
+def launch_of(kernel: str, dtype, B: int, T: int = 100, variant: str = "sea gaps") -> dict:
+    """The launch of K4 or K5 at (28, 7) ("riccati_fddp", "riccati_boxfddp"),
+    of K3 / K6 at nl 7 ("rollout2", "rollout1"; ``variant`` "sea gaps",
+    "sea" or "sea box gaps") or of K1 at nl 7 over T knots ("linearize")
     for a float32 or float64 batch of B: grid, threads a block, dynamic
     shared memory in bytes and the blocks the card keeps resident an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for K3 / K6 also the
@@ -256,13 +265,15 @@ def launch_of(kernel: str, dtype, B: int, T: int = 100) -> dict:
 
     size = torch.empty(0, dtype=dtype).element_size()
     out = (ctypes.c_int * 5)()
-    if kernel == "riccati_fddp":
-        code = lib().aslr_riccati_fddp_n7_launch(size, B, out)
+    if kernel in ("riccati_fddp", "riccati_boxfddp"):
+        code = getattr(lib(), f"aslr_{kernel}_n7_launch")(size, B, out)
     elif kernel == "linearize":
         code = lib().aslr_linearize_n7_launch(size, T, B, out)
     else:
-        code = lib().aslr_rollout_n7_launch({"rollout1": 1, "rollout2": 2}[kernel], size, B,
-                                            out)
+        require(kernel, f"nl=7 {variant}")
+        code = lib().aslr_rollout_n7_launch({"rollout1": 1, "rollout2": 2}[kernel],
+                                            int("box" in variant), int("gaps" in variant), size,
+                                            B, out)
     if code != 0:
         raise RuntimeError(f"{kernel}: the launch query failed with error {code}")
     info = dict(grid=out[0], threads=out[1], smem=out[2], blocks_per_sm=out[3])

@@ -343,14 +343,16 @@ def _empty_out(T, NDX, NU, B, dt, dev, gaps=True):
 def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, lb, ub, reg,
                 qp_iters, per_knot_box) -> FddpBackwardOut:
     """K2 (``fs`` None) or K5: the one box kernel of ``csrc/riccati_box.cu``,
-    with a box a lane or (``per_knot_box``) the ``[T, nu]`` tables. K2
-    leaves ``w``, ``dg_gap`` and ``dq_gap`` unwritten."""
+    with a box a lane or (``per_knot_box``) the ``[T, nu]`` tables, the
+    latter at ndx 8 only. K2 leaves ``w``, ``dg_gap`` and ``dq_gap``
+    unwritten."""
     lanes_box, tables = ((None, None), (lb, ub)) if per_knot_box else ((lb, ub), (None, None))
     _check_lanes(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu, tLx=tLx, tLxx=tLxx,
                  fs=fs, us=us, kprev=kprev, lb=lanes_box[0], ub=lanes_box[1],
                  lb_table=tables[0], ub_table=tables[1], reg=reg)
     T, NDX, NU, B = Fu.shape
-    _build.require(name, f"ndx={NDX} nu={NU}")
+    instance = f"ndx={NDX} nu={NU}{' box tables' if per_knot_box else ''}"
+    _build.require(name, instance)
     dt = Fx.dtype
     out = _empty_out(T, NDX, NU, B, dt, Fx.device, gaps=fs is not None)
     p = _build.ptr
@@ -363,7 +365,7 @@ def _box_launch(name, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, tLx, tLxx, fs, us, kprev, l
         p(tLx), p(tLxx), opt(fs), p(us), opt(kprev), *map(opt, lanes_box + tables), p(reg), T,
         B, qp_iters,
         *(opt(v) for v in out), _build.stream_of(Fx))
-    _build.check(name, code, f"ndx={NDX} nu={NU}")
+    _build.check(name, code, instance)
     return out
 
 

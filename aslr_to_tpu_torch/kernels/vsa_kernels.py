@@ -722,9 +722,10 @@ def rollout1_plain(spec: VSASpec, xs, us, k, K, x0, alpha, wterm, lb, ub, fs=Non
 
 
 def _rollout_instance(spec, lb, fs):
-    """The key of ``build.INSTANCES`` for K3 and K6 on these inputs."""
-    return (f"nl={spec.nl} {spec.variant}{'' if lb is None else ' box'}"
-            f"{'' if fs is None else ' gaps'}")
+    """The key of ``build.INSTANCES`` for K3 and K6 on these inputs: the box a
+    lane's (" box") or the ``[T, nu]`` tables (" box tables")."""
+    box = "" if lb is None else " box tables" if spec.per_knot_box else " box"
+    return f"nl={spec.nl} {spec.variant}{box}{'' if fs is None else ' gaps'}"
 
 
 def _rollout_checks(name, spec, xs, us, k, K, x0, alphas, wterm, lb, ub, fs, infeas, tgt):

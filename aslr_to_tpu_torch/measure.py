@@ -5,6 +5,7 @@ batch sizes and a ``torch.profiler`` breakdown of one solve).
     python -m aslr_to_tpu_torch.measure --path sea_warm --batch 1024 4096 16384
     python -m aslr_to_tpu_torch.measure --path boxddp boxfddp --batch 4096 --profile
     python -m aslr_to_tpu_torch.measure --path sevendof --profile
+    python -m aslr_to_tpu_torch.measure --path sevendof_box fast_sevendof_box sevendof_ddp --profile
     python -m aslr_to_tpu_torch.measure --path mpc_tracking fast_mpc_tracking pk_boxddp --profile
     python -m aslr_to_tpu_torch.measure --path homotopy --profile
     python -m aslr_to_tpu_torch.measure --path double_pendulum --profile
@@ -31,6 +32,21 @@ path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
             nl = 7;
   fast_sevendof  the sevendof solve through the fast path (K1, K4, K6 at
             nl = 7), same seed and settings;
+  sevendof_box  the 7-DoF reach under the motors' torque limits: BoxFDDP
+            on seven_dof_sea in the box [-SEVENDOF_BOX, SEVENDOF_BOX] (each
+            joint's peak |u| in the unboxed reach from rest), B=1024,
+            warm-started from the quasi-static controls (projected into the
+            box), maxiter=20, th_stop=1e-5, boxqp_warm_iters=2 (the box
+            paths' settings): K1, K5 at (28, 7) and K3 at nl 7 with the box
+            and gaps; seed 8;
+  fast_sevendof_box  the same solve through the fast path (K1, K5, K6);
+  sevendof_ddp  the unboxed 7-DoF reach as DDP (use_gaps=False), B=1024,
+            warm-started, maxiter=20, th_stop=1e-5: K1, K4 at (28, 7) with
+            zero gaps and K3 at nl 7 without box or gaps; seed 8;
+  fast_sevendof_ddp  the same solve through the fast path: K1, the
+            generic backward (the family without box or gaps has no
+            backward kernel, solvers/ddp.py::_backward) and K6 without box
+            or gaps;
   mpc_tracking  the tracking MPC of examples/mpc_tracking.py: two_dof_sea at
             T=60 with the frame target at knot t on the arc ``mpc_target``
             (a per-knot problem, ``with_frame_targets``), FDDP, no box,
@@ -99,12 +115,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", "sevendof",
-         "fast_sevendof", "mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "homotopy",
-         "homotopy_scales", "fast_homotopy", "double_pendulum")
+SEVENDOF_PATHS = ("sevendof", "fast_sevendof", "sevendof_box", "fast_sevendof_box",
+                  "sevendof_ddp", "fast_sevendof_ddp")
+PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", *SEVENDOF_PATHS,
+         "mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "homotopy", "homotopy_scales",
+         "fast_homotopy", "double_pendulum")
 SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, sevendof=3,
              fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5, homotopy=6,
-             homotopy_scales=6, fast_homotopy=6, double_pendulum=7)
+             homotopy_scales=6, fast_homotopy=6, double_pendulum=7, sevendof_box=8,
+             fast_sevendof_box=8, sevendof_ddp=8, fast_sevendof_ddp=8)
 HOMOTOPY_PATHS = ("homotopy", "homotopy_scales", "fast_homotopy")
 RESCUE_SIZE = 512       # bench.py's RESCUE
 T_PATH, B_PATH = 100, 4096
@@ -115,6 +134,12 @@ PINCHED = range(45, 55)  # pk_boxddp's knots whose torques are held to +-0.05
 PINCH = 0.05
 T_PENDULUM, MAXITER_PENDULUM = 10, 100   # examples/double_pendulum.py's horizon and budget
 TIGHT_BOX = ([-2.0, -2.0, 0.0, 0.0], [2.0, 2.0, 3.0, 3.0])
+# the 7-DoF reach's torque limits (sevendof_box: the box [-SEVENDOF_BOX,
+# SEVENDOF_BOX]): each joint's peak |u| in the unboxed reach from rest (the
+# sevendof solve from x0 = 0, the lane route in f64 on the CPU, converged in
+# 10 iterations: [0.7974, 10.0935, 0.9982, 1.8678, 1.6883, 1.3584, 0.5888])
+# rounded to 0.05, the limits that the unconstrained plan just touches
+SEVENDOF_BOX = (0.8, 10.1, 1.0, 1.85, 1.7, 1.35, 0.6)
 WARM_OFFSET = 1e-4
 KERNEL_NAMES = ("linearize_kernel", "riccati_box_kernel", "riccati_boxfddp_kernel",
                 "riccati_fddp_kernel", "rollout2_kernel", "rollout1_kernel")
@@ -146,7 +171,7 @@ def mpc_target(t, T):
 def path_batch(name):
     """The path's own batch: 1024 for the 7-DoF paths, 2048 for the MPC, else
     4096."""
-    if name.endswith("sevendof"):
+    if name in SEVENDOF_PATHS:
         return B_SEVENDOF
     return B_MPC if name.endswith("mpc_tracking") else B_PATH
 
@@ -179,8 +204,38 @@ def pinched_box(T=T_PATH, dtype=torch.float32, device="cuda", knots=PINCHED):
     return Bounds(*(torch.as_tensor(b, dtype=dtype, device=device) for b in (lb, ub)))
 
 
+def sevendof_bounds(dtype=torch.float32, device="cuda"):
+    """The sevendof_box paths' shared [7] box, [-SEVENDOF_BOX, SEVENDOF_BOX]."""
+    from . import Bounds
+
+    ub = torch.tensor(SEVENDOF_BOX, dtype=dtype, device=device)
+    return Bounds(-ub, ub)
+
+
+def sevendof_solver(name, T=T_PATH, dtype=torch.float32, device="cuda", backend="auto",
+                    maxiter=20, boxqp_warm_iters=2, use_fast_path=None, keep_log=False):
+    """The solver of a 7-DoF path (``SEVENDOF_PATHS``) at horizon T: FDDP, or
+    BoxFDDP in ``sevendof_bounds`` (``*_box``, with ``boxqp_warm_iters``),
+    or DDP (``*_ddp``); the fast route for ``fast_*``, else the lane route
+    (``use_fast_path`` given: that route); warm-started from the
+    quasi-static controls, th_stop=1e-5; ``keep_log`` keeps the
+    per-iteration series."""
+    from . import SolverSettings, make_batched_solver, seven_dof_sea
+
+    w = seven_dof_sea(T=T, dtype=dtype, device=device)
+    box = name.endswith("_box")
+    settings = SolverSettings(maxiter=maxiter, th_stop=1e-5,
+                              boxqp_warm_iters=boxqp_warm_iters if box else 0)
+    return make_batched_solver(w.problem, settings, use_gaps=not name.endswith("_ddp"),
+                               bounds=sevendof_bounds(dtype, device) if box else None,
+                               warm_start=True, keep_log=keep_log,
+                               use_fast_path=(use_fast_path if use_fast_path is not None else
+                                              True if name.startswith("fast_") else "lanes"),
+                               backend=backend)
+
+
 def build_path(name, B=None, T=None, dtype=torch.float32):
-    from . import SolverSettings, make_batched_solver, seven_dof_sea, stack_knots, two_dof_sea
+    from . import SolverSettings, make_batched_solver, stack_knots, two_dof_sea
     from . import two_dof_vsa_boxddp
 
     B = B or path_batch(name)
@@ -206,13 +261,9 @@ def build_path(name, B=None, T=None, dtype=torch.float32):
         solve = make_batched_solver(problem, settings, use_gaps=False,
                                     bounds=pinched_box(T, dtype), use_fast_path="lanes")
         return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
-    if name in ("sevendof", "fast_sevendof"):
-        w = seven_dof_sea(T=T, dtype=dtype)
-        x0s = x0_batch(B, dtype, SEEDS[name], nx=w.problem.state.nx)
-        solve = make_batched_solver(w.problem, SolverSettings(maxiter=20, th_stop=1e-5),
-                                    use_gaps=True, bounds=None, warm_start=True,
-                                    use_fast_path=True if name == "fast_sevendof" else "lanes")
-        return Path(solve, lambda: None, lambda i, _: (x0s,), 20)
+    if name in SEVENDOF_PATHS:
+        x0s = x0_batch(B, dtype, SEEDS[name], nx=28)
+        return Path(sevendof_solver(name, T, dtype), lambda: None, lambda i, _: (x0s,), 20)
     x0s = x0_batch(B, dtype, SEEDS[name])
     if name in HOMOTOPY_PATHS:
         solve = homotopy_solver(name, T, dtype)

@@ -13,7 +13,8 @@ Phases, each printed with its result and time:
      its path's shapes (T=100, B=4096): float64 to a relative error of 1e-9
      with equal flags, float32 reported; K1, K3, K4 and K6 to the bit in
      both, and K6 equal to K3's first trial at the same step length; kernel
-     and plain times from CUDA events after a warm-up; the least time the
+     times from CUDA events after a warm-up, the plain version's on the
+     call compared in f32; the least time the
      card could take for the same work (bytes over 3.35 TB/s against
      arithmetic operations over 67 TFLOP/s f32). K1 runs its VSA and SEA
      variants, K3 and K6 their box, unbounded and SEA-gap variants, K4 the
@@ -32,9 +33,19 @@ Phases, each printed with its result and time:
      and 7; K4 at (12, 3) and (28, 7); the rollouts unboxed with gaps)
      against their plain versions to the bit in f64 and f32 at T=100,
      B=1024 (K6 also against K3's first trial), timed in f32 there and at
-     B=4096 (K3 at nl 7, in its other layout there, first held to the bit
-     again in f64 and f32), with the plain version's time at B=1024 and
-     the bound;
+     B=4096 (K3 at nl 7, in its other layout there, held to the bit again
+     in f64 and f32 by a worker), with the plain version's time at B=1024
+     and the bound;
+     n-DoF box kernels: the launch and ptxas line of K5 at (28, 7) and of
+     K3 / K6 at nl 7 in DDP's variant (no box, no gaps) and BoxFDDP's (box
+     and gaps) at B=1024 and 4096 in f32 and f64; K5 at (12, 3) and (28, 7)
+     and those rollouts at nl 3 and 7 to the bit against their plain
+     versions in f64 and f32 at T=100, B=1024, in a box that binds (the
+     7-DoF box path's, ±0.5 at nl 3; its binding share printed), K5 also on
+     a solver iterate's inputs (the sevendof_box lane solve after 3
+     passes), timed in f32 with the plain version's time and the bound;
+     K3 at nl 7 held to the bit again at B=4096 (its general layout) by a
+     worker, and every new instance timed there;
   4. main path: BoxDDP, make_batched_solver(..., use_fast_path="lanes") on
      two_dof_vsa_boxddp, T=100, B=4096, float32, maxiter=20;
   5. SEA warm: FDDP on two_dof_sea, T=100, B=4096, float32, maxiter=60,
@@ -48,7 +59,7 @@ Phases, each printed with its result and time:
      after, and every kernel of the path must have launched in it; a
      kernel row's launches are those of one timed solve);
   7. parity, float64, kernel backend against the plain backend lane by
-     lane: BoxDDP and SEA FDDP (B=256, T=100, maxiter 20), BoxFDDP in a
+     lane: BoxDDP and SEA FDDP (B=256, T=40, maxiter 20), BoxFDDP in a
      tight box (B=128, T=40, maxiter 10);
   8. golden: the T=30 BoxDDP solve against tests/golden/vsa_boxddp_T30.npz
      and the quasi-static-warm T=100 SEA FDDP solve against
@@ -62,6 +73,26 @@ Phases, each printed with its result and time:
      within 3 points (1.5 mean iterations) of the lane route; the generic
      route in float64 at T=10, B=16, maxiter=3 against both (at least B-1
      lanes agree);
+     7-DoF box and DDP: the 7-DoF reach under the motors' torque limits
+     (measure.py paths sevendof_box and fast_sevendof_box: BoxFDDP in the
+     box ±SEVENDOF_BOX, warm QPs of 2 iterations; K1, K5 at (28, 7), K3 or
+     K6 with the box and gaps) and as DDP (sevendof_ddp: K1, K4 with zero
+     gaps, K3 without box or gaps), B=1024, T=100, f32, warm-started: a
+     first solve and two timed ones each, with solves/s, the convergence
+     accounting and the share of the final controls on a bound (above 0,
+     or the phase fails); the fast BoxFDDP route's statistics beside the
+     lane route's, not gated (the solve is chaotic at T=100); the fast DDP
+     route once (K6 without box or gaps), within 3 points of its lanes;
+     workers hold each of the four routes through its kernels to the same
+     route through the plain versions in f64 (B=64, T=10, maxiter 20; the
+     parity criterion, and the lanes equal to the bit counted; at T=100 a
+     route's plain backend takes 13-20 min beside the other workers, so
+     that horizon runs alone: ``--check "parity 7-DoF BoxFDDP lanes
+     T=100"`` and so on), and the lane and fast routes to the generic one
+     in f64 at T=10, B=16, maxiter 20, with cold QPs (at least B-1 lanes
+     agree; in BoxFDDP a lane also counts whose logs agree up to a control
+     that the routes' feedback sums put on a bound in one route and one
+     rounding inside it in the other);
  10. fast path: the per-scenario solver's fused route,
      make_batched_solver(..., use_fast_path=True) (K1, the Riccati kernel,
      K6 one trial a line-search round), on the BoxDDP main path's inputs
@@ -105,7 +136,7 @@ Phases, each printed with its result and time:
      at 1), T=100, B=4096, to their plain versions to the bit in f64 and
      f32, timed, with their bound; two workers hold the homotopy with
      rescue in f64 through the kernels to its plain backend lane by lane
-     (T=40, B=64, maxiter 10 a stage, rescue_size 16, one lane at x0 =
+     (T=20, B=64, maxiter 10 a stage, rescue_size 16, one lane at x0 =
      inf: its main pass in one, its rescue pass on the lanes the kernels
      pick in the other, with the kernels' rescued solve held to the merge
      of the two passes), and
@@ -122,14 +153,14 @@ Phases, each printed with its result and time:
      logs part re-run to the parting with the controls that sit on a
      bound in one route only printed; one timed f32 solve of each
      route at T=100, B=256 with the main path's settings and maxiter=2
-     (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP;
+     (BoxDDP); the T=30 BoxDDP golden through SolverBoxDDP (with phase 8);
  15. double pendulum: the soft-actuated swing-up of
      examples/double_pendulum.py (measure.py path double_pendulum: the
      preset at T=10, FDDP, no box, cold, maxiter=100, th_stop=1e-9, B=4096,
      f32, x0s the hanging x0 plus 0.05 randn, seed 7) on the generic route,
      whose FDDP backward is K4 at (8, 2) (use_pallas_backward=True; the fast
-     path refuses the underactuated actuation): a first solve, then two
-     timed solves at x0s + 1e-4 (i + 1) with solves/s and the convergence
+     path refuses the underactuated actuation): a first solve, then one
+     timed solve at x0s + 1e-4 with solves/s and the convergence
      accounting, K4 the only kernel launched, its launches a solve, and its
      launches and device time by torch.profiler over the first 10 passes. The
      pendulum kernels phase (after the
@@ -151,14 +182,20 @@ Phases, each printed with its result and time:
      through run_workload at the reference's budget) is held to
      docs/northstar.json's cost within rtol 1e-6.
 
-Phases 7 and 14 (and the homotopy's and the pendulum's f64 parity) solve
-on the plain backend and the generic route, whose
-thousands of small kernels a loop pass wait on the host and leave the card
-idle. So once the timed phases are done, they run in worker processes of
-their own (``python3 chip_smoke.py --check NAME ...``, CHECK_WORKERS),
-side by side with each other and with the checks of phase 12 and phase 8
-in this process, which then prints each worker's output and fails if a
-worker failed; 14's timed solves and its golden run before, alone.
+Phases 7, 8 and 14 (and the f64 parity of 12, of the homotopy, of the
+pendulum and of the 7-DoF routes, K3 at nl 7 held to the bit at B=4096,
+and the north-star solve) solve on the plain backend and the generic
+route, whose thousands of small kernels a loop pass wait on the host and
+leave the card idle, or check without timing. So they run in worker
+processes of their own (``python3 chip_smoke.py --check NAME ...``,
+CHECK_WORKERS), started once the build is done at a lower priority (nice
+10), side by side with each other and with every phase of this process,
+which stops them (SIGSTOP) while it times a kernel or a solve and lets
+them go on (SIGCONT) after it, so that each time is taken with the card
+and the host to itself; at the end it prints each worker's output and
+fails if a worker failed. A time that a check prints is its wall time
+beside the others. The kernel phases time each plain version on the call
+that was compared in f32, and count its operations on the f64 one.
 
 Any failed check raises, so the script exits non-zero. The line before the
 card's line is the kernel table as JSON; the last line is the device
@@ -171,10 +208,12 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from functools import partial
 
 import numpy as np
@@ -213,6 +252,12 @@ KERNELS = {
                         replaces="aslr_to_tpu/pallas/vsa_kernels.py:476"),
     "rollout1_n7": dict(source="aslr_to_tpu_torch/csrc/rollout_n7.cu",
                         replaces="aslr_to_tpu/pallas/vsa_kernels.py:430"),
+    # K5 at (28, 7), the 7-DoF arm in a torque box (its wide layout); K5 at
+    # (12, 3) is its variant, and the rollouts' DDP ("sea") and BoxFDDP
+    # ("sea box gaps") instances at nl 3 and 7 are variants of the rows
+    # rollout2_n7 and rollout1_n7
+    "riccati_boxfddp_n7": dict(source="aslr_to_tpu_torch/csrc/riccati_box.cu",
+                               replaces="aslr_to_tpu/pallas/riccati.py:294"),
     # the per-knot table variants: K1, K3 and K6 with the [T, 12] target
     # table (the tracking MPC, 2-DoF SEA), K2, K5, K3 and K6 with [T, nu] box
     # tables (the pinched box, 2-DoF VSA)
@@ -255,7 +300,8 @@ ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp"
             "riccati_fddp": "sea_warm", "riccati_boxfddp": "boxfddp",
             "rollout1": "fast_boxddp", "probe": "probe", "linearize_n7": "sevendof",
             "riccati_fddp_n7": "sevendof", "rollout2_n7": "sevendof",
-            "rollout1_n7": "fast_sevendof", "linearize:target_table": "mpc_tracking",
+            "rollout1_n7": "fast_sevendof", "riccati_boxfddp_n7": "sevendof_box",
+            "linearize:target_table": "mpc_tracking",
             "rollout2:target_table": "mpc_tracking", "rollout1:target_table": "fast_mpc_tracking",
             "riccati_box:box_table": "pk_boxddp", "rollout2:box_table": "pk_boxddp",
             "riccati_boxfddp:box_table": "pk_parity_boxfddp",
@@ -265,13 +311,16 @@ ROW_PATH = {"linearize": "boxddp", "riccati_box": "boxddp", "rollout2": "boxddp"
 # the launch counter (build.LAUNCHES) of each row, and the paths that run
 # the 7-DoF instances and the per-knot tables
 ROW_KERNEL = {row: row.split(":")[0].removesuffix("_n7") for row in ROW_PATH}
-NDOF_PATHS = ("sevendof", "fast_sevendof")
+NDOF_PATHS = ("sevendof", "fast_sevendof", "sevendof_box", "fast_sevendof_box", "sevendof_ddp",
+              "fast_sevendof_ddp")
 TABLE_ROWS = tuple(row for row in ROW_PATH if row.endswith("_table"))
 # the stage-box rows: their launches come from the homotopy's stages
 # (homotopy_phase), the stages each cap runs in
 STAGE_ROWS = {row: row.split(":")[1] for row in ROW_PATH if ":cap" in row}
 CAP_STAGES = dict(cap3=("main", range(4)), cap1=("rescue", range(6)))
-B_HOMOTOPY_PARITY, T_HOMOTOPY_PARITY, MAXITER_HOMOTOPY_PARITY = 64, 40, 10
+# the homotopy's f64 parity: at T=40 each pass's plain backend took 390-420
+# s beside the other workers on an H100
+B_HOMOTOPY_PARITY, T_HOMOTOPY_PARITY, MAXITER_HOMOTOPY_PARITY = 64, 20, 10
 RESCUE_HOMOTOPY_PARITY, INF_LANE = 16, 5
 PK_PATHS = ("mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "pk_parity_mpc",
             "pk_parity_boxddp", "pk_parity_boxfddp", "pk_parity_fast_boxddp")
@@ -291,6 +340,23 @@ EQUAL_ROWS_ROW = {"linearize[sea]": "linearize:target_table",
 T_PK_GENERIC, B_PK_GENERIC, MAXITER_PK_GENERIC = 20, 16, 10
 B_NDOF = 1024                      # the 7-DoF path's batch (measure.B_SEVENDOF)
 T_NDOF_GENERIC, B_NDOF_GENERIC, MAXITER_NDOF_GENERIC = 10, 16, 3
+# the 7-DoF box and DDP paths: the 3-DoF arm's box in the kernel phase
+# (tests/test_torch_ndof_box.py's), the kernel iterate's passes, the f64
+# parity of each route through its kernels against its plain backend, and
+# the lane and fast routes against the generic one (T=10, where the routes
+# agree; at T=100 the boxed solve is chaotic)
+BOX_SEA3 = (0.5, 0.5, 0.5)
+NDOF_ITERATE_PASSES = 3
+# the parity's horizon in the workers: a pass of the plain backend at T=100
+# is tens of seconds of small launches at nl 7 (a T=100 route took 767-1,194
+# s beside the other workers on an H100, and the four at T=20 300-565 s), so
+# the workers hold T=10, where the routes also meet the generic one; the
+# checks "parity 7-DoF ... T=100" run the path's horizon, one a command
+B_NDOF_PARITY, MAXITER_NDOF_PARITY, T_NDOF_PARITY = 64, 20, 10
+B_NDOF_BOX_GENERIC, MAXITER_NDOF_BOX_GENERIC = 16, 20
+# the lane route's and the fast route's path of each 7-DoF family
+NDOF_FAMILIES = {"BoxFDDP": ("sevendof_box", "fast_sevendof_box"),
+                 "DDP": ("sevendof_ddp", "fast_sevendof_ddp")}
 # the cases also timed at B_FILL
 FILL_CASE = ROW_CASE + ("linearize[sea]", "riccati_fddp[vsa]")
 # kernels held to their plain versions to the bit (the others to 1e-9 in f64)
@@ -298,8 +364,10 @@ BIT_EXACT = ("linearize", "riccati_fddp", "rollout2", "rollout1")
 PROBE_ROW = dict(B=1048576, ilp=1, mode="mul_add")
 NO_LIBRARY = ("no single PyTorch call computes this function (a serial per-scenario "
               "recursion); no stand-in timed")
-# BoxDDP and SEA FDDP parity at the main path's depth (measure.T_PATH)
-B_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 128, 40
+# BoxDDP and SEA FDDP parity at T_PARITY (the main path's T=100 took
+# their plain backends 150-410 s beside the other workers on an H100), and
+# BoxFDDP's in a tight box
+B_PARITY, T_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 40, 128, 40
 T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
@@ -318,11 +386,39 @@ B_PENDULUM_PARITY = 64
 PENDULUM_SWEEP_RTOL = 1e-7
 PENDULUM_LOG_PASSES = 16
 PENDULUM_PROFILED = 10             # the passes traced for K4's device time
+# the pendulum path's timed solves after its first (each 19-30 s of the
+# generic route's launches on an H100, with the workers stopped)
+PENDULUM_TIMED = 1
 NORTHSTAR = os.path.join("docs", "northstar.json")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+# the check workers that run beside this process (start_checks), and the
+# seconds a stopped worker is given for the launches it queued to drain
+WORKERS = []
+DRAIN_S = 0.02
+WORKER_NICE = 10
+
+
+@contextmanager
+def quiet():
+    """Stop every running check worker (SIGSTOP) for a timed section and
+    let them go on after it (SIGCONT), so that the card and the host are
+    this process's alone while it times; in a worker, nothing."""
+    live = [proc for _, proc, _ in WORKERS if proc.poll() is None]
+    for proc in live:
+        proc.send_signal(signal.SIGSTOP)
+    if live:
+        time.sleep(DRAIN_S)
+    try:
+        yield
+    finally:
+        for proc in live:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGCONT)
 
 
 def phase(name):
@@ -355,14 +451,15 @@ def rel_err(a, b):
 
 
 def cuda_ms(fn, reps):
-    fn()                                    # warm-up
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with quiet():
+        fn()                                # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -381,12 +478,13 @@ def device_ms(fn, reps, kernel):
 
     from aslr_to_tpu_torch.measure import _device_us
 
-    fn()
-    torch.cuda.synchronize()
+    with quiet():
+        fn()
+        torch.cuda.synchronize()
     pad = torch.zeros(1, device="cuda")
     counts, fullest = [], (0, 0.0)
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with quiet(), profile(activities=[ProfilerActivity.CUDA]) as prof:
             pad.add_(1.0)
             torch.cuda.synchronize()
             for _ in range(reps):
@@ -434,10 +532,15 @@ class _OpCount(TorchFunctionMode):
         return out
 
 
-def count_ops(fn):
+def counted(fn):
+    """``fn()`` and the elementwise arithmetic operations it performed."""
     with _OpCount() as counter:
-        fn()
-    return counter.ops
+        out = fn()
+    return out, counter.ops
+
+
+def count_ops(fn):
+    return counted(fn)[1]
 
 
 def io_values(name, T, ndx, nu, boxed=False, warm=False, gaps=False):
@@ -517,7 +620,7 @@ def kernel_ptxas(build_log, lib):
     def box(kind, s, ndx, nu, g):
         size = 4 if s == "f" else 8
         smem = (lib.aslr_riccati_fddp_smem(int(ndx), int(nu), size) if kind == "fddp" else
-                lib.aslr_riccati_box_smem(int(nu), int(kind == "boxfddp"), size))
+                lib.aslr_riccati_box_smem(int(ndx), int(nu), int(kind == "boxfddp"), size))
         return f"{dict(box='K2', boxfddp='K5', fddp='K4')[kind]} {{}} (ndx {ndx}, nu {nu}, " \
                f"{g} lanes a scenario)", smem
 
@@ -702,6 +805,7 @@ def kernels_phase(report):
     from aslr_to_tpu_torch.kernels import build
     from aslr_to_tpu_torch.measure import B_PATH, T_PATH
 
+    counts = {}     # each case's operations, counted on its f64 plain call (as in f32)
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, None)):
         tag = "f64" if dtype == torch.float64 else "f32"
         for label, (kern, plain, io_kw, name, ndx, nu) in kernel_cases(dtype).items():
@@ -710,7 +814,10 @@ def kernels_phase(report):
             torch.cuda.synchronize()
             if build.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"{label}: the wrapper did not launch its kernel")
-            want = plain()
+            if tag == "f64":
+                want, counts[label] = counted(plain)
+            else:
+                want, plain_ms = timed_once(plain)
             rel, err = compare(label, got, want, tol)
             log(f"  {label} {tag}: kernel vs plain max rel err {rel:.3e}, max abs err "
                 f"{err:.3e}" + (f" (limit {tol:g}, flags equal)" if tol else ""))
@@ -730,17 +837,18 @@ def kernels_phase(report):
             target["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
             if tag == "f32":
                 target["ms"] = cuda_ms(kern, 20)
-                target["plain_ms"] = cuda_ms(plain, 2)
+                target["plain_ms"] = plain_ms
                 # K6's plain version runs K3's two trials at one step
                 # length and keeps the first: half its operations are K6's
-                ops = count_ops(plain) // (2 if name == "rollout1" else 1)
+                n_ops = counts[label] // (2 if name == "rollout1" else 1)
                 n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
                 target["bound_ms"], target["bound_by"], nbytes = bound(
-                    ops, n_in, n_out, n_flags, B_PATH, 4)
-                target["ops"], target["bytes"] = ops, nbytes
+                    n_ops, n_in, n_out, n_flags, B_PATH, 4)
+                target["ops"], target["bytes"] = n_ops, nbytes
                 log(f"  {label} f32 time: kernel {target['ms']:.4f} ms, plain "
-                    f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
-                    f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
+                    f"{target['plain_ms']:.4f} ms (the call compared), bound "
+                    f"{target['bound_ms']:.4f} ms ({target['bound_by']}: {nbytes} bytes, "
+                    f"{n_ops} ops)")
     # the kernels at four times the batch, kernel only; their operations
     # scale with B (elementwise per scenario)
     for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(torch.float32, B_FILL).items():
@@ -766,6 +874,7 @@ def stage_box_kernels_phase(report):
     from aslr_to_tpu_torch.kernels import build
     from aslr_to_tpu_torch.measure import B_PATH, T_PATH
 
+    ops = {}    # each row's operations, counted on its f64 plain call (as in f32)
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         w = two_dof_vsa_boxddp(T=T_PATH, dtype=dtype)
@@ -777,7 +886,13 @@ def stage_box_kernels_phase(report):
                                ("rollout2[vsa box]", f"rollout2:{cap}")):
                 kern, plain, io_kw, name, ndx, nu = cases[label]
                 before = build.LAUNCHES[name]
-                err = check_at_batch(f"{row} (ub {box_ub.tolist()})", tag, kern, plain, B_PATH)
+                if tag == "f64":
+                    want, ops[row] = counted(plain)
+                else:
+                    want, plain_ms = timed_once(plain)
+                err = check_at_batch(f"{row} (ub {box_ub.tolist()})", tag, kern, plain, B_PATH,
+                                     want=want)
+                del want
                 if build.LAUNCHES[name] != before + 1:
                     raise AssertionError(f"{row}: the wrapper did not launch its kernel")
                 if name == "rollout2":
@@ -788,15 +903,15 @@ def stage_box_kernels_phase(report):
                 target["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
                 if tag == "f32":
                     target["ms"] = cuda_ms(kern, 20)
-                    target["plain_ms"] = cuda_ms(plain, 2)
-                    ops = count_ops(plain)
+                    target["plain_ms"] = plain_ms
                     n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
                     target["bound_ms"], target["bound_by"], nbytes = bound(
-                        ops, n_in, n_out, n_flags, B_PATH, 4)
-                    target["ops"], target["bytes"] = ops, nbytes
+                        ops[row], n_in, n_out, n_flags, B_PATH, 4)
+                    target["ops"], target["bytes"] = ops[row], nbytes
                     log(f"  {row} f32 time: kernel {target['ms']:.4f} ms, plain "
-                        f"{target['plain_ms']:.4f} ms, bound {target['bound_ms']:.4f} ms "
-                        f"({target['bound_by']}: {nbytes} bytes, {ops} ops)")
+                        f"{target['plain_ms']:.4f} ms (the call compared), bound "
+                        f"{target['bound_ms']:.4f} ms ({target['bound_by']}: {nbytes} bytes, "
+                        f"{ops[row]} ops)")
 
 
 @phase("n-DoF kernels")
@@ -806,8 +921,8 @@ def ndof_kernels_phase(report):
     versions in f64 and f32 (K6 also against K3's first trial), and in f32
     the kernel's time, the plain version's time (the call that was
     compared), its operations and the bound; then the kernel's time and
-    bound at 4 B_NDOF, where K3 at nl 7, whose layout the batch picks, is
-    held to the bit against its plain version again in f64 and f32. The
+    bound at 4 B_NDOF, where a worker holds K3 at nl 7, whose layout the
+    batch picks, to the bit again (k3_batch_check). The
     7-DoF instances are their kernels' rows ``<name>_n7``, the 3-DoF ones
     variants of those rows."""
     from aslr_to_tpu_torch.kernels import build
@@ -840,6 +955,7 @@ def ndof_kernels_phase(report):
                 if B == B_NDOF or "layout" in info:
                     log(f"  {name}_n7 {tag} B={B} ptxas: {line[0]}")
 
+    ops = {}    # each case's operations, counted on its f64 plain call (as in f32)
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         cases = kernel_cases(dtype, B_NDOF, ("sea3", "sea7"), T=T_PATH)
@@ -849,7 +965,10 @@ def ndof_kernels_phase(report):
             torch.cuda.synchronize()
             if build.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"{label}: the wrapper did not launch its kernel")
-            want, plain_ms = timed_once(plain)
+            if tag == "f64":
+                want, ops[label] = counted(plain)
+            else:
+                want, plain_ms = timed_once(plain)
             rel, err = compare(label, got, want, 1e-9 if tag == "f64" else None)
             want_f = flat(want)
             differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
@@ -868,7 +987,7 @@ def ndof_kernels_phase(report):
                 continue
             t["ms"], t["plain_ms"] = cuda_ms(kern, 10), plain_ms
             # K6's plain version runs two trials and keeps one
-            t["ops"] = count_ops(plain) // (2 if name == "rollout1" else 1)
+            t["ops"] = ops[label] // (2 if name == "rollout1" else 1)
             n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
             t["bound_ms"], t["bound_by"], nbytes = bound(t["ops"], n_in, n_out, n_flags,
                                                          B_NDOF, 4)
@@ -879,18 +998,12 @@ def ndof_kernels_phase(report):
         del cases
     # the kernels at four times the batch, timed (kernel only; their
     # operations scale with B, elementwise per scenario); K3 at nl 7, whose
-    # layout the batch picks, first held to the bit against its plain
-    # version there, in f64 and f32
+    # layout the batch picks, is held to the bit there by a worker
+    # (k3_batch_check)
     B = 4 * B_NDOF
-    k3 = "rollout2[sea7 gaps]"
-    for label, (kern, plain, *_) in kernel_cases(torch.float64, B, ("sea7",), T=T_PATH).items():
-        if label == k3:
-            check_at_batch(label, "f64", kern, plain, B)
-    for label, (kern, plain, io_kw, name, ndx, nu) in kernel_cases(
+    for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(
             torch.float32, B, ("sea3", "sea7"), T=T_PATH).items():
         t = report[f"{name}_n7"].setdefault("variants", {}).setdefault(f"{label} B={B}", {})
-        if label == k3:
-            t["max_abs_err_f32"] = check_at_batch(label, "f32", kern, plain, B)
         t["ms"] = cuda_ms(kern, 10)
         ops = target(label, name)["ops"] * (B // B_NDOF)
         t["bound_ms"], t["bound_by"], nbytes = bound(
@@ -899,14 +1012,16 @@ def ndof_kernels_phase(report):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} bytes, {ops} ops)")
 
 
-def check_at_batch(label, tag, kern, plain, B):
-    """The kernel's outputs equal to its plain version's to the bit at batch
-    B (raises otherwise); returns the max abs error, 0."""
+def check_at_batch(label, tag, kern, plain, B, want=None):
+    """The kernel's outputs equal to its plain version's (``want``, or a
+    call of ``plain``) to the bit at batch B (raises otherwise); returns the
+    max abs error, 0."""
     from aslr_to_tpu_torch.measure import T_PATH
 
     got = kern()
     torch.cuda.synchronize()
-    want = plain()
+    if want is None:
+        want = plain()
     _, err = compare(label, got, want, None)
     want_f = flat(want)
     differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
@@ -918,14 +1033,35 @@ def check_at_batch(label, tag, kern, plain, B):
     return err
 
 
+def k3_batch_check():
+    """A worker's: K3 at nl 7 at 4 B_NDOF, T=100, where its batch rule
+    picks the general layout (at B_NDOF the wide one), in each variant (SEA
+    with gaps; DDP's "sea"; BoxFDDP's "sea box gaps" in a box that binds)
+    to the bit against its plain version in f64 and f32; the n-DoF kernel
+    phases time it there."""
+    from aslr_to_tpu_torch.measure import T_PATH
+
+    B = 4 * B_NDOF
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        for make in (lambda: kernel_cases(dtype, B, ("sea7",), T=T_PATH),
+                     lambda: ndof_box_cases(dtype, B, ("sea7",))):
+            cases = make()
+            for label, (kern, plain, *_) in cases.items():
+                if label.startswith("rollout2"):
+                    check_at_batch(label, tag, kern, plain, B)
+            del cases
+            torch.cuda.empty_cache()
+
+
 def timed_once(fn):
     """``fn()`` and the milliseconds of that one call, by CUDA events."""
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
+    with quiet():
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
     return out, start.elapsed_time(end)
 
 
@@ -949,6 +1085,236 @@ def check_k6_is_k3_first_trial(label, tag, kern, got):
     log(f"  {label} {tag}: equal to K3's first trial to the bit")
 
 
+def ndof_box_cases(dtype, B, arms=("sea3", "sea7")):
+    """{row: (kernel call, plain call, io_values kwargs, name, ndx, nu)}: K5
+    and the rollouts' DDP ("sea") and BoxFDDP ("sea box gaps") variants on
+    the 3- and 7-DoF SEA arms at T=100, batch B, from kernel_cases' states
+    and quasi-static controls: K5 warm (kprev 0, 2 QP iterations) in the box
+    of the sevendof_box path (nl 7) or BOX_SEA3 (nl 3), which those controls
+    cross, on the FDDP gaps; K3 and K6 "sea" on K4's gains (its plain
+    version), "sea box gaps" on K5's in the same box, with gaps, feasible
+    and infeasible lanes."""
+    from aslr_to_tpu_torch import seven_dof_sea, three_dof_sea
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
+    from aslr_to_tpu_torch.measure import SEVENDOF_BOX, T_PATH, x0_batch
+
+    T = T_PATH
+    cases = {}
+    for arm in arms:
+        w = (three_dof_sea if arm == "sea3" else seven_dof_sea)(T=T, dtype=dtype)
+        spec = vk.extract_vsa_spec(w.problem, None)
+        nu, ndx = spec.nu, spec.ndx
+        x0 = x0_batch(B, dtype, seed=0, nx=ndx).T.contiguous()
+        xs = x0.expand(T + 1, ndx, B).contiguous()
+        us = w.problem.quasi_static(xs[:-1].permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+        wterm = torch.full((B,), spec.w_goal_term, dtype=dtype, device="cuda")
+        lin = vk.linearize_plain(spec, xs, us, wterm)
+        r = lin.run
+        derivs = (r["Fx"], r["Fu"], r["Lx"], r["Lu"], r["Lxx"], r["Lxu"], r["Luu"],
+                  lin.term["Lx"], lin.term["Lxx"])
+        fs = torch.cat([(x0 - xs[0])[None], lin.xnext - xs[1:]], dim=0)
+        reg = torch.full((B,), REG, dtype=dtype, device="cuda")
+        if dtype == torch.float64:
+            reg[::512] = -5.0
+        ones = torch.ones(B, dtype=dtype, device="cuda")
+        top = torch.tensor(SEVENDOF_BOX if arm == "sea7" else BOX_SEA3, dtype=dtype,
+                           device="cuda")[:, None].expand(nu, B)
+        lb, ub = (-top).contiguous(), top.contiguous()
+        kprev = torch.zeros(T, nu, B, dtype=dtype, device="cuda")
+        bf_args = derivs + (fs, us, kprev, lb, ub, reg, 2)
+        cases[f"riccati_boxfddp[{arm} box]"] = (
+            partial(rk.riccati_boxfddp_backward, *bf_args),
+            partial(rk.riccati_boxfddp_plain, *bf_args),
+            dict(boxed=True, warm=True), "riccati_boxfddp", ndx, nu)
+        infeas = (torch.arange(B, device="cuda") % 2).to(dtype)
+        gains = {}
+        for variant, bw in (("", rk.riccati_fddp_plain(*derivs, fs, reg)),
+                            (" box gaps", rk.riccati_boxfddp_plain(*bf_args))):
+            gains[variant] = (torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0))
+        for variant, tail, io in (("", (None, None), {}),
+                                  (" box gaps", (lb, ub, fs, infeas), dict(boxed=True, gaps=True))):
+            args = (spec, xs, us, *gains[variant], x0, ones, 0.5 * ones, wterm) + tail
+            if not variant:
+                args = args + (None, None)
+            cases[f"rollout2[{arm}{variant}]"] = (partial(vk.rollout2, *args),
+                                                  partial(vk.rollout2_plain, *args), io,
+                                                  "rollout2", ndx, nu)
+            r1 = args[:6] + args[7:]
+            cases[f"rollout1[{arm}{variant}]"] = (partial(vk.rollout1, *r1),
+                                                  partial(vk.rollout1_plain, *r1), io,
+                                                  "rollout1", ndx, nu)
+    return cases
+
+
+def box_binds(label, name, args, got):
+    """The share of K5's QP solutions (knot, control) that end on a bound of
+    the box, or of K3's first trial's controls (K6's) that the clip puts on
+    one; raises where it is 0 (the case would not exercise the box)."""
+    if name == "riccati_boxfddp":
+        us, lb, ub = args[10], args[12][None], args[13][None]
+        on = (-got.k == lb - us) | (-got.k == ub - us)
+    else:
+        # K3's box follows its two step lengths, K6's its one
+        at = 9 if name == "rollout2" else 8
+        lb, ub = args[at][None], args[at + 1][None]
+        trial = got[0] if name == "rollout2" else got
+        on = (trial.us == lb) | (trial.us == ub)
+    share = float(on.double().mean())
+    if not share > 0:
+        raise AssertionError(f"{label}: the box binds nowhere on these inputs")
+    return share
+
+
+def k5_iterate(dtype, B):
+    """K5's inputs at (28, 7) in the last backward of NDOF_ITERATE_PASSES
+    passes of the sevendof_box lane solve (B lanes, through the kernels), a
+    solver iterate's: the lane solver's K5 wrapper recorded while it runs."""
+    from aslr_to_tpu_torch.kernels import lane_solver
+    from aslr_to_tpu_torch.measure import SEEDS, sevendof_solver, x0_batch
+
+    seen = []
+    wrapper = lane_solver.riccati_boxfddp_backward
+
+    def record(*args, **kwargs):
+        seen[:] = [(args, kwargs)]
+        return wrapper(*args, **kwargs)
+
+    lane_solver.riccati_boxfddp_backward = record
+    try:
+        solve = sevendof_solver("sevendof_box", dtype=dtype, maxiter=NDOF_ITERATE_PASSES)
+        solve(x0_batch(B, dtype, SEEDS["sevendof_box"], nx=28))
+    finally:
+        lane_solver.riccati_boxfddp_backward = wrapper
+    torch.cuda.synchronize()
+    args, kwargs = seen[0]
+    if kwargs.get("per_knot_box"):
+        raise AssertionError("the sevendof_box solve gave K5 box tables")
+    return args
+
+
+@phase("n-DoF box kernels")
+def ndof_box_kernels_phase(report):
+    """K5 at (12, 3) and (28, 7) and the rollouts' DDP and BoxFDDP variants
+    at nl 3 and 7 (ndof_box_cases): first the launch of each 7-DoF instance
+    (K5 at (28, 7); K6 and K3, K3 in the layout its batch picks) at B_NDOF
+    and 4 B_NDOF in f32 and f64 with its ptxas line; then, at T=100,
+    B_NDOF, each against its plain version to the bit in f64 and f32 (K6
+    also against K3's first trial), with the share of the box that binds,
+    and in f32 the kernel's time, the plain version's (the call that was
+    compared), its operations and the bound; K5 also on a solver iterate's
+    inputs (k5_iterate) to the bit in f64 and f32, timed in f32; then at 4
+    B_NDOF every new instance timed (a worker holds K3 at nl 7 to the bit
+    there, k3_batch_check: its batch rule picks the general layout). K5 at (28, 7) is the row ``riccati_boxfddp_n7``, the rest
+    variants of it and of ``rollout2_n7`` and ``rollout1_n7``."""
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.kernels import riccati as rk
+    from aslr_to_tpu_torch.measure import T_PATH
+
+    def target(label, name):
+        if label == "riccati_boxfddp[sea7 box]":
+            return report["riccati_boxfddp_n7"]
+        return report[f"{name}_n7"].setdefault("variants", {}).setdefault(label, {})
+
+    ptxas = kernel_ptxas(build.build_log, build.lib())
+    for name, variant, prefix in (("riccati_boxfddp", None, "K5 {} (ndx 28, nu 7,"),
+                                  ("rollout1", "sea", "K6 {} nl 7 SEA:"),
+                                  ("rollout1", "sea box gaps", "K6 {} nl 7 SEA box gaps:"),
+                                  ("rollout2", "sea", "K3 {} nl 7 SEA {}:"),
+                                  ("rollout2", "sea box gaps", "K3 {} nl 7 SEA box gaps {}:")):
+        key = f"{name}_n7" if variant is None else f"{name}[sea7{variant[3:]}]"
+        row = target(key if variant else "riccati_boxfddp[sea7 box]", name)
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            for B in (B_NDOF, 4 * B_NDOF):
+                kw = {} if variant is None else dict(variant=variant)
+                info = build.launch_of(name, dtype, B, T=T_PATH, **kw)
+                layout = f", the {info['layout']} layout" if "layout" in info else ""
+                log(f"  {key} {tag} B={B}: grid {info['grid']}, {info['threads']} threads a "
+                    f"block, {info['smem']} bytes of dynamic shared memory, "
+                    f"{info['blocks_per_sm']} blocks resident an SM{layout}")
+                row.setdefault("launch", {})[f"{tag} B={B}"] = info
+                line = [x for x in ptxas if x.startswith(prefix.format(tag, info.get("layout")))]
+                if len(line) != 1:
+                    raise AssertionError(f"{key} {tag}: no single ptxas line in {ptxas}")
+                row.setdefault("ptxas", {})[f"{tag} B={B}"] = line[0]
+                if B == B_NDOF or "layout" in info:
+                    log(f"  {key} {tag} B={B} ptxas: {line[0]}")
+
+    ops = {}    # each case's operations, counted on its f64 plain call (as in f32)
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        cases = ndof_box_cases(dtype, B_NDOF)
+        for label, (kern, plain, io_kw, name, ndx, nu) in cases.items():
+            before = build.LAUNCHES[name]
+            got = kern()
+            torch.cuda.synchronize()
+            if build.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{label}: the wrapper did not launch its kernel")
+            if tag == "f64":
+                want, ops[label] = counted(plain)
+            else:
+                want, plain_ms = timed_once(plain)
+            rel, err = compare(label, got, want, 1e-9 if tag == "f64" else None)
+            want_f = flat(want)
+            differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
+            if differ:
+                raise AssertionError(f"{label} {tag}: {differ} differ from the plain version "
+                                     f"(max abs err {err:.3e}); the kernel is built to equal it "
+                                     f"to the bit")
+            if name == "rollout1":
+                check_k6_is_k3_first_trial(label, tag, kern, got)
+            t = target(label, name)
+            binds = ""
+            if io_kw.get("boxed"):
+                t[f"on_bound_{tag}"] = box_binds(label, name, kern.args, got)
+                binds = f"; on a bound: {100 * t[f'on_bound_{tag}']:.2f}%"
+            del got, want, want_f
+            log(f"  {label} {tag} T={T_PATH} B={B_NDOF}: equal to the plain version to the bit "
+                f"(max abs err {err:.3e}){binds}")
+            t["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+            if tag == "f64":
+                continue
+            t["ms"], t["plain_ms"] = cuda_ms(kern, 10), plain_ms
+            t["ops"] = ops[label] // (2 if name == "rollout1" else 1)
+            n_in, n_out, n_flags = io_values(name, T_PATH, ndx, nu, **io_kw)
+            t["bound_ms"], t["bound_by"], nbytes = bound(t["ops"], n_in, n_out, n_flags,
+                                                         B_NDOF, 4)
+            t["bytes"] = nbytes
+            log(f"  {label} f32 T={T_PATH} B={B_NDOF}: kernel {t['ms']:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{nbytes} bytes, {t['ops']} ops)")
+        del cases
+        # K5 on a solver iterate's inputs
+        args = k5_iterate(dtype, B_NDOF)
+        label = f"riccati_boxfddp[sea7 box] iterate (pass {NDOF_ITERATE_PASSES})"
+        kern = partial(rk.riccati_boxfddp_backward, *args)
+        t = target(label, "riccati_boxfddp")
+        t[f"max_abs_err_{tag}"] = check_at_batch(label, tag, kern,
+                                                 partial(rk.riccati_boxfddp_plain, *args), B_NDOF)
+        got = kern()
+        t[f"on_bound_{tag}"] = box_binds(label, "riccati_boxfddp", args, got)
+        t[f"ok_lanes_{tag}"] = int(got.ok.sum())
+        log(f"  {label} {tag}: on a bound {100 * t[f'on_bound_{tag}']:.2f}%, ok on "
+            f"{t[f'ok_lanes_{tag}']} of {B_NDOF} lanes")
+        if tag == "f32":
+            t["ms"] = cuda_ms(kern, 10)
+            log(f"  {label} f32: kernel {t['ms']:.4f} ms")
+        del args, kern, got
+    # four times the batch, where K3 at nl 7 takes the general layout (a
+    # worker holds it to the bit there, k3_batch_check): every new instance
+    # timed
+    B = 4 * B_NDOF
+    for label, (kern, plain, io_kw, name, ndx, nu) in ndof_box_cases(torch.float32, B).items():
+        row = "riccati_boxfddp_n7" if name == "riccati_boxfddp" else f"{name}_n7"
+        t = report[row].setdefault("variants", {}).setdefault(f"{label} B={B}", {})
+        t["ms"] = cuda_ms(kern, 10)
+        ops = target(label, name)["ops"] * (B // B_NDOF)
+        t["bound_ms"], t["bound_by"], nbytes = bound(
+            ops, *io_values(name, T_PATH, ndx, nu, **io_kw), B, 4)
+        log(f"  {label} f32 T={T_PATH} B={B}: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} bytes, {ops} ops)")
+
+
 @phase("probe")
 def probe_phase(report):
     """P in every configuration against its plain version (raises on a
@@ -958,7 +1324,8 @@ def probe_phase(report):
 
     torch.cuda.synchronize()
     build.reset_launches()
-    rows = probe.run(log=log)
+    with quiet():       # probe.run times each configuration
+        rows = probe.run(log=log)
     row = report["probe"]
     row["launches"] = build.LAUNCHES["probe"]
     row.setdefault("launches_by_path", {})["probe"] = row["launches"]
@@ -974,12 +1341,13 @@ def drive(path, report, fn, expect):
     result and the seconds from the reset to the card's end."""
     from aslr_to_tpu_torch.kernels import build
 
-    torch.cuda.synchronize()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with quiet():
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     log(f"  launches in the {path} path: {launches}")
     for name in expect:
@@ -1014,15 +1382,19 @@ def summarize(res, B, T, nu, label, tpu=None, nx=8):
     return summ
 
 
-def solve_path(name, report, card, expect, nu, n_timed, tpu=None, nx=8):
+def solve_path(name, report, card, expect, nu, n_timed, tpu=None, nx=8, first=False):
     """Drive the path ``name`` of measure.py at T=100 and its batch (4096,
     or 1024 for the 7-DoF paths), f32: its set-up (the SEA cold solve)
-    where it has one, then ``n_timed`` solves. Returns the convergence
-    summaries: the set-up's (or None) and the last solve's."""
+    where it has one, or with ``first`` a first solve, untimed, then
+    ``n_timed`` solves. Returns the convergence summaries, the set-up's (or
+    None) and the last solve's, and the last solve's result."""
     from aslr_to_tpu_torch.measure import build_path, path_batch, path_T
 
     p, B, T = build_path(name), path_batch(name), path_T(name)
     prep = setup_summ = None
+    if first:
+        _, t = drive(name, report, lambda: p.solve(*p.args(0, None)), expect)
+        log(f"  first solve: {t:.4f} s")
     if name == "sea_warm":
         prep, t = drive("sea_cold", report, p.setup, expect)
         log(f"  cold solve: {t:.4f} s")
@@ -1036,7 +1408,7 @@ def solve_path(name, report, card, expect, nu, n_timed, tpu=None, nx=8):
         res, t = drive(name, report, lambda: p.solve(*inputs), expect)
         log(f"  solve {i}: {t:.4f} s, {B / t:.2f} solves/s on {card} "
             f"(T={T}, B={B}, f32, maxiter={p.maxiter})")
-    return setup_summ, summarize(res, B, T, nu, f"{name}, last solve, f32", tpu, nx)
+    return setup_summ, summarize(res, B, T, nu, f"{name}, last solve, f32", tpu, nx), res
 
 
 @phase("main path")
@@ -1083,6 +1455,63 @@ def sevendof_phase(report, card):
     lanes_equal("7-DoF lanes against generic", res["lanes"], res[False], B_NDOF_GENERIC, x0s)
     lanes_equal("7-DoF fast against generic", res[True], res[False], B_NDOF_GENERIC, x0s)
     return lanes
+
+
+def on_bound(res, bounds):
+    """The share of the final controls that sit on a bound of the box: of
+    every lane's, and of the lanes that did not diverge (None if none)."""
+    on = (res.us == bounds.lb) | (res.us == bounds.ub)
+    live = ~res.diverged
+    return (float(on.double().mean()),
+            float(on[live].double().mean()) if bool(live.any()) else None)
+
+
+@phase("7-DoF box and DDP")
+def sevendof_box_phase(report, card):
+    """The 7-DoF reach under the torque box (measure.py paths sevendof_box
+    and fast_sevendof_box: BoxFDDP, K1, K5 at (28, 7), K3 or K6 at nl 7 with
+    the box and gaps) and as DDP (sevendof_ddp: K1, K4 at (28, 7) with zero
+    gaps, K3 without box or gaps), B=1024, T=100, f32: a first solve, then
+    two timed ones each, with solves/s and the convergence accounting; the
+    share of the final controls on a bound (it must be above 0, or K5's QP
+    ran unclamped); the fast route's statistics beside the lane route's
+    (not gated: at T=100 this solve is chaotic, and two routes that sum in
+    other orders end its lanes apart); the fast DDP route once (K1, the
+    generic backward, K6 without box or gaps), within 3 points of its lane
+    route. Each launch count is of the last solve; the variants' rows take
+    theirs from their paths."""
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import sevendof_bounds
+
+    bounds = sevendof_bounds(torch.float32)
+    summ = {}
+    for name, expect, variant in (
+            ("sevendof_box", ("linearize", "riccati_boxfddp", "rollout2"),
+             "rollout2[sea7 box gaps]"),
+            ("fast_sevendof_box", ("linearize", "riccati_boxfddp", "rollout1"),
+             "rollout1[sea7 box gaps]"),
+            ("sevendof_ddp", ("linearize", "riccati_fddp", "rollout2"), "rollout2[sea7]")):
+        _, summ[name], res = solve_path(name, report, card, expect, 7, 2, nx=28, first=True)
+        kernel = variant.split("[")[0]
+        report[f"{kernel}_n7"]["variants"][variant]["launches"] = build.LAUNCHES[kernel]
+        if name.endswith("_box"):
+            share, live = on_bound(res, bounds)
+            summ[name].update(on_bound=share, on_bound_live=live)
+            log(f"  {name}: final controls on a bound of the box: {100 * share:.4f}% of all "
+                f"lanes', " + ("no lane left that did not diverge" if live is None else
+                               f"{100 * live:.4f}% of the lanes that did not diverge"))
+            if not share > 0:
+                raise AssertionError(f"{name}: no final control on a bound of the box")
+        del res
+    for key in ("converged_frac", "diverged_frac", "mean_iterations", "median_cost",
+                "on_bound"):
+        log(f"  BoxFDDP at T=100, fast route beside the lane route (not gated): {key} "
+            f"{summ['fast_sevendof_box'][key]} / {summ['sevendof_box'][key]}")
+    _, fast_ddp, _ = solve_path("fast_sevendof_ddp", report, card, ("linearize", "rollout1"), 7,
+                                1, nx=28)
+    report["rollout1_n7"]["variants"]["rollout1[sea7]"]["launches"] = build.LAUNCHES["rollout1"]
+    close_to_lanes("fast 7-DoF DDP", fast_ddp, summ["sevendof_ddp"])
+    report["riccati_boxfddp_n7"].setdefault("paths", {}).update(summ)
 
 
 def close_to_lanes(label, fast, lanes):
@@ -1174,13 +1603,15 @@ def first_parting(a, b, rtol=1e-8):
     return int(idx[0]) if idx.numel() else None
 
 
-def lanes_equal(label, a, b, B, x0s):
+def lanes_equal(label, a, b, B, x0s, explain=None):
     """At least B - 1 lanes agree: equal iterations and flags, and cost
     within rtol 1e-8 unless the lane diverged in both (a diverged lane's
     cost is that of a blown-up rollout, chaotic in the last bit). Each lane
     that does not agree is printed with its x0 and the first iteration at
     which the two routes' per-iteration logs part; returns {lane: that
-    iteration} for the lanes whose logs part."""
+    iteration} for the lanes whose logs part. ``explain(lane, iteration)``,
+    where given, is asked about each such lane, and a lane it explains
+    (returns a true value) counts with the lanes that agree."""
     parted = {}
     same = ((a.iterations == b.iterations) & (a.converged == b.converged)
             & (a.diverged == b.diverged))
@@ -1205,6 +1636,11 @@ def lanes_equal(label, a, b, B, x0s):
                 parted[lane] = min(j, parted.get(lane, j))
                 log(f"      {field} part first at iteration {j}: {float(sa[j])!r} / "
                     f"{float(sb[j])!r} (rel {float((sa[j] - sb[j]).abs() / sb[j].abs()):.3e})")
+    if explain is not None:
+        explained = [lane for lane, j in parted.items() if explain(lane, j)]
+        log(f"  {label}: {len(explained)} of the {B - n_agree} lanes that part explained "
+            f"({explained})")
+        n_agree += len(explained)
     if n_agree < B - 1:
         raise AssertionError(f"{label}: only {n_agree} of {B} lanes agree")
     return parted
@@ -1272,11 +1708,10 @@ def generic_check(label):
 
 @phase("generic timed")
 def generic_timed_phase(card):
-    """One timed f32 solve of the generic, fast and lane routes on the card,
-    and the T=30 golden through SolverBoxDDP."""
+    """One timed f32 solve of the generic, fast and lane routes on the card
+    (the T=30 golden through SolverBoxDDP is the golden check's)."""
     from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_vsa_boxddp
     from aslr_to_tpu_torch.measure import T_PATH, summary, x0_batch
-    from aslr_to_tpu_torch.solvers.ddp import SolverBoxDDP
 
     # the main path's settings but MAXITER_TIMED iterations: the generic
     # route runs thousands of small kernels a knot loop
@@ -1286,29 +1721,17 @@ def generic_timed_phase(card):
     for route in (False, True, "lanes"):
         solve = make_batched_solver(w.problem, timed, use_gaps=False, bounds=w.bounds,
                                     use_fast_path=route)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = solve(x0s)
-        torch.cuda.synchronize()
-        t = time.perf_counter() - t0
+        with quiet():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve(x0s)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
         summ = summary(out)
         log(f"  BoxDDP f32 T={T_PATH} B={B_TIMED} maxiter={MAXITER_TIMED} "
             f"use_fast_path={route!r}: {t:.3f} s, {t / summ['max_iterations']:.4f} s a loop "
             f"pass, {B_TIMED / t:.2f} solves/s on {card}; converged {summ['converged_frac']}, "
             f"diverged {summ['diverged_frac']}, mean iterations {summ['mean_iterations']}")
-
-    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
-                               "vsa_boxddp_T30.npz"))
-    w = two_dof_vsa_boxddp(T=30, dtype=torch.float64)
-    solver = SolverBoxDDP(w.problem, w.bounds)
-    solver.th_stop = 1e-7
-    res = solver.solve(maxiter=25)
-    cost, iters = float(res.cost), int(res.iterations)
-    log(f"  SolverBoxDDP T=30 f64 on the card: cost {cost} (golden {float(ref['cost'])}), "
-        f"iterations {iters} (golden {int(ref['iters'])})")
-    if not (abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"]))
-            and iters == int(ref["iters"])):
-        raise AssertionError("SolverBoxDDP does not reproduce vsa_boxddp_T30.npz on the card")
 
 
 def parity(label, w, bounds, use_gaps, B, settings, seed):
@@ -1353,31 +1776,148 @@ def backends_agree(label, k, p, B):
 
 def parity_check(label):
     """A lane path in f64 through the kernels against its plain backend:
-    BoxDDP and SEA FDDP at B=256, T=100, maxiter 20, BoxFDDP in a tight box
+    BoxDDP and SEA FDDP at B=256, T=40, maxiter 20, BoxFDDP in a tight box
     at B=128, T=40, maxiter 10."""
     from aslr_to_tpu_torch import SolverSettings, two_dof_sea, two_dof_vsa_boxddp
-    from aslr_to_tpu_torch.measure import T_PATH
 
     f64 = torch.float64
     if label == "BoxDDP":
-        w = two_dof_vsa_boxddp(T=T_PATH, dtype=f64)
+        w = two_dof_vsa_boxddp(T=T_PARITY, dtype=f64)
         parity(label, w, w.bounds, False, B_PARITY,
                SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2), seed=1)
     elif label == "SEA FDDP":
-        parity(label, two_dof_sea(T=T_PATH, dtype=f64), None, True, B_PARITY,
+        parity(label, two_dof_sea(T=T_PARITY, dtype=f64), None, True, B_PARITY,
                SolverSettings(maxiter=20, th_stop=1e-5), seed=3)
     else:
         parity(label, two_dof_vsa_boxddp(T=T_PARITY_BOX, dtype=f64), tight_box(f64), True,
                B_PARITY_BOX, SolverSettings(maxiter=10, th_stop=1e-7), seed=4)
 
 
+def ndof_parity_check(family, route, T=T_NDOF_PARITY):
+    """A 7-DoF family (NDOF_FAMILIES: "BoxFDDP" in the sevendof_box paths'
+    box, warm QPs of 2 iterations; "DDP") on the lane or the fast route in
+    f64 through its kernels against the same route through their plain
+    versions: B_NDOF_PARITY lanes (x0s of seed 8) at horizon T, maxiter 20,
+    warm-started; at least B - 1 lanes equal in iterations and flags, cost
+    within rtol 1e-8 (backends_agree), and the lanes equal to the bit
+    counted (every kernel equals its plain version to the bit)."""
+    from aslr_to_tpu_torch.measure import SEEDS, sevendof_solver, x0_batch
+
+    name = NDOF_FAMILIES[family][route == "fast"]
+    x0s = x0_batch(B_NDOF_PARITY, torch.float64, SEEDS[name], nx=28)
+    res = {}
+    for backend in ("auto", "plain"):
+        solve = sevendof_solver(name, T, torch.float64, backend=backend,
+                                maxiter=MAXITER_NDOF_PARITY)
+        t0 = time.perf_counter()
+        res[backend] = solve(x0s)
+        torch.cuda.synchronize()
+        log(f"  7-DoF {family} {route} f64 T={T} B={B_NDOF_PARITY} maxiter="
+            f"{MAXITER_NDOF_PARITY} {backend} backend: {time.perf_counter() - t0:.3f} s")
+    k, p = res["auto"], res["plain"]
+    label = f"7-DoF {family} {route} T={T}"
+    backends_agree(label, k, p, B_NDOF_PARITY)
+    bits = torch.ones_like(k.converged)
+    for a, b in ((k.xs, p.xs), (k.us, p.us), (k.cost, p.cost), (k.iterations, p.iterations)):
+        a, b = a.double(), b.double()
+        same = (a.isnan() == b.isnan()) & ((a == b) | a.isnan())
+        bits = bits & same.reshape(B_NDOF_PARITY, -1).all(1)
+    log(f"  {label}: {int(bits.sum())}/{B_NDOF_PARITY} lanes equal to the bit in xs, us, cost "
+        f"and iterations; converged {float(k.converged.double().mean())} / "
+        f"{float(p.converged.double().mean())}, diverged {float(k.diverged.double().mean())} / "
+        f"{float(p.diverged.double().mean())} (kernels / plain)")
+
+
+def bound_flips(a, b, bounds, rtol=1e-12):
+    """(knot, control) where a control of iterate ``a`` sits on a bound of
+    the box and the same control of ``b`` lies within ``rtol`` of that bound
+    but inside it, or the other way round (one lane, ``us [1, T, nu]``)."""
+    flips = []
+    for x, y in ((a.us[0], b.us[0]), (b.us[0], a.us[0])):
+        for bnd in (bounds.lb, bounds.ub):
+            near = (x == bnd) & (y != bnd) & ((y - bnd).abs() <= rtol * bnd.abs())
+            flips += [tuple(ti) for ti in torch.nonzero(near).tolist()]
+    return sorted(set(flips))
+
+
+def explain_box_parting(label, family, lane, x0, j):
+    """A lane whose generic and kernel routes' logs part first at pass j:
+    both routes re-run on its x0 for j and j + 1 passes; returns the
+    controls that sit on a bound of the box in one route's iterate and one
+    rounding inside it in the other's (bound_flips), printed, or []. Such a
+    control is clamped by the next BoxQP of one route and free in the
+    other's, a discrete choice that the solve then amplifies."""
+    from aslr_to_tpu_torch.measure import sevendof_bounds, sevendof_solver
+
+    lanes_name, _ = NDOF_FAMILIES[family]
+    bounds = sevendof_bounds(torch.float64)
+    for n in (j, j + 1):
+        g, k = (sevendof_solver(lanes_name, T_NDOF_GENERIC, torch.float64, maxiter=n,
+                                boxqp_warm_iters=0, use_fast_path=route)(x0)
+                for route in (False, "lanes"))
+        flips = bound_flips(g, k, bounds)
+        if flips:
+            log(f"    {label} lane {lane}: after {n} passes, controls on a bound in one route "
+                f"and one rounding inside it in the other: " + ", ".join(
+                    f"knot {t} control {i} (generic {float(g.us[0, t, i])!r}, lanes "
+                    f"{float(k.us[0, t, i])!r})" for t, i in flips))
+            return flips
+    return []
+
+
+def ndof_generic_check(family):
+    """The lane and fast routes of a 7-DoF family against the generic route
+    (the reference) in f64 at T=10, B=16, maxiter 20, warm-started, BoxFDDP
+    in the sevendof_box paths' box with cold QPs (warm BoxQPs part the
+    generic and kernel routes at 1e-6: the generic QP stops at convergence,
+    the kernels' runs all its iterations). DDP: at least B - 1 lanes equal
+    in iterations and flags, cost within rtol 1e-8 (lanes_equal). BoxFDDP:
+    the fast route against the lane route so (the kernel routes share K5
+    and the rollout's code), and each against the generic route so, a lane
+    counting with those that agree where its per-iteration logs agree
+    within rtol 1e-8 up to the pass at which they part and there a control
+    sits on a bound of the box in one route and one rounding inside it in
+    the other (explain_box_parting): the routes' feedback sums in other
+    orders land on either side of the bound, the next BoxQP clamps the
+    control in one route and frees it in the other, and the solve, which
+    converges on no lane in 20 passes at T=10, amplifies that (PERF.md; on
+    an H100 12 of these 16 lanes agreed in full)."""
+    from aslr_to_tpu_torch.measure import SEEDS, sevendof_solver, x0_batch
+
+    lanes_name, fast_name = NDOF_FAMILIES[family]
+    B, T = B_NDOF_BOX_GENERIC, T_NDOF_GENERIC
+    x0s = x0_batch(B, torch.float64, SEEDS[lanes_name], nx=28)
+    res = {}
+    for route, name in (("generic", lanes_name), ("lanes", lanes_name), ("fast", fast_name)):
+        solve = sevendof_solver(name, T, torch.float64, maxiter=MAXITER_NDOF_BOX_GENERIC,
+                                boxqp_warm_iters=0, keep_log=True,
+                                use_fast_path=False if route == "generic" else None)
+        t0 = time.perf_counter()
+        res[route] = solve(x0s)
+        torch.cuda.synchronize()
+        log(f"  7-DoF {family} f64 T={T} B={B} maxiter={MAXITER_NDOF_BOX_GENERIC} {route} "
+            f"route: {time.perf_counter() - t0:.3f} s; converged "
+            f"{float(res[route].converged.double().mean())}, diverged "
+            f"{float(res[route].diverged.double().mean())}")
+    if family == "DDP":
+        lanes_equal(f"7-DoF {family} lanes against generic", res["lanes"], res["generic"], B, x0s)
+        lanes_equal(f"7-DoF {family} fast against generic", res["fast"], res["generic"], B, x0s)
+        return
+    lanes_equal(f"7-DoF {family} fast against lanes", res["fast"], res["lanes"], B, x0s)
+    for route in ("lanes", "fast"):
+        label = f"7-DoF {family} {route} against generic"
+        lanes_equal(label, res[route], res["generic"], B, x0s,
+                    explain=lambda lane, j: explain_box_parting(label, family, lane,
+                                                                x0s[lane:lane + 1], j))
+
+
 def homotopy_parity_check(part):
     """The homotopy with the rescue in f64 through the kernels against its
-    plain backend, lane by lane: the production schedules at T=40, B=64,
+    plain backend, lane by lane: the production schedules at T=20, B=64,
     maxiter 10 a stage, rescue_size 16, lane INF_LANE at x0 = inf (it must
     stay diverged). Its two passes run in two workers, since the plain
-    backend's 12 stages of small kernels take 243 s on the card alone and
-    447 s beside the other workers in one process: ``part`` "main", the 5
+    backend's 12 stages of small kernels took 243 s on the card alone and
+    447 s beside the other workers in one process at T=40: ``part`` "main", the 5
     main stages on the 64 lanes; "rescue", the 7 rescue stages, cold, on
     the 16 lanes that the kernels' main pass picks (diverged first, by
     the stable sort of ``build_lane_homotopy``; the main part holds its
@@ -1572,7 +2112,7 @@ def kernel_device_time(fn, kernel):
 
     pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with quiet(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         pad.add_(1.0)
         torch.cuda.synchronize()
         fn()
@@ -1589,8 +2129,9 @@ def kernel_device_time(fn, kernel):
 def pendulum_phase(report, card):
     """The double-pendulum swing-up (measure.py path double_pendulum: the
     generic route with K4 at (8, 2), T=10, B=4096, f32, maxiter 100, cold
-    from the hanging x0 plus 0.05 randn): a first solve, then two timed ones
-    at x0s + 1e-4 (i + 1), with solves/s and the convergence accounting; K4
+    from the hanging x0 plus 0.05 randn): a first solve, then PENDULUM_TIMED
+    timed ones at x0s + 1e-4 (i + 1), with solves/s and the convergence
+    accounting; K4
     the only kernel launched; its launches a solve, and its launches and
     device time by torch.profiler over the first PENDULUM_PROFILED passes of
     the last inputs' solve (the row's ``profiled_*`` keys)."""
@@ -1601,7 +2142,7 @@ def pendulum_phase(report, card):
     p, T = build_path(name), path_T(name)
     prep, t = drive(name, report, p.setup, expect)
     log(f"  first solve: {t:.4f} s")
-    for i in range(2):
+    for i in range(PENDULUM_TIMED):
         inputs = p.args(i, prep)
         res, t = drive(name, report, lambda: p.solve(*inputs), expect)
         B = res.us.shape[0]
@@ -1746,8 +2287,7 @@ def pendulum_lanes_agree(a, b, B, x0s):
         raise AssertionError(f"double pendulum f64: only {int(agree.sum())} of {B} lanes agree")
 
 
-@phase("pendulum north star")
-def pendulum_northstar_phase():
+def pendulum_northstar_check():
     """One f64 scenario of the double pendulum from the preset's x0 through
     ``run_workload`` (the "auto" route: the generic one, with the fast
     path's refusal warned) at the reference's budget, beside
@@ -1776,29 +2316,16 @@ def pendulum_northstar_phase():
         raise AssertionError("the double pendulum's north-star cost is not met within rtol 1e-6")
 
 
-# the checks that solve on the plain backend or the generic route, each a
-# worker process's: those solves run thousands of small kernels a loop
-# pass, so each waits on its host and leaves the card idle, and side by
-# side they take the time of the longest. The tuples are the workers.
-CHECKS = {"parity double pendulum": pendulum_parity_check,
-          "parity BoxDDP": partial(parity_check, "BoxDDP"),
-          "parity SEA FDDP": partial(parity_check, "SEA FDDP"),
-          "parity BoxFDDP": partial(parity_check, "BoxFDDP"),
-          "generic BoxDDP": partial(generic_check, "BoxDDP"),
-          "generic SEA FDDP": partial(generic_check, "SEA FDDP"),
-          "parity homotopy main": partial(homotopy_parity_check, "main"),
-          "parity homotopy rescue": partial(homotopy_parity_check, "rescue")}
-CHECK_WORKERS = (("parity BoxDDP",), ("generic BoxDDP",), ("parity BoxFDDP",),
-                 ("parity SEA FDDP", "generic SEA FDDP"), ("parity homotopy main",),
-                 ("parity homotopy rescue",), ("parity double pendulum",))
-
-
 def run_checks(names):
     """A worker: the checks ``names`` of CHECKS, in order, each printed as a
     phase; any failed check raises, so the worker exits non-zero."""
     if not torch.cuda.is_available():
         log("no CUDA device: this script measures the port on a GPU only")
         sys.exit(2)
+    # below the main process, whose phases run beside the workers: a worker
+    # waiting on the card spins on its core, and the phases' checks wait on
+    # the host as the workers do
+    os.nice(WORKER_NICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for name in names:
@@ -1811,8 +2338,11 @@ def start_checks():
     pool = ThreadPoolExecutor(max_workers=len(CHECK_WORKERS))
     running = []
     for names in CHECK_WORKERS:
+        blocking = any(name in BLOCKING_CHECKS for name in names)
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--check", *names],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                env=dict(os.environ, CUDA_LAUNCH_BLOCKING="1") if blocking
+                                else None)
         running.append((names, proc, pool.submit(proc.communicate)))
     pool.shutdown(wait=False)
     return running
@@ -1860,10 +2390,14 @@ def golden(label, fname, w, settings, use_gaps, bounds, warm_start, **homotopy):
     return cost
 
 
-@phase("golden")
-def golden_phase():
+def golden_check():
+    """A worker's: the golden fixtures through the kernels in f64 (the
+    T=30 BoxDDP, the quasi-static-warm T=100 SEA FDDP, the T=100
+    homotopy held to the JAX package's lane route), and the T=30 golden
+    through SolverBoxDDP."""
     from aslr_to_tpu_torch import SolverSettings, stiffness_continuation, two_dof_sea
     from aslr_to_tpu_torch import two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.solvers.ddp import SolverBoxDDP
 
     w = two_dof_vsa_boxddp(T=30, dtype=torch.float64)
     golden("BoxDDP T=30", "golden/vsa_boxddp_T30.npz", w,
@@ -1885,6 +2419,19 @@ def golden_phase():
                                          "golden", "vsa_homotopy_T100.npz"))["cost"])
     log(f"  homotopy T=100 against the generic route's golden vsa_homotopy_T100.npz: cost "
         f"{cost} against {generic} ({cost / generic - 1:+.3e} relative; not held, as above)")
+
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                               "vsa_boxddp_T30.npz"))
+    w = two_dof_vsa_boxddp(T=30, dtype=torch.float64)
+    solver = SolverBoxDDP(w.problem, w.bounds)
+    solver.th_stop = 1e-7
+    res = solver.solve(maxiter=25)
+    cost, iters = float(res.cost), int(res.iterations)
+    log(f"  SolverBoxDDP T=30 f64 on the card: cost {cost} (golden {float(ref['cost'])}), "
+        f"iterations {iters} (golden {int(ref['iters'])})")
+    if not (abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"]))
+            and iters == int(ref["iters"])):
+        raise AssertionError("SolverBoxDDP does not reproduce vsa_boxddp_T30.npz on the card")
 
 
 def table_kernel_cases(dtype, B_target=None, B_box=None):
@@ -2019,6 +2566,7 @@ def table_kernels_phase(report):
     in both types."""
     from aslr_to_tpu_torch.kernels import build
 
+    counts = {}     # each case's operations, counted on its f64 plain call (as in f32)
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         cases, equal_rows = table_kernel_cases(dtype)
@@ -2028,7 +2576,10 @@ def table_kernels_phase(report):
             torch.cuda.synchronize()
             if build.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"{label}: the wrapper did not launch its kernel")
-            want, plain_ms = timed_once(plain)
+            if tag == "f64":
+                want, counts[label] = counted(plain)
+            else:
+                want, plain_ms = timed_once(plain)
             rel, err = compare(label, got, want, 1e-9 if tag == "f64" else None)
             want_f = flat(want)
             differ = [k for k, g in flat(got).items() if not same_bits(g, want_f[k])]
@@ -2050,7 +2601,7 @@ def table_kernels_phase(report):
             # shorter than the wrapper's host time, which CUDA events count
             t["ms"], t["events_ms"] = device_ms(kern, 10, f"{name}_kernel"), cuda_ms(kern, 10)
             t["plain_ms"] = plain_ms
-            t["ops"] = count_ops(plain) // (2 if name == "rollout1" else 1)
+            t["ops"] = counts[label] // (2 if name == "rollout1" else 1)
             t["bound_ms"], t["bound_by"], t["bytes"] = bound(
                 t["ops"], *io_values(name, T, ndx, nu, **io_kw), B, 4, tbytes)
             log(f"  {label} f32 T={T} B={B}: kernel {t['ms']:.4f} ms (device; CUDA events "
@@ -2086,27 +2637,72 @@ def table_kernels_phase(report):
             f"({by})")
 
 
-def pk_parity(label, report, path, problem, bounds, use_gaps, route, T, expect, settings):
-    """One f64 solve of a per-knot route through the kernels (driven with
-    the launch counters reset, as ``path``) against its plain backend, B=64:
-    at least B-1 lanes equal in iterations and flags with cost within rtol
-    1e-8."""
+def pk_parity_cases():
+    """The per-knot routes held to their plain backends in f64 (B=64,
+    maxiter MAXITER_PK_PARITY): the MPC at T=60, BoxDDP, BoxFDDP and fast
+    BoxDDP in the pinched box at T=40; each (label, path, problem, bounds,
+    use_gaps, route, T, expect, settings)."""
+    from aslr_to_tpu_torch import SolverSettings, stack_knots, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.measure import T_MPC, mpc_problem, pinched_box
+
+    f64 = torch.float64
+    pk_settings = SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5, boxqp_warm_iters=2)
+    Tb = T_PK_PARITY_BOX
+    w = two_dof_vsa_boxddp(T=Tb, dtype=f64)
+    stacked = dataclasses.replace(w.problem, running=stack_knots([w.problem.running] * Tb),
+                                  per_knot=True)
+    box = pinched_box(Tb, f64, knots=range(Tb // 2 - 5, Tb // 2 + 5))
+    return (("MPC tracking (lanes)", "pk_parity_mpc", mpc_problem(T_MPC, f64), None, True,
+             "lanes", T_MPC, ("linearize", "riccati_fddp", "rollout2"),
+             SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5)),
+            ("pinched BoxDDP (lanes)", "pk_parity_boxddp", stacked, box, False, "lanes", Tb,
+             ("linearize", "riccati_box", "rollout2"), pk_settings),
+            ("pinched BoxFDDP (lanes)", "pk_parity_boxfddp", stacked, box, True, "lanes", Tb,
+             ("linearize", "riccati_boxfddp", "rollout2"), pk_settings),
+            ("pinched BoxDDP (fast)", "pk_parity_fast_boxddp", stacked, box, False, True, Tb,
+             ("linearize", "rollout1"), pk_settings))
+
+
+def pk_solver(problem, bounds, use_gaps, route, settings, backend):
     from aslr_to_tpu_torch import make_batched_solver
+
+    return make_batched_solver(problem, settings, use_gaps=use_gaps, bounds=bounds,
+                               use_fast_path=route, backend=backend)
+
+
+def pk_parity_launches(report):
+    """Each route of pk_parity_cases through the kernels, driven as its
+    path (the rows of the box tables' K5 and K6 take their launches from
+    two of them); their parity runs in a worker (per_knot_checks)."""
+    from aslr_to_tpu_torch.measure import x0_batch
+
+    x0s = x0_batch(B_PK_PARITY, torch.float64, 6)
+    for label, path, problem, bounds, use_gaps, route, T, expect, settings in pk_parity_cases():
+        solve = pk_solver(problem, bounds, use_gaps, route, settings, "auto")
+        _, t = drive(path, report, lambda: solve(x0s), expect)
+        log(f"  {label} f64 T={T} B={B_PK_PARITY} through the kernels: {t:.3f} s")
+
+
+def pk_parity(label, path, problem, bounds, use_gaps, route, T, expect, settings):
+    """One f64 solve of a per-knot route through the kernels (every kernel
+    in ``expect`` launched) against its plain backend, B=64: at least B-1
+    lanes equal in iterations and flags with cost within rtol 1e-8."""
+    from aslr_to_tpu_torch.kernels import build
     from aslr_to_tpu_torch.measure import x0_batch
 
     x0s = x0_batch(B_PK_PARITY, torch.float64, 6)
     res = {}
     for backend in ("auto", "plain"):
-        solve = make_batched_solver(problem, settings, use_gaps=use_gaps, bounds=bounds,
-                                    use_fast_path=route, backend=backend)
-        if backend == "auto":
-            res[backend], t = drive(path, report, lambda: solve(x0s), expect)
-        else:
-            t0 = time.perf_counter()
-            res[backend] = solve(x0s)
-            torch.cuda.synchronize()
-            t = time.perf_counter() - t0
-        log(f"  {label} f64 T={T} B={B_PK_PARITY} {backend} backend: {t:.3f} s")
+        solve = pk_solver(problem, bounds, use_gaps, route, settings, backend)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res[backend] = solve(x0s)
+        torch.cuda.synchronize()
+        log(f"  {label} f64 T={T} B={B_PK_PARITY} {backend} backend: "
+            f"{time.perf_counter() - t0:.3f} s")
+        missing = [k for k in expect if build.LAUNCHES[k] <= 0]
+        if backend == "auto" and missing:
+            raise AssertionError(f"{label}: kernels {missing} were not launched ({path})")
     lanes_equal(f"{label}: kernels against the plain backend", res["auto"], res["plain"],
                 B_PK_PARITY, x0s)
 
@@ -2116,7 +2712,8 @@ def per_knot_phase(report, card):
     """The per-knot paths (measure.py: mpc_tracking, fast_mpc_tracking,
     pk_boxddp) on the card, f32: solves/s and the convergence accounting,
     the fast route within 3 points of the lane route, the TPU's converged
-    share beside the MPC's, and the pinched knots clamped."""
+    share beside the MPC's, and the pinched knots clamped; then the f64
+    routes of pk_parity_cases through the kernels, for their launches."""
     from aslr_to_tpu_torch.measure import MPC_SOLVES, PINCH, PINCHED, build_path, path_T
 
     lanes = solve_path("mpc_tracking", report, card, ("linearize", "riccati_fddp", "rollout2"),
@@ -2142,32 +2739,20 @@ def per_knot_phase(report, card):
         f"have a torque exactly on +-{PINCH} ({int(on.sum())} controls)")
     if not bool(on.any()):
         raise AssertionError("pk_boxddp: no control sits on the pinched knots' box")
+    pk_parity_launches(report)
 
 
-@phase("per-knot checks")
-def per_knot_checks_phase(report):
-    """f64 parity of each per-knot route against its plain backend
-    (B=64), and the generic route against the lane route (T=20, B=16)."""
+def per_knot_checks():
+    """A worker's: f64 parity of each per-knot route against its plain
+    backend (pk_parity_cases), and the generic route against the lane
+    route (T=20, B=16)."""
     from aslr_to_tpu_torch import SolverSettings, make_batched_solver, stack_knots
     from aslr_to_tpu_torch import two_dof_vsa_boxddp
-    from aslr_to_tpu_torch.measure import T_MPC, mpc_problem, pinched_box, x0_batch
+    from aslr_to_tpu_torch.measure import mpc_problem, pinched_box, x0_batch
 
     f64 = torch.float64
-    pk_settings = SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5, boxqp_warm_iters=2)
-    pk_parity("MPC tracking (lanes)", report, "pk_parity_mpc", mpc_problem(T_MPC, f64), None,
-              True, "lanes", T_MPC, ("linearize", "riccati_fddp", "rollout2"),
-              SolverSettings(maxiter=MAXITER_PK_PARITY, th_stop=1e-5))
-    Tb = T_PK_PARITY_BOX
-    w = two_dof_vsa_boxddp(T=Tb, dtype=f64)
-    stacked = dataclasses.replace(w.problem, running=stack_knots([w.problem.running] * Tb),
-                                  per_knot=True)
-    box = pinched_box(Tb, f64, knots=range(Tb // 2 - 5, Tb // 2 + 5))
-    pk_parity("pinched BoxDDP (lanes)", report, "pk_parity_boxddp", stacked, box, False, "lanes",
-              Tb, ("linearize", "riccati_box", "rollout2"), pk_settings)
-    pk_parity("pinched BoxFDDP (lanes)", report, "pk_parity_boxfddp", stacked, box, True,
-              "lanes", Tb, ("linearize", "riccati_boxfddp", "rollout2"), pk_settings)
-    pk_parity("pinched BoxDDP (fast)", report, "pk_parity_fast_boxddp", stacked, box, False,
-              True, Tb, ("linearize", "rollout1"), pk_settings)
+    for case in pk_parity_cases():
+        pk_parity(*case)
 
     # the generic route (the reference) against the lane route
     Tg, Bg = T_PK_GENERIC, B_PK_GENERIC
@@ -2191,35 +2776,72 @@ def per_knot_checks_phase(report):
         lanes_equal(f"{label} lanes against generic", res["lanes"], res[False], Bg, x0s)
 
 
+# the checks that solve on the plain backend or the generic route, each a
+# worker process's: those solves run thousands of small kernels a loop
+# pass, so each waits on its host and leaves the card idle, and side by
+# side they take the time of the longest. The tuples are the workers, one
+# a core of the card's host (8 on the H100 machine), below this process in
+# priority; they start once the build is done and run beside every phase,
+# stopped while a phase times (quiet).
+CHECKS = {"parity double pendulum": pendulum_parity_check,
+          "parity per-knot": per_knot_checks,
+          "K3 nl 7 at 4 B_NDOF": k3_batch_check,
+          "golden": golden_check,
+          "pendulum north star": pendulum_northstar_check,
+          "parity BoxDDP": partial(parity_check, "BoxDDP"),
+          "parity SEA FDDP": partial(parity_check, "SEA FDDP"),
+          "parity BoxFDDP": partial(parity_check, "BoxFDDP"),
+          "generic BoxDDP": partial(generic_check, "BoxDDP"),
+          "generic SEA FDDP": partial(generic_check, "SEA FDDP"),
+          "parity homotopy main": partial(homotopy_parity_check, "main"),
+          "parity homotopy rescue": partial(homotopy_parity_check, "rescue"),
+          **{f"parity 7-DoF {family} {route}{at}": partial(ndof_parity_check, family, route, T)
+             for family in NDOF_FAMILIES for route in ("lanes", "fast")
+             for at, T in (("", T_NDOF_PARITY), (" T=100", 100))},
+          "generic 7-DoF BoxFDDP": partial(ndof_generic_check, "BoxFDDP"),
+          "generic 7-DoF DDP": partial(ndof_generic_check, "DDP")}
+CHECK_WORKERS = (("parity 7-DoF BoxFDDP fast",), ("parity per-knot",),
+                 ("parity 7-DoF BoxFDDP lanes", "parity 7-DoF DDP lanes", "parity 7-DoF DDP fast",
+                  "golden"),
+                 ("parity homotopy rescue", "generic 7-DoF BoxFDDP", "generic 7-DoF DDP"),
+                 ("parity homotopy main", "generic BoxDDP", "pendulum north star"),
+                 ("parity BoxDDP", "parity SEA FDDP", "generic SEA FDDP"),
+                 ("parity BoxFDDP", "parity double pendulum"), ("K3 nl 7 at 4 B_NDOF",))
+# checks whose plain versions queue large kernels on the card: their
+# worker runs with CUDA_LAUNCH_BLOCKING=1, so that no more than one of its
+# kernels is left to run once it is stopped (quiet)
+BLOCKING_CHECKS = ("K3 nl 7 at 4 B_NDOF",)
+
+
 def main():
     card, smi = device_phase()
     build_phase()
     report = {name: dict(name=name, route="cuda", **meta, library_ms=None,
                          library_note=NO_LIBRARY) for name, meta in KERNELS.items()}
-    kernels_phase(report)
-    stage_box_kernels_phase(report)
-    probe_phase(report)
-    ndof_kernels_phase(report)
-    pendulum_kernels_phase(report)
-    lanes_boxddp = main_path_phase(report, smi)
-    lanes_sea_cold = sea_warm_phase(report, smi)
-    boxfddp_phase(report, smi)
-    sevendof_phase(report, smi)
-    fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
-    table_kernels_phase(report)
-    per_knot_phase(report, smi)
-    homotopy_phase(report, smi)
-    pendulum_phase(report, smi)
-    generic_timed_phase(smi)
-    # the checks below time nothing: the workers run beside this process
-    running = start_checks()
+    # the workers run beside every phase below and are stopped while one
+    # of them times (quiet)
+    WORKERS.extend(start_checks())
     try:
-        per_knot_checks_phase(report)
-        golden_phase()
-        pendulum_northstar_phase()
-        finish_checks(running)
+        kernels_phase(report)
+        stage_box_kernels_phase(report)
+        probe_phase(report)
+        ndof_kernels_phase(report)
+        ndof_box_kernels_phase(report)
+        pendulum_kernels_phase(report)
+        lanes_boxddp = main_path_phase(report, smi)
+        lanes_sea_cold = sea_warm_phase(report, smi)
+        boxfddp_phase(report, smi)
+        sevendof_phase(report, smi)
+        sevendof_box_phase(report, smi)
+        fast_path_phase(report, smi, lanes_boxddp, lanes_sea_cold)
+        table_kernels_phase(report)
+        per_knot_phase(report, smi)
+        homotopy_phase(report, smi)
+        pendulum_phase(report, smi)
+        generic_timed_phase(smi)
+        finish_checks(WORKERS)
     finally:
-        stop_checks(running)
+        stop_checks(WORKERS)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for row in report.values():
         missing = [k for k in keys if k not in row]

@@ -26,8 +26,12 @@ rescue against its plain backend in f64, and the rescue keeping the lanes
 it does not take to the bit; K4 on the double pendulum's data (T=10) to
 the bit at B=1, 15, 200 and 4096, and the pendulum's generic route through
 K4 against the generic sweep in f64, and its line search's two forms (all
-step lengths at once, one a round) against each other; P against its
-plain version:
+step lengths at once, one a round) against each other; K5 at (12, 3) and
+(28, 7) and K3 and K6 at nl 3 and 7 without box or gaps and with a box and
+gaps on ragged batches to the bit, their launches, the refusals of K2
+above ndx 8, a box without gaps and box tables at n-DoF, and the 7-DoF
+BoxFDDP and DDP solves on the lane and fast routes against their plain
+backends; P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -981,3 +985,128 @@ def test_generic_line_search_forms_agree_on_card(cuda, monkeypatch):
     assert torch.equal(a.converged, b.converged) and torch.equal(a.diverged, b.diverged)
     assert torch.equal(a.log.steps.nan_to_num(-1.0), b.log.steps.nan_to_num(-1.0))
     np.testing.assert_allclose(a.cost.cpu().numpy(), b.cost.cpu().numpy(), rtol=1e-8)
+
+
+def _ndof_box_args(nl, dtype, device, B, warm):
+    """The n-DoF inputs of ``_ndof_inputs`` with a box of the lanes that the
+    controls (3·randn) cross, joint j in [-(1 + 0.1 j), 1.2 + 0.1 j], and
+    K5's warm start kprev (0.5·randn, 2 QP iterations) or None (cold, 6)."""
+    spec, xs, us, wterm, derivs, fs, reg = _ndof_inputs(nl, dtype, device, B)
+    j = torch.arange(nl, dtype=dtype, device=device)[:, None]
+    lb, ub = (b.expand(nl, B).contiguous() for b in (-(1.0 + 0.1 * j), 1.2 + 0.1 * j))
+    g = torch.Generator(device=device).manual_seed(1)
+    kprev = (0.5 * torch.randn(T, nl, B, generator=g, device=device, dtype=dtype)
+             if warm else None)
+    k5 = derivs + (fs, us, kprev, lb, ub, reg, 2 if warm else 6)
+    return spec, xs, us, wterm, fs, lb, ub, k5
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("nl", [3, 7])
+def test_ndof_boxfddp_kernel_matches_plain_version_to_the_bit(cuda, nl, batch, warm, dtype):
+    """K5 at (12, 3) and, in its wide layout, (28, 7), on ragged batches in a
+    box that binds: equal to its plain version to the bit, flags included."""
+    *_, k5 = _ndof_box_args(nl, dtype, cuda, batch, warm)
+    before = build.LAUNCHES["riccati_boxfddp"]
+    got = riccati.riccati_boxfddp_backward(*k5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["riccati_boxfddp"] == before + 1
+    _assert_same_bits(got, riccati.riccati_boxfddp_plain(*k5))
+    us, lb, ub = k5[10], k5[12][None], k5[13][None]
+    assert bool(((-got.k == lb - us) | (-got.k == ub - us)).any())
+    if batch > 1:
+        assert not bool(got.ok.all()) and bool(got.ok.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("variant", ["sea", "sea_box_gaps"])
+@pytest.mark.parametrize("nl", [3, 7])
+def test_ndof_rollout_variants_match_plain_version_to_the_bit(cuda, nl, variant, batch, dtype):
+    """K3 and K6 at nl 3 and 7 without box or gaps (DDP's) and with a box
+    and gaps (BoxFDDP's) on ragged batches, on K5's gains: equal to their
+    plain versions to the bit, K6 to K3's first trial; the box clips."""
+    spec, xs, us, wterm, fs, lb, ub, k5 = _ndof_box_args(nl, dtype, cuda, batch, True)
+    bw = riccati.riccati_boxfddp_plain(*k5)
+    k, K = torch.where(bw.ok, bw.k, 0.0), torch.where(bw.ok, bw.K, 0.0)
+    ones = torch.ones(batch, dtype=dtype, device=cuda)
+    infeas = (torch.arange(batch, device=cuda) % 2).to(dtype)
+    tail = (lb, ub, fs, infeas) if variant == "sea_box_gaps" else (None, None, None, None)
+    args = (spec, xs, us, k, K, xs[0].contiguous(), ones, 0.5 * ones, wterm) + tail
+    k6_args = args[:6] + args[7:]
+    before = dict(build.LAUNCHES)
+    got = vsa_kernels.rollout2(*args)
+    one = vsa_kernels.rollout1(*k6_args)
+    torch.cuda.synchronize()
+    for name in ("rollout2", "rollout1"):
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    for g, w in zip(got, vsa_kernels.rollout2_plain(*args)):
+        _assert_same_bits(g, w)
+    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6_args))
+    first, _ = vsa_kernels.rollout2(*k6_args[:7], 0.5 * k6_args[6], *k6_args[7:])
+    _assert_same_bits(one, first)
+    if variant == "sea_box_gaps":
+        assert bool(((got[0].us == lb[None]) | (got[0].us == ub[None])).any())
+
+
+def test_ndof_box_launches_on_card(cuda):
+    """K5 at (28, 7) in its wide layout: a warp a scenario, 256 blocks at
+    B=1024, two blocks an SM in f32 and one in f64; K6 at nl 7 in DDP's and
+    BoxFDDP's variants 128 blocks, K3 wide at B=1024 and general at 4096."""
+    k5 = build.launch_of("riccati_boxfddp", torch.float32, 1024)
+    assert (k5["grid"], k5["threads"], k5["blocks_per_sm"]) == (256, 128, 2)
+    assert build.launch_of("riccati_boxfddp", torch.float64, 1024)["blocks_per_sm"] == 1
+    for variant in ("sea", "sea box gaps"):
+        assert build.launch_of("rollout1", torch.float32, 1024, variant=variant)["grid"] == 128
+        assert build.launch_of("rollout2", torch.float32, 1024, variant=variant)["layout"] == \
+            _k3_layout_at(1024)
+        assert build.launch_of("rollout2", torch.float32, 4096,
+                               variant=variant)["layout"] == "general"
+
+
+def test_ndof_box_refusals_on_card(cuda):
+    """K2 above ndx 8, a box without gaps at nl 7 (BoxDDP's, which the JAX
+    package's n-DoF lane route cannot take) and n-DoF box tables raise
+    NotImplementedError naming the instances; the C launcher of the box
+    kernel returns -1 for box tables at (28, 7)."""
+    spec, xs, us, wterm, fs, lb, ub, k5 = _ndof_box_args(7, torch.float64, cuda, 8, True)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ndx=28 nu=7; its instances: ndx=8 nu=4"):
+        riccati.riccati_box_backward(*(k5[:9] + k5[10:]))
+    ones = torch.ones(8, dtype=torch.float64, device=cuda)
+    args = (spec, xs, us, us, us[..., None, :].expand(T, 7, 28, 8).contiguous(),
+            xs[0].contiguous(), ones, ones, wterm, lb, ub)
+    with pytest.raises(NotImplementedError, match="no kernel instance for nl=7 sea box;"):
+        vsa_kernels.rollout2(*args)
+    tables = tuple(b[:, 0][None].expand(T, 7).contiguous() for b in (lb, ub))
+    with pytest.raises(NotImplementedError, match="ndx=28 nu=7 box tables; its instances"):
+        riccati.riccati_boxfddp_backward(*k5[:12], *tables, *k5[14:], per_knot_box=True)
+    assert build.LAUNCHES == before
+    p = build.ptr
+    out = [torch.empty(1, device=cuda) for _ in range(8)] + \
+        [torch.empty(1, dtype=torch.bool, device=cuda) for _ in range(2)]
+    code = build.entry("aslr_riccati_box", torch.float64)(
+        28, 7, 1, *[p(a) for a in k5[:10]], p(k5[10]), p(k5[11]), None, None, p(tables[0]),
+        p(tables[1]), p(k5[14]), T, 8, 2, *[p(o) for o in out], build.stream_of(xs))
+    assert code == -1
+
+
+@pytest.mark.parametrize("route", ["lanes", "fast"])
+@pytest.mark.parametrize("family", ["sevendof_box", "sevendof_ddp"])
+def test_ndof_box_and_ddp_solves_match_plain_on_card(cuda, family, route):
+    """The 7-DoF BoxFDDP (the sevendof_box paths' box) and DDP solves on the
+    lane and fast routes through their kernels equal the same routes through
+    the plain versions to the bit, f64, T=12, B=8, maxiter 4."""
+    from aslr_to_tpu_torch.measure import SEEDS, sevendof_solver, x0_batch
+
+    name = family if route == "lanes" else f"fast_{family}"
+    x0s = x0_batch(8, torch.float64, SEEDS[name], nx=28)
+    k, p = (sevendof_solver(name, T, torch.float64, backend=backend, maxiter=4)(x0s)
+            for backend in ("auto", "plain"))
+    for field in ("xs", "us", "cost", "iterations", "converged", "diverged"):
+        a, b = getattr(k, field), getattr(p, field)
+        assert torch.equal(a.isnan(), b.isnan()) if a.is_floating_point() else True, field
+        assert torch.equal(a.nan_to_num(0.0) if a.is_floating_point() else a,
+                           b.nan_to_num(0.0) if b.is_floating_point() else b), field

@@ -244,13 +244,16 @@ def test_ndof_rollout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib, kernel):
 
 
 def test_rollout_refuses_a_variant_it_has_no_instance_for(roll_lib):
-    """The 3-DoF arm without gaps has no instance: the wrappers raise before
-    any launch and name the instances there are."""
-    args = _ndof_args(3, 4, torch.float64, 6)[:11]
+    """The 3-DoF arm in a box without gaps (BoxDDP's rollout, which the JAX
+    package's n-DoF lane route cannot take) has no instance: the wrappers
+    raise before any launch and name the instances there are."""
+    args = list(_ndof_args(3, 4, torch.float64, 6)[:11])
+    args[9], args[10] = (torch.full((3, 4), b, dtype=torch.float64) for b in (-1.0, 1.0))
     before = dict(build.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="no kernel instance for nl=3 sea;"):
+    with pytest.raises(NotImplementedError, match="no kernel instance for nl=3 sea box;"):
         vsa_kernels.rollout2(*args)
-    with pytest.raises(NotImplementedError, match="nl=3 sea gaps, nl=7 sea gaps"):
+    with pytest.raises(NotImplementedError,
+                       match="nl=3 sea gaps, nl=3 sea, nl=3 sea box gaps, nl=7 sea gaps"):
         vsa_kernels.rollout1(*_k6_args(args))
     assert build.LAUNCHES == before
 
