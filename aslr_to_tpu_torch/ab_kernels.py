@@ -14,17 +14,22 @@ launches after a warm-up, every case of its ``kernel_cases`` at the paths'
 shapes in float32: K1 (VSA, SEA), K2, K4 (nu 2 and 4), K5, K3 and K6 (box,
 unbounded, SEA gaps) at T=100, B=4096, K1, K4, K3 and K6 at the 3- and
 7-DoF arms' instances at T=100, B=1024, and the 7-DoF ones again at
-B=4096. Each tree's build also reports its
+B=4096; then K5 at (28, 7) on the inputs of chip_smoke's n-DoF box kernel
+phase (``ndof_box_cases``: the sevendof_box path's box, warm from zero
+kprev) at B=1024 and 4096. Each tree's build also reports its
 ``-Xptxas -v`` lines per instance (registers, stack frame, spills).
 
 ``--iterate`` adds the inputs that K1 and K3 at nl 7 receive inside the
 7-DoF lane solve (measure.py's ``sevendof`` path, seed 3) at B=1024 and
-4096: the first tree, in a process of its own, runs the solve and keeps
-the arguments of the linearization of loop pass ``--iterate-pass`` and of
-the first two-trial rollout after it (``build/ab_iterate.pt`` under the
-working directory); every run then times each tree's kernels on them too,
-after holding each to its plain version to the bit there ("K1 sea7
-iterate", "K3 sea7 iterate"). ``--cases`` times only the cases whose label
+4096, and K5 at (28, 7) inside the 7-DoF box lane solve (``sevendof_box``,
+seed 8) at B=1024: the first tree, in a process of its own, runs the
+solves and keeps the arguments of the linearization of loop pass
+``--iterate-pass`` and of the first two-trial rollout after it, and of
+K5's last launch in chip_smoke's ``k5_iterate`` (3 passes)
+(``build/ab_iterate.pt`` under the working directory); every run then
+times each tree's kernels on them too, after holding each to its plain
+version to the bit there ("K1 sea7 iterate", "K3 sea7 iterate", "K5 sea7
+box iterate"). ``--cases`` times only the cases whose label
 matches a regular expression, so that no other kernel runs before them in
 a tree's process. The last line is one JSON record: per tree, the ptxas
 lines; per run, the times. Needs a CUDA device.
@@ -77,6 +82,9 @@ if mode == "capture":  # the solver's inputs of K1 and K3 at nl 7 at one loop pa
             lane_solver.linearize, lane_solver.rollout2 = own
         if len(got) != 2:
             raise SystemExit(f"B={B}: the solve ran {seen['passes']} passes, not {at}")
+        if B == 1024:  # K5 at (28, 7) in the sevendof_box solve
+            got["riccati_boxfddp"] = [a.clone() if torch.is_tensor(a) else a
+                                      for a in cs.k5_iterate(torch.float32, B)]
         captured[B] = got
     torch.save(captured, fname)
     print(json.dumps(dict(captured=sorted(captured))))
@@ -93,20 +101,29 @@ for label, case in cs.kernel_cases(torch.float32, 1024, ("sea3", "sea7"), T=100)
 for label, case in cs.kernel_cases(torch.float32, 4096, ("sea7",), T=100).items():
     if cases.search(f"{label} B=4096"):
         times[f"{label} B=4096"] = cs.cuda_ms(case[0], reps)
+for B in (1024, 4096):  # K5 at (28, 7) on the n-DoF box kernel phase's inputs
+    label = f"riccati_boxfddp[sea7 box] B={B}"
+    if cases.search(label):
+        times[label] = cs.cuda_ms(cs.ndof_box_cases(torch.float32, B, ("sea7",))
+                                  ["riccati_boxfddp[sea7 box]"][0], reps)
+        torch.cuda.empty_cache()
 if len(sys.argv) > 4:  # the captured solver iterate, held to the plain versions first
     w = seven_dof_sea(T=100, dtype=torch.float32)
     spec = vk.extract_vsa_spec(w.problem, None)
+    from aslr_to_tpu_torch.kernels import riccati as rk
     for B, got in torch.load(sys.argv[4]).items():
         for label, fn, plain, args in (
-                ("K1 sea7 iterate", vk.linearize, vk.linearize_plain, got["linearize"]),
-                ("K3 sea7 iterate", vk.rollout2, vk.rollout2_plain, got["rollout2"])):
-            if not cases.search(f"{label} B={B}"):
+                ("K1 sea7 iterate", vk.linearize, vk.linearize_plain, [spec] + got["linearize"]),
+                ("K3 sea7 iterate", vk.rollout2, vk.rollout2_plain, [spec] + got["rollout2"]),
+                ("K5 sea7 box iterate", rk.riccati_boxfddp_backward, rk.riccati_boxfddp_plain,
+                 got.get("riccati_boxfddp"))):
+            if args is None or not cases.search(f"{label} B={B}"):
                 continue
-            want, out = cs.flat(plain(spec, *args)), cs.flat(fn(spec, *args))
+            want, out = cs.flat(plain(*args)), cs.flat(fn(*args))
             differ = [k for k, v in out.items() if not cs.same_bits(v, want[k])]
             if differ:
                 raise SystemExit(f"{label} B={B}: {differ} differ from the plain version")
-            times[f"{label} B={B}"] = cs.cuda_ms(lambda: fn(spec, *args), reps)
+            times[f"{label} B={B}"] = cs.cuda_ms(lambda: fn(*args), reps)
 print(json.dumps(dict(times=times)))
 """
 
@@ -129,7 +146,8 @@ def main(argv=None):
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--iterate", action="store_true",
-                    help="also time K1 and K3 at nl 7 on a 7-DoF lane solve's inputs")
+                    help="also time K1 and K3 at nl 7 on a 7-DoF lane solve's inputs, and K5 "
+                         "at (28, 7) on a 7-DoF box lane solve's")
     ap.add_argument("--iterate-pass", type=int, default=5,
                     help="the loop pass whose inputs --iterate keeps")
     ap.add_argument("--cases", default="",

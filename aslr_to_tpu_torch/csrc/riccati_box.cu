@@ -470,13 +470,15 @@ __device__ inline void box_sweep(const BoxSweep<S>& a) {
 //     factor and solves in the exchange (PARK), where its 56 registers
 //     would spill.
 // box_variants.py --shape 28x7 times each choice against its alternative
-// (K4's). K5 there (QP): the tile gains the knot's controls and warm start,
-// the scratch the scenario's box; the BoxQP runs on the group of 32 lanes
-// (boxqp_group: lanes 0-4 the Armijo trials) on Quu read from the exchange,
-// not from 49 registers a lane, and the row of Qxx is parked in f32 too:
-// the factor and the QP's iterates hold about 100 values a lane. In the
-// general layout K5 would not fit: two stages of its 2,086 rows and four
-// scratch regions come to about 164 KB a block in f32 and 261 KB in f64.
+// (K4's and K5's). K5 there (QP): the tile gains the knot's controls and
+// warm start, the scratch the scenario's box; the BoxQP and the gains' solve
+// are spread over the warp (boxqp.cuh::boxqp_rows: a lane a row, the trials
+// on groups of seven lanes), on Quu read once a row from the exchange, the
+// masked factor kept in the exchange of Vxx, which nothing reads between
+// the Quu products and the knot's new Vxx; the row of Qxx is parked in f32
+// too. In the general layout K5 would not fit: two stages of its 2,086
+// rows and four scratch regions come to about 164 KB a block in f32 and
+// 261 KB in f64.
 constexpr int kWideNdx = 16;        // K4 and K5 above this ndx take the wide layout
 constexpr int kWideThreads = 128;   // a block of the wide layout: a warp a scenario
 
@@ -711,22 +713,18 @@ __device__ inline void fddp_sweep_wide(const BoxSweep<S>& a) {
     S k[NU], kc[NU];
     if constexpr (QP) {
       // box QP on du in (lb - u, ub - u), warm-started from -kprev, on Quu
-      // in the exchange; column r of the free-subspace gains: masked solve
-      // with row r of Qxu
-      const S(&H)[NU][NU] = *reinterpret_cast<const S(*)[NU][NU]>(quus);
+      // in the exchange, spread over the warp (boxqp_rows: this lane's QP
+      // row qr); column r of the free-subspace gains: masked solve with row
+      // r of Qxu
       each<NU * NU>(quus, [&](int, S v) { quu_ok = quu_ok && finite(v); });
-      S low[NU], up[NU], du[NU], free[NU], Lf[NU][NU];
-      for (int j = 0; j < NU; ++j) {
-        const S u_t = in[L::rUs + j];
-        low[j] = bx[j] - u_t;
-        up[j] = bx[NU + j] - u_t;
-        du[j] = a.kprev ? -in[L::rKp + j] : S(0);
-      }
-      boxqp_group<S, NU>(grp, H, Qu, low, up, a.qp_iters, du, free, Lf);
+      const int qr = qp_row<NU>();
+      const S u_t = in[L::rUs + qr];
+      S du[NU];
+      // the factor in the exchange of Vxx, which nothing reads before the
+      // knot's new Vxx is written
+      boxqp_rows<S, NU>(quus, Qu, bx[qr] - u_t, bx[NU + qr] - u_t,
+                        a.kprev ? -in[L::rKp + qr] : S(0), a.qp_iters, qxu, vxx, du, kc);
       for (int j = 0; j < NU; ++j) k[j] = -du[j];
-      S rhs[NU];
-      for (int i = 0; i < NU; ++i) rhs[i] = qxu[i] * free[i];
-      chol_solve<S, NU, true>(Lf, rhs, kc);
     } else {
       // k = Quu^-1 Qu; column r of K = Quu^-1 (row r of Qxu)
       S Quu[NU][NU], Lf[NU][NU];

@@ -371,6 +371,7 @@ B_PARITY, T_PARITY, B_PARITY_BOX, T_PARITY_BOX = 256, 40, 128, 40
 T_GENERIC, B_GENERIC, B_TIMED, MAXITER_TIMED = 40, 64, 256, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12              # H100 SXM float64 outside the tensor cores (data sheet)
 REG = 1e-9
 B_FILL = 16384                     # the kernels' batch-filling variant
 # the double pendulum: the passes of the path's solve tried for K4's
@@ -567,11 +568,12 @@ def io_values(name, T, ndx, nu, boxed=False, warm=False, gaps=False):
 
 
 def bound(ops, n_in, n_out, n_flags, B, itemsize, table_bytes=0):
-    """(bound_ms, bound_by, bytes): the least time for the work; the
-    per-knot tables, read once for the whole batch, add ``table_bytes``."""
+    """(bound_ms, bound_by, bytes): the least time for the work, its
+    operations at the peak of ``itemsize``'s type; the per-knot tables, read
+    once for the whole batch, add ``table_bytes``."""
     nbytes = (n_in + n_out) * B * itemsize + n_flags * B + table_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S
+    t_ops = ops / (F64_OPS_PER_S if itemsize == 8 else F32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
 
@@ -1272,6 +1274,13 @@ def ndof_box_kernels_phase(report):
             log(f"  {label} {tag} T={T_PATH} B={B_NDOF}: equal to the plain version to the bit "
                 f"(max abs err {err:.3e}){binds}")
             t["max_abs_err" if tag == "f64" else "max_abs_err_f32"] = err
+            if tag == "f64" and label == "riccati_boxfddp[sea7 box]":
+                # K5 at (28, 7), whose f64 registers its design answers: its f64 time too
+                t["ms_f64"] = cuda_ms(kern, 10)
+                t["bound_ms_f64"], by, nbytes = bound(
+                    ops[label], *io_values(name, T_PATH, ndx, nu, **io_kw), B_NDOF, 8)
+                log(f"  {label} f64 T={T_PATH} B={B_NDOF}: kernel {t['ms_f64']:.4f} ms, bound "
+                    f"{t['bound_ms_f64']:.4f} ms ({by}: {nbytes} bytes, {ops[label]} ops)")
             if tag == "f64":
                 continue
             t["ms"], t["plain_ms"] = cuda_ms(kern, 10), plain_ms

@@ -1,16 +1,19 @@
 // Enough of the CUDA runtime to compile a kernel source of
 // aslr_to_tpu_torch/csrc with g++ and run it on the CPU, for the tests:
 // the execution-space keywords vanish, a launch runs the blocks one after
-// another with one std::thread per CUDA thread, and the block and warp
-// primitives meet at a std::barrier over the block. That is exact only for
-// kernels in which every thread of a block reaches the same barriers,
-// votes and shuffles in the same order, as the box kernel's and the
-// rollout's do.
+// another with one std::thread per CUDA thread, __syncthreads meets at a
+// std::barrier over the block and the warp primitives (__syncwarp, votes,
+// shuffles) at one over the warp. That is exact only for kernels in which
+// every thread of a block reaches the same __syncthreads, and every thread
+// of a warp the same warp primitives, in the same order, as the box
+// kernel's and the rollout's do (a warp may branch where the others do
+// not, as long as all its lanes branch alike).
 #pragma once
 
 #include <barrier>
 #include <cmath>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -54,19 +57,21 @@ extern dim3_ blockIdx, blockDim;
 
 namespace cpu_cuda {
 extern std::barrier<>* block_barrier;
+extern std::vector<std::barrier<>*> warp_barriers;
 extern std::vector<double> slots;
 extern unsigned char* shared_memory;  // the kernel's dynamic shared memory, defined with it
 constexpr size_t kSharedBytes = 1 << 20;
 
 inline void sync() { block_barrier->arrive_and_wait(); }
+inline void warp_sync() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 
 // every thread posts v; returns the slots of its own warp
 template <class F>
 inline auto exchange(double v, F f) {
   slots[threadIdx.x] = v;
-  sync();
+  warp_sync();
   auto r = f(&slots[threadIdx.x & ~31u]);
-  sync();
+  warp_sync();
   return r;
 }
 
@@ -77,6 +82,12 @@ void launch(int grid, int block, size_t, cudaStream_t, F* kernel, A... args) {
     blockDim.x = block;
     std::barrier<> bar(block);
     block_barrier = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    warp_barriers.clear();
+    for (int w = 0; w * 32 < block; ++w) {
+      warps.push_back(std::make_unique<std::barrier<>>(block - w * 32 < 32 ? block - w * 32 : 32));
+      warp_barriers.push_back(warps.back().get());
+    }
     slots.assign(block, 0.0);
     std::memset(shared_memory, 0xff, kSharedBytes);  // NaN where nothing was staged
     std::vector<std::thread> threads;
@@ -91,7 +102,7 @@ void launch(int grid, int block, size_t, cudaStream_t, F* kernel, A... args) {
 }  // namespace cpu_cuda
 
 inline void __syncthreads() { cpu_cuda::sync(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { cpu_cuda::sync(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { cpu_cuda::warp_sync(); }
 inline unsigned __ballot_sync(unsigned mask, int p) {
   return cpu_cuda::exchange(p ? 1.0 : 0.0, [mask](const double* w) {
     unsigned r = 0;

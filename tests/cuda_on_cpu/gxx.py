@@ -2,8 +2,8 @@
 
 ``gxx_library`` compiles sources of ``aslr_to_tpu_torch/csrc`` against the
 stand-in headers beside this file (``cuda_runtime.h``, ``cuda_pipeline.h``,
-``runtime.cpp``: one thread per CUDA thread, the block and warp primitives
-at a barrier over the block). ``libm`` and ``ieee_sqrt`` give the plain
+``runtime.cpp``: one thread per CUDA thread, __syncthreads at a barrier
+over the block, the warp primitives at one over the warp). ``libm`` and ``ieee_sqrt`` give the plain
 versions the C library's transcendentals and a correctly rounded square
 root, so that they match the kernels so built to the bit.
 """

@@ -7,5 +7,6 @@ dim3_ blockIdx, blockDim;
 
 namespace cpu_cuda {
 std::barrier<>* block_barrier;
+std::vector<std::barrier<>*> warp_barriers;
 std::vector<double> slots;
 }  // namespace cpu_cuda

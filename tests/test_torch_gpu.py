@@ -31,7 +31,10 @@ step lengths at once, one a round) against each other; K5 at (12, 3) and
 gaps on ragged batches to the bit, their launches, the refusals of K2
 above ndx 8, a box without gaps and box tables at n-DoF, and the 7-DoF
 BoxFDDP and DDP solves on the lane and fast routes against their plain
-backends; P against its plain version:
+backends; K5 at (28, 7) (its BoxQP spread over the warp) in a binding box,
+one that clamps every control and one that clamps none, warm and cold, at
+B=1, 15 and 200 to the bit, one scenario with a non-finite Quu failing
+alone, and its launch; P against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -1091,6 +1094,75 @@ def test_ndof_box_refusals_on_card(cuda):
         28, 7, 1, *[p(a) for a in k5[:10]], p(k5[10]), p(k5[11]), None, None, p(tables[0]),
         p(tables[1]), p(k5[14]), T, 8, 2, *[p(o) for o in out], build.stream_of(xs))
     assert code == -1
+
+
+def _k5_wide_args(box, dtype, device, B, warm):
+    """K5's inputs at (28, 7) of ``_ndof_box_args`` in one of three boxes:
+    ``binds`` (theirs), ``all_clamped`` (lb = ub = 0.3: every control on its
+    bound, the free set empty) or ``none_clamped`` (±1e6: none on one)."""
+    *_, k5 = _ndof_box_args(7, dtype, device, B, warm)
+    if box != "binds":
+        top = 0.3 if box == "all_clamped" else 1e6
+        low = top if box == "all_clamped" else -top
+        k5 = k5[:12] + tuple(torch.full((7, B), v, dtype=dtype, device=device)
+                             for v in (low, top)) + k5[14:]
+    return k5
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("batch", [1, 15, 200])
+@pytest.mark.parametrize("box", ["binds", "all_clamped", "none_clamped"])
+def test_k5_wide_corners_match_plain_version_to_the_bit(cuda, box, batch, warm, dtype):
+    """K5 at (28, 7), its BoxQP spread over the warp (boxqp_rows), in a box
+    that binds, one that clamps every control (lb = ub) and one that clamps
+    none, warm (2 QP iterations) and cold (6), every tenth lane at a
+    negative reg, on ragged batches: equal to its plain version to the bit,
+    flags included."""
+    k5 = _k5_wide_args(box, dtype, cuda, batch, warm)
+    before = build.LAUNCHES["riccati_boxfddp"]
+    got = riccati.riccati_boxfddp_backward(*k5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["riccati_boxfddp"] == before + 1
+    _assert_same_bits(got, riccati.riccati_boxfddp_plain(*k5))
+    us, lb, ub = k5[10], k5[12][None], k5[13][None]
+    on = (-got.k == lb - us) | (-got.k == ub - us)
+    if box == "all_clamped":
+        assert bool(on.all()) and bool((got.K == 0).all())
+    elif box == "none_clamped":
+        assert not bool((on & got.ok[None, None]).any())
+    else:
+        assert bool(on.any()) and not bool(on.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_k5_wide_nonfinite_quu_fails_alone_on_card(cuda, dtype):
+    """Scenario 6's Luu infinite at knot 2 (its Quu not finite there): it
+    fails and is not retryable, every other scenario's outputs keep the bits
+    they have without it, and all equal the plain version to the bit."""
+    k5 = list(_k5_wide_args("binds", dtype, cuda, 15, True))
+    base = riccati.riccati_boxfddp_backward(*k5)
+    k5[6] = k5[6].clone()
+    k5[6][2, 3, 3, 6] = float("inf")
+    got = riccati.riccati_boxfddp_backward(*k5)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, riccati.riccati_boxfddp_plain(*k5))
+    assert bool(base.ok[6]) and not bool(got.ok[6]) and not bool(got.retryable[6])
+    rest = torch.arange(15, device=cuda) != 6
+    _assert_same_bits(type(got)(*(v[..., rest] for v in got)),
+                      type(base)(*(v[..., rest] for v in base)))
+
+
+@pytest.mark.parametrize("dtype,smem,blocks", [(torch.float32, 98176, 2),
+                                               (torch.float64, 194944, 1)], ids=["f32", "f64"])
+def test_k5_wide_launch_on_card(cuda, dtype, smem, blocks):
+    """K5 at (28, 7) at B=1024 and 4096: a warp a scenario in blocks of 128
+    threads (256 and 1024 blocks), 98,176 bytes of dynamic shared memory in
+    f32 (two blocks an SM: B=1024 in one wave on 132 SMs) and 194,944 in
+    f64 (one)."""
+    for B in (1024, 4096):
+        info = build.launch_of("riccati_boxfddp", dtype, B)
+        assert info == dict(grid=B // 4, threads=128, smem=smem, blocks_per_sm=blocks)
 
 
 @pytest.mark.parametrize("route", ["lanes", "fast"])

@@ -2,7 +2,7 @@
 
 The CUDA source compiles with g++ against the stand-ins of
 ``tests/cuda_on_cpu``: one thread per CUDA thread, and the warp's votes and
-shuffles at a barrier over the block (a shuffle whose mask leaves out its
+shuffles at a barrier over the warp (a shuffle whose mask leaves out its
 own or its source lane reads NaN). The wrapper, pointed at that library,
 is held against its plain version on the VSA and SEA arms at B=1, 15 and
 33 (each launch ends in a partial block; T=6, so a block holds the

@@ -4,8 +4,8 @@ gaps ("sea", DDP's rollout) and with a box of the lanes and gaps ("sea box
 gaps", BoxFDDP's).
 
 The CUDA sources compile with g++ against the stand-ins of
-``tests/cuda_on_cpu`` (one thread per CUDA thread, the block and warp
-primitives at a barrier over the block, a shuffle whose mask leaves out its
+``tests/cuda_on_cpu`` (one thread per CUDA thread, __syncthreads at a barrier
+over the block and the warp primitives at one over the warp, a shuffle whose mask leaves out its
 own or its source lane reading NaN, shared memory refilled with NaN bytes
 before each block). The wrappers, pointed at that library, are held to
 their plain versions to the bit in f64 and f32, NaNs and flags included:

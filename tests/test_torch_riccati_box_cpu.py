@@ -2,8 +2,8 @@
 K4 with Cholesky gains) run on the CPU.
 
 The CUDA source compiles with g++ against the stand-ins of
-``tests/cuda_on_cpu``: one thread per CUDA thread, the block and warp
-primitives at a barrier over the block, cp.async as a copy, and shared
+``tests/cuda_on_cpu``: one thread per CUDA thread, __syncthreads at a
+barrier over the block and the warp primitives at one over the warp, cp.async as a copy, and shared
 memory refilled with NaN bytes before each block, so an unstaged read
 shows. The wrappers, pointed at that library, are held against their plain
 versions on ragged batches (one 16-scenario block and a partial one; B=15

@@ -1,8 +1,8 @@
 """The rollouts (K3 and K6, ``csrc/rollout.cu``) run on the CPU.
 
 The CUDA source compiles with g++ against the stand-ins of
-``tests/cuda_on_cpu``: one thread per CUDA thread, the block and warp
-primitives at a barrier over the block (a shuffle whose mask leaves out its
+``tests/cuda_on_cpu``: one thread per CUDA thread, __syncthreads at a
+barrier over the block and the warp primitives at one over the warp (a shuffle whose mask leaves out its
 own or its source lane reads NaN), cp.async as a copy, and shared memory
 refilled with NaN bytes before each block, so an unstaged read shows. The
 wrappers, pointed at that library, are held against their plain versions
