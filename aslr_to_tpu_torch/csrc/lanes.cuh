@@ -240,12 +240,73 @@ __device__ inline void rnea(const VSAParams<NL>& P, const V* q, const V* v, cons
   }
 }
 
+// rnea with the joints' rotations from a source Eg(i) (read twice, in each
+// pass), whose forward pass carries the parent's velocities and
+// accelerations in registers instead of arrays indexed by the joint: where
+// the pass stays a loop (nl = 7), those arrays sat in local memory on the
+// knot's chain. The same operations in the same order as rnea's, so the
+// same bits; only the forces wait for the backward pass in arrays.
+template <class V, int NL, class ROT>
+__device__ inline void rnea_carry(const VSAParams<NL>& P, const V* v, const V* a, bool gravity,
+                                  V* tau, ROT Eg) {
+  Vec3<V> f_lin[NL], f_ang[NL];
+  const Vec3<V> zero = v_zero<V>();
+  Vec3<V> vp = zero, wp = zero, ap, alp = zero;
+  if (gravity) {
+    double mg[3] = {-P.gravity[0], -P.gravity[1], -P.gravity[2]};
+    ap = v_lift<V>(v_const<V>(mg));
+  } else {
+    ap = zero;
+  }
+  for (int i = 0; i < NL; ++i) {
+    const Mat3<V> E = Eg(i);
+    const auto p = v_const<V>(P.joint_pos[i]);
+    Vec3<V> vi = m_t_vec(E, v_add(vp, v_cross(wp, p)));
+    Vec3<V> wi = m_t_vec(E, wp);
+    Vec3<V> ai = m_t_vec(E, v_add(ap, v_cross(alp, p)));
+    Vec3<V> ali = m_t_vec(E, alp);
+    const auto axis = v_const<V>(P.axis[i]);
+    Vec3<V> wJ = {{v[i] * axis.x[0], v[i] * axis.x[1], v[i] * axis.x[2]}};
+    Vec3<V> aJ = {{a[i] * axis.x[0], a[i] * axis.x[1], a[i] * axis.x[2]}};
+    Vec3<V> w_tot = v_add(wi, wJ);
+    const Vec3<V> al_i = v_add(ai, v_cross(vi, wJ));
+    const Vec3<V> aa_i = v_add(v_add(ali, aJ), v_cross(w_tot, wJ));
+
+    const auto m_i = cst<V>(P.mass[i]);
+    const auto c = v_const<V>(P.com[i]);
+    const auto Ic = m_const<V>(P.inertia[i]);
+    Vec3<V> t1 = v_add(vi, v_cross(w_tot, c));
+    Vec3<V> h_lin = {{m_i * t1.x[0], m_i * t1.x[1], m_i * t1.x[2]}};
+    Vec3<V> h_ang = v_add(m_vec(Ic, w_tot), v_cross(c, h_lin));
+    Vec3<V> t2 = v_add(al_i, v_cross(aa_i, c));
+    Vec3<V> ha_lin = {{m_i * t2.x[0], m_i * t2.x[1], m_i * t2.x[2]}};
+    Vec3<V> ha_ang = v_add(m_vec(Ic, aa_i), v_cross(c, ha_lin));
+    f_lin[i] = v_add(ha_lin, v_cross(w_tot, h_lin));
+    f_ang[i] = v_add(ha_ang, v_add(v_cross(w_tot, h_ang), v_cross(vi, h_lin)));
+    vp = vi;
+    wp = w_tot;
+    ap = al_i;
+    alp = aa_i;
+  }
+  for (int i = NL - 1; i >= 0; --i) {
+    tau[i] = v_dot(v_const<V>(P.axis[i]), f_ang[i]);
+    if (i > 0) {
+      const Mat3<V> E = Eg(i);
+      Vec3<V> fp = m_vec(E, f_lin[i]);
+      Vec3<V> tp = v_add(m_vec(E, f_ang[i]), v_cross(v_const<V>(P.joint_pos[i]), fp));
+      f_lin[i - 1] = v_add(f_lin[i - 1], fp);
+      f_ang[i - 1] = v_add(f_ang[i - 1], tp);
+    }
+  }
+}
+
 // sweep c of mass_nle: c = 0 the nle (velocity v, no acceleration, with
 // gravity), c > 0 column c - 1 of M (no velocity, unit acceleration of
 // link c - 1, no gravity). c may differ from thread to thread: the inputs
 // are chosen by value, so every sweep runs the same instructions.
 // With GIVEN, the joints' rotations come in Eg (as rnea's).
-template <class V, int NL, bool GIVEN = false, class ROT = const Mat3<V>*>
+// With CARRY (a source Eg), rnea_carry.
+template <class V, int NL, bool GIVEN = false, class ROT = const Mat3<V>*, bool CARRY = false>
 __device__ inline void mass_nle_sweep(const VSAParams<NL>& P, const V* q, const V* v, int c,
                                       V* out, ROT Eg = nullptr) {
   V vc[NL], ac[NL];
@@ -253,7 +314,8 @@ __device__ inline void mass_nle_sweep(const VSAParams<NL>& P, const V* q, const 
     vc[i] = c == 0 ? v[i] : V(cst<V>(0.0));
     ac[i] = V(cst<V>(c == i + 1 ? 1.0 : 0.0));
   }
-  rnea<V, NL, GIVEN, ROT>(P, q, vc, ac, c == 0, out, Eg);
+  if constexpr (CARRY) rnea_carry<V, NL, ROT>(P, vc, ac, c == 0, out, Eg);
+  else rnea<V, NL, GIVEN, ROT>(P, q, vc, ac, c == 0, out, Eg);
 }
 
 // mass matrix M (from unit-acceleration RNEA columns) and nle
@@ -445,13 +507,14 @@ __device__ inline void arm_dynamics(const VSAParams<NL>& P, const S* x, const S*
 // running cost: w_goal * goal + state/control regularization + stiffness
 // (vsa_kernels.py::_running_cost_lanes); the stiffness cost only where the
 // controls carry stiffnesses (the VSA, not the SEA); the goal's target: a
-// table's ``row``, or where it is null the parameter block's
-template <class S, int NL, bool SEA>
+// table's ``row``, or where it is null the parameter block's; with GIVEN,
+// the joints' rotations from Eg(i) (goal_cost's)
+template <class S, int NL, bool SEA, bool GIVEN = false, class ROT = const Mat3<S>*>
 __device__ inline S running_cost(const VSAParams<NL>& P, const S* x, const S* u,
-                                 const S* row = nullptr) {
+                                 const S* row = nullptr, ROT Eg = nullptr) {
   constexpr int NU = Arm<NL, SEA>::NU;
   S r6[6];
-  S c = S(P.w_goal) * goal_cost<S, NL>(P, x, false, row, r6);
+  S c = S(P.w_goal) * goal_cost<S, NL, GIVEN, ROT>(P, x, false, row, r6, Eg);
   for (int i = 0; i < 4 * NL; ++i)
     if (P.xw[i] != 0.0) c = c + S(0.5 * P.xw[i]) * x[i] * x[i];
   for (int i = 0; i < NU; ++i)

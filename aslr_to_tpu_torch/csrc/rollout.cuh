@@ -90,8 +90,23 @@
 //     B = 1024;
 //   - lane i computes joint i's rotation (its sine and cosine, the
 //     Rodrigues matrix and the product with the joint's placement) once a
-//     knot, and the group exchanges the 7 matrices by shuffles, so a sweep
-//     computes none of them (kShareRotN7);
+//     knot (kShareRotN7) and writes it into the group's ring of its last G
+//     knots' rotations in shared memory (RollLayout::ROT_RING): every sweep
+//     reads the knot's slot (63 shuffles into an array had put the
+//     rotations in local memory, on the chain), and the running cost
+//     deferred to lane l reads the slot of its own knot, so no lane
+//     computes a rotation twice (before, each deferred cost recomputed its
+//     knot's 7 rotations: 7 sines, 7 cosines and 14 3x3 products);
+//   - the sweep's forward pass carries the parent's velocities and
+//     accelerations in registers (lanes.cuh::rnea_carry): it stays a loop,
+//     and its arrays had sat in local memory on the chain;
+//   - the serial tail after the sweeps is split over the group
+//     (tail_rows): lane r owns row r of M, the factor runs a column a pass
+//     (one root, one quotient a lane, the column handed out by shuffles),
+//     the spring torque's and Binv's rows go to their lanes, and the
+//     triangular solves run whole on every lane from the factor the passes
+//     handed out (split over the rows too, they ran slower: every row's
+//     division waits on a shuffle);
 //   - in f64 the knot whose running cost a lane defers waits in a
 //     shared-memory slot of the lane's, not in 70 registers, which would
 //     spill (RollLayout::KEPT).
@@ -100,7 +115,7 @@
 // a general block, and the wide layout's twice the lanes, each repeating
 // the factor, the solves and the Euler step, ran 32% slower there
 // (PERF.md). `rollout_variants.py --nl 7` times each choice against its
-// alternative.
+// alternative, carried there as a patch of this source.
 //
 // Every value is computed by one lane with the operations of the plain
 // version (aslr_to_tpu_torch/kernels/vsa_kernels.py::_rollout_plain), in its
@@ -122,6 +137,15 @@
 #include <cuda_pipeline.h>
 
 #include "lanes.cuh"
+
+// The phase clock of rollout_variants.py's n7_phase_clock variant, which
+// defines these hooks to sum clock64() stamps of a knot's phases; nothing
+// in the build
+#ifndef ROLL_PHASE_CLOCK
+#define ROLL_PHASE_BEGIN()
+#define ROLL_PHASE(p)
+#define ROLL_PHASE_END()
+#endif
 
 namespace aslr {
 
@@ -182,7 +206,13 @@ struct RollLayout {
   // thread's slot for the knot (x, u) whose running cost it takes, after
   // the stages
   static constexpr int KEPT = WIDE && sizeof(S) == 8 ? THREADS * (NDX + NU) : 0;
-  static constexpr size_t BYTES = ((kStaged ? (size_t)2 * STAGE : 0) + KEPT) * sizeof(S);
+  // (the wide layout with one sweep a lane, whose lanes share the joints'
+  // rotations) each group's ring of its last G knots' joint rotations, NL
+  // 3x3 matrices a knot, after the kept slots; the sweeps and the deferred
+  // running costs read it
+  static constexpr bool ROT_RING = WIDE && kShareRotN7 && NL + 1 <= G;
+  static constexpr int ROT = ROT_RING ? THREADS * NL * 9 : 0;
+  static constexpr size_t BYTES = ((kStaged ? (size_t)2 * STAGE : 0) + KEPT + ROT) * sizeof(S);
   // after the stages, where a per-knot table is given: a ring of RING knots'
   // table rows (the target's 12, then the box's NU and NU), knot t in slot t
   // mod RING. It holds every knot from the oldest whose running cost is
@@ -297,6 +327,73 @@ __device__ inline S fold(const Group<G>& grp, S cost, S mine, int n) {
   return cost;
 }
 
+// lane r's row of a constant NL x NL matrix of the parameter block (the
+// SEA's spring matrix, Binv), r a value: a select over the rows, no indexed
+// load
+template <class S, int NL>
+__device__ inline void const_row(const double (*A)[NL], int r, S* row) {
+  for (int j = 0; j < NL; ++j) {
+    double v = A[0][j];
+    for (int i = 1; i < NL; ++i) v = i == r ? A[i][j] : v;
+    row[j] = S(v);
+  }
+}
+
+// The serial tail of a knot of the SEA arm in the wide layout, split over
+// the group: lane r < NL owns row r. From the sweeps (sw: this
+// lane's, the nle on lane 0, M's column j on lane j + 1) it takes M's row r
+// of the lower triangle; its spring torque row (krow: K's row r) and, once
+// the group has every torque, its motor acceleration (brow: Binv's row r);
+// the Cholesky factor right-looking, a column a pass: lane p takes the root
+// of column p, one shuffle hands it out, every lane r > p takes its
+// quotient, the column's entries go out one shuffle each and each lane
+// subtracts from its row. Every entry's subtractions run in k order, as
+// lanes.cuh::choln's. The solves run whole on every lane from the factor
+// the passes handed out (choln_solve). Every lane ends with the 2 NL
+// accelerations, so the state stays replicated. Lane NL repeats row NL - 1;
+// every lane runs every shuffle.
+template <class S, int NL, int G>
+__device__ inline void tail_rows(const Group<G>& grp, const S* x, const S* u, const S* sw,
+                                 const S* krow, const S* brow, S* acc) {
+  static_assert(NL + 1 <= G, "a lane a row and a sweep");
+  const int r = grp.lane < NL ? grp.lane : NL - 1;
+  // M's row r (s[j] = M[r][j] for j <= r; 1 beyond, never read) and the nle
+  S s[NL], nle[NL];
+  for (int j = 0; j < NL; ++j) s[j] = S(1);
+  for (int j = 0; j < NL; ++j)
+    for (int i = j; i < NL; ++i) {
+      const S v = grp.from(j + 1, sw[i]);
+      s[j] = r == i ? v : s[j];
+    }
+  for (int i = 0; i < NL; ++i) nle[i] = grp.from(0, sw[i]);
+  // the spring torque's row r, then every row on every lane
+  S tau_r = krow[0] * (x[0] - x[NL]);
+  for (int j = 1; j < NL; ++j) tau_r = tau_r + krow[j] * (x[j] - x[NL + j]);
+  S tau[NL];
+  for (int i = 0; i < NL; ++i) tau[i] = grp.from(i, tau_r);
+  // the motor acceleration of row r: Binv (u + tau_c)
+  S accm = brow[0] * (u[0] + tau[0]);
+  for (int j = 1; j < NL; ++j) accm = accm + brow[j] * (u[j] + tau[j]);
+  // the factor: Lf[p][p] the root of column p, lane p's; Lf[j][p] lane j's
+  // quotient, handed out to every lane
+  S Lf[NL][NL];
+  for (int p = 0; p < NL; ++p) {
+    const S root = dsqrt(s[p]);
+    const S dp = grp.from(p, root);
+    const S lrp = r == p ? root : s[p] / dp;
+    Lf[p][p] = dp;
+    for (int j = p + 1; j < NL; ++j) {
+      const S ljp = grp.from(j, lrp);
+      Lf[j][p] = ljp;
+      s[j] = p < r && j <= r ? s[j] - lrp * ljp : s[j];
+    }
+  }
+  S rhs[NL];
+  for (int i = 0; i < NL; ++i) rhs[i] = -nle[i] - tau[i];
+  choln_solve<S, NL>(Lf, rhs, acc);
+  for (int i = 0; i < NL; ++i) acc[NL + i] = grp.from(i, accm);
+}
+
 template <class S, int NL, bool SEA, bool BOXED, bool GAPS, int NT, int TAB, bool WIDE>
 __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   using L = RollLayout<S, NL, SEA, GAPS, NT, WIDE>;
@@ -307,10 +404,15 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   // the joints' rotations computed once a group, a joint a lane (one sweep
   // a lane: the wide layout)
   constexpr bool SHARE_ROT = L::WIDE && kShareRotN7 && MS == 1;
+  static_assert(!SHARE_ROT || L::ROT_RING, "shared rotations go through the ring");
+  // the serial tail split over the group's rows (the SEA arm, one sweep a
+  // lane)
+  constexpr bool SPLIT_TAIL = SHARE_ROT && SEA;
   extern __shared__ __align__(16) unsigned char roll_smem[];
   S* const stages = reinterpret_cast<S*>(roll_smem);
   S* const kept = stages + 2 * L::STAGE + threadIdx.x * (L::NDX + L::NU);
-  S* const ring = stages + 2 * L::STAGE + L::KEPT;
+  S* const rot_ring = stages + 2 * L::STAGE + L::KEPT + (threadIdx.x / G) * G * NL * 9;
+  S* const ring = stages + 2 * L::STAGE + L::KEPT + L::ROT;
   const int tid = threadIdx.x, g = tid / G;
   const Group<G> grp;
   const int lane = grp.lane;
@@ -356,6 +458,26 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   // the joint whose rotation this lane computes (SHARE_ROT)
   Joint joint;
   if constexpr (SHARE_ROT) joint = joint_of<NL>(P, lane < NL ? lane : 0);
+  // this lane's rows of the spring matrix and Binv (SPLIT_TAIL)
+  S krow[SPLIT_TAIL ? NL : 1], brow[SPLIT_TAIL ? NL : 1];
+  if constexpr (SPLIT_TAIL) {
+    const_row<S, NL>(P.K, lane < NL ? lane : NL - 1, krow);
+    const_row<S, NL>(P.binv, lane < NL ? lane : NL - 1, brow);
+  }
+  // knot tk's running cost with the rotations its lanes made (L::ROT_RING:
+  // slot tk mod G of the group's ring)
+  auto run_cost_ring = [&](const S* xk_, const S* uk_, long long tk) {
+    const S* row = nullptr;
+    if (tgt_tab) row = table_row<L>(a, ring, a.tgt, tk < a.T ? tk : a.T - 1, 12, L::oT);
+    const S* slot = rot_ring + (tk % G) * NL * 9;
+    auto Eg = [slot](int i) {
+      Mat3<S> E;
+      for (int r = 0; r < 3; ++r)
+        for (int c3 = 0; c3 < 3; ++c3) E.m[r][c3] = slot[i * 9 + r * 3 + c3];
+      return E;
+    };
+    return running_cost<S, NL, SEA, true>(P, xk_, uk_, row, Eg);
+  };
   S gscale = S(0);
   if constexpr (GAPS) gscale = (alpha - S(1)) * a.infeas[bc];
   S x[NDX], xk[NDX], uk[NU];  // (xk, uk): the knot whose running cost this lane takes
@@ -379,6 +501,7 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
   }
   S cost = S(0);
 
+  ROLL_PHASE_BEGIN();
   for (int c = 0; c < nchunks; ++c) {
     if constexpr (kStaged) {
       __pipeline_wait_prior(0);
@@ -387,6 +510,7 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
         stage_chunk<L, TAB>(a, stages + ((c + 1) & 1) * L::STAGE, ring, (c + 1) * L::C, b0,
                             tid);
     }
+    ROLL_PHASE(0);
     for (int kk = 0; kk < L::C; ++kk) {
       const int t = c * L::C + kk;
       if (t >= a.T) break;
@@ -409,6 +533,7 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
       }
       S u[NU];
       for (int j = 0; j < NU; ++j) u[j] = grp.from(j % G, um[j / G]);
+      ROLL_PHASE(1);
 
       // the RNEA sweeps of mass_nle, sweep cs on lane cs mod G
       S sw[MS][NL];
@@ -418,27 +543,45 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
         S qi = x[0];
         for (int i = 1; i < NL; ++i) qi = lane == i ? x[i] : qi;
         const Mat3<S> mine = joint_rotation(joint, qi);
-        Mat3<S> Es[NL];
-        for (int i = 0; i < NL; ++i)
+        S* const now = rot_ring + (t % G) * NL * 9;
+        if (lane < NL)
           for (int r = 0; r < 3; ++r)
-            for (int c3 = 0; c3 < 3; ++c3) Es[i].m[r][c3] = grp.from(i, mine.m[r][c3]);
+            for (int c3 = 0; c3 < 3; ++c3) now[lane * 9 + r * 3 + c3] = mine.m[r][c3];
         const int cs = lane < NL ? lane : NL;
-        mass_nle_sweep<S, NL, true>(P, x, x + 2 * NL, cs, sw[0], Es);
+        // every sweep reads the rotations from the knot's ring slot
+        grp.sync();
+        ROLL_PHASE(2);
+        auto Eg = [now](int i) {
+          Mat3<S> E;
+          for (int r = 0; r < 3; ++r)
+            for (int c3 = 0; c3 < 3; ++c3) E.m[r][c3] = now[i * 9 + r * 3 + c3];
+          return E;
+        };
+        mass_nle_sweep<S, NL, true, decltype(Eg), true>(P, x, x + 2 * NL, cs, sw[0], Eg);
       } else {
         for (int m = 0; m < MS; ++m) {
           const int cs = lane + m * G < NL ? lane + m * G : NL;
           mass_nle_sweep<S, NL>(P, x, x + 2 * NL, cs, sw[m]);
         }
       }
-      S M[NL][NL], nle[NL];
-      for (int i = 0; i < NL; ++i) nle[i] = grp.from(0, sw[0][i]);
-      for (int j = 0; j < NL; ++j)
-        for (int i = 0; i < NL; ++i) M[i][j] = grp.from((j + 1) % G, sw[(j + 1) / G][i]);
-
-      // the accelerations and the Euler step, alike on every lane
-      S tau_c[NL], acc[2 * NL], xn[NDX];
-      spring_torque<S, NL, SEA>(P, x, u, tau_c);
-      accelerations<S, NL>(P, u, tau_c, M, nle, acc);
+      ROLL_PHASE(3);
+      S acc[2 * NL], xn[NDX];
+      if constexpr (SPLIT_TAIL) {
+        // the accelerations a row a lane, then on every lane (tail_rows)
+        ROLL_PHASE(4);
+        tail_rows<S, NL, G>(grp, x, u, sw[0], krow, brow, acc);
+      } else {
+        S M[NL][NL], nle[NL];
+        for (int i = 0; i < NL; ++i) nle[i] = grp.from(0, sw[0][i]);
+        for (int j = 0; j < NL; ++j)
+          for (int i = 0; i < NL; ++i) M[i][j] = grp.from((j + 1) % G, sw[(j + 1) / G][i]);
+        ROLL_PHASE(4);
+        // the accelerations, alike on every lane
+        S tau_c[NL];
+        spring_torque<S, NL, SEA>(P, x, u, tau_c);
+        accelerations<S, NL>(P, u, tau_c, M, nle, acc);
+      }
+      // the Euler step, alike on every lane
       if constexpr (kDeferCost) {
         const bool keep = t % G == lane;
         if constexpr (L::KEPT > 0) {
@@ -459,22 +602,42 @@ __device__ inline void rollout_group(const VSAParams<NL>& P, const Roll<S>& a) {
         if constexpr (GAPS) x[i] = x[i] + in.fs_next(i) * gscale;
         if (live && i % G == lane) xs_o[((long long)(t + 1) * NDX + i) * TB + b] = x[i];
       }
-      // the G knots t - G + 1 .. t, lane l's the knot t - G + 1 + l
+      ROLL_PHASE(5);
+      // the G knots t - G + 1 .. t, lane l's the knot t - G + 1 + l; with
+      // the ring, the group meets before its lanes read the others'
+      // rotations and again before the next knot writes over them
       if constexpr (kDeferCost)
         if (t % G == G - 1) {
           load_kept();
-          cost = fold(grp, cost, run_cost(xk, uk, t - (G - 1) + lane), G);
+          if constexpr (L::ROT_RING) {
+            grp.sync();
+            cost = fold(grp, cost, run_cost_ring(xk, uk, t - (G - 1) + lane), G);
+            grp.sync();
+          } else {
+            cost = fold(grp, cost, run_cost(xk, uk, t - (G - 1) + lane), G);
+          }
         }
+      ROLL_PHASE(6);
     }
   }
   if constexpr (kDeferCost)
     if (a.T % G) {
       load_kept();
-      cost = fold(grp, cost, run_cost(xk, uk, (long long)(a.T / G) * G + lane), a.T % G);
+      const long long tk = (long long)(a.T / G) * G + lane;
+      if constexpr (L::ROT_RING) {
+        // a lane past the horizon reads a slot of an earlier knot: its
+        // cost is folded out
+        grp.sync();
+        cost = fold(grp, cost, run_cost_ring(xk, uk, tk), a.T % G);
+      } else {
+        cost = fold(grp, cost, run_cost(xk, uk, tk), a.T % G);
+      }
     }
   S r6[6];
   const S goal = goal_cost<S, NL>(P, x, true, (const S*)nullptr, r6);
   if (live && lane == 0) cost_o[b] = cost + a.wterm[bc] * goal;
+  ROLL_PHASE(7);
+  ROLL_PHASE_END();
 }
 
 // two entry kernels over one body, so that a profile tells K3 from K6; K3's

@@ -48,9 +48,10 @@ def _angles(trial, nl):
             float((finite & (q.abs() > SINF_FAST)).double().mean()))
 
 
-def _capture(B, passes):
-    """The arguments of the first K3 launch after loop pass ``passes`` of the
-    sevendof_box lane solve (through the kernels)."""
+def capture(B, passes, path="sevendof_box"):
+    """The arguments of the first K3 launch after loop pass ``passes`` of a
+    7-DoF lane solve (measure.py's ``path``: sevendof_box, sevendof or
+    sevendof_ddp; through the kernels)."""
     from .kernels import lane_solver
     from .measure import SEEDS, sevendof_solver, x0_batch
 
@@ -68,8 +69,8 @@ def _capture(B, passes):
 
     lane_solver.linearize, lane_solver.rollout2 = lin, roll
     try:
-        solve = sevendof_solver("sevendof_box", dtype=torch.float32, maxiter=passes + 1)
-        solve(x0_batch(B, torch.float32, SEEDS["sevendof_box"], nx=28))
+        solve = sevendof_solver(path, dtype=torch.float32, maxiter=passes + 1)
+        solve(x0_batch(B, torch.float32, SEEDS[path], nx=28))
     finally:
         lane_solver.linearize, lane_solver.rollout2 = own
     torch.cuda.synchronize()
@@ -97,7 +98,7 @@ def main(argv=None):
     kernel = list(cases["rollout2[sea7 box gaps]"][0].args)   # spec .. wterm, lb, ub, fs, infeas
     wide = list(kernel)
     wide[9], wide[10] = (torch.full_like(kernel[9], v) for v in (-1e6, 1e6))
-    iterate = _capture(B, args.passes)
+    iterate = capture(B, args.passes)
     # each case: the box variant's arguments, the other's and its name
     inputs = {name: (box, box[:9] + [None, None] + box[11:], "gaps")
               for name, box in (("kernel", kernel), ("wide", wide), ("iterate", iterate))}

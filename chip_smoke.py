@@ -222,6 +222,12 @@ from torch.overrides import TorchFunctionMode
 
 # the TPU's f32 statistics (the JAX package's benchmark record
 # BENCH_r05.json), printed beside the card's for reference only
+# the 7-DoF paths' solves/s recorded before the nl 7 rollouts were
+# redesigned (PERF.md and CHANGES.md: this script's runs, the reach's by
+# measure.py; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+RECORDED_SOLVES_PER_S = dict(sevendof="2,519.63", sevendof_box="1,740.08-1,810.17",
+                             fast_sevendof_box="1,044.19-1,054.67",
+                             sevendof_ddp="1,950.57-2,014.23")
 TPU_REFERENCE = dict(boxddp=dict(converged_frac=0.0, diverged_frac=0.211, mean_iterations=18.4),
                      sea_warm=dict(converged_frac=0.9998),
                      sevendof=dict(converged_frac=0.9316, solves_per_s_on_tpu=1984.58),
@@ -762,8 +768,8 @@ def kernel_cases(dtype, B=None, arms=("vsa", "sea"), T=None, box_ub=None):
             infeas = (torch.arange(B, device="cuda") % 2).to(dtype)
             roll_args = (spec, xs, us, k, K, x0, ones, 0.5 * ones, wterm, None, None,
                          fs, infeas)
-            cases[f"rollout2[{arm} gaps]"] = (lambda a=roll_args: vk.rollout2(*a),
-                                              lambda a=roll_args: vk.rollout2_plain(*a),
+            cases[f"rollout2[{arm} gaps]"] = (partial(vk.rollout2, *roll_args),
+                                              partial(vk.rollout2_plain, *roll_args),
                                               dict(gaps=True), "rollout2", ndx, nu)
             r1 = roll_args[:6] + roll_args[7:]
             cases[f"rollout1[{arm} gaps]"] = (partial(vk.rollout1, *r1),
@@ -924,7 +930,7 @@ def ndof_kernels_phase(report):
     the kernel's time, the plain version's time (the call that was
     compared), its operations and the bound; then the kernel's time and
     bound at 4 B_NDOF, where a worker holds K3 at nl 7, whose layout the
-    batch picks, to the bit again (k3_batch_check). The
+    batch picks, to the bit again (nl7_rollouts_check). The
     7-DoF instances are their kernels' rows ``<name>_n7``, the 3-DoF ones
     variants of those rows."""
     from aslr_to_tpu_torch.kernels import build
@@ -1001,7 +1007,7 @@ def ndof_kernels_phase(report):
     # the kernels at four times the batch, timed (kernel only; their
     # operations scale with B, elementwise per scenario); K3 at nl 7, whose
     # layout the batch picks, is held to the bit there by a worker
-    # (k3_batch_check)
+    # (nl7_rollouts_check, with K6)
     B = 4 * B_NDOF
     for label, (kern, _, io_kw, name, ndx, nu) in kernel_cases(
             torch.float32, B, ("sea3", "sea7"), T=T_PATH).items():
@@ -1035,22 +1041,107 @@ def check_at_batch(label, tag, kern, plain, B, want=None):
     return err
 
 
-def k3_batch_check():
-    """A worker's: K3 at nl 7 at 4 B_NDOF, T=100, where its batch rule
-    picks the general layout (at B_NDOF the wide one), in each variant (SEA
-    with gaps; DDP's "sea"; BoxFDDP's "sea box gaps" in a box that binds)
-    to the bit against its plain version in f64 and f32; the n-DoF kernel
-    phases time it there."""
+# the scenarios of a blown-up batch at nl 7 (nl7_rollout_cases): b mod 64 =
+# 3 NaN gains, 4 the first link angle of x0 past sinf's and cosf's fast
+# range reduction (105,615 rad), 5 the second link angle at -inf
+BLOWN_UP = dict(nan=3, beyond=4, inf=5)
+BEYOND_FAST_RANGE = 2e5
+
+
+def nl7_target(spec, T, dtype):
+    """``spec`` of the 7-DoF arm with a target a knot (knot t's goal turned by
+    0.1 + 0.05 t about a tilted axis, its position on an arc; the terminal
+    target kept) and its [T, 12] table on the card: the rollouts' table
+    instance at nl 7."""
+    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
+
+    a = np.array([0.3, -0.2, 1.0]) / np.linalg.norm([0.3, -0.2, 1.0])
+    Kx = np.array([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]], [-a[1], a[0], 0.0]])
+    rot = np.stack([np.eye(3) + np.sin(0.1 + 0.05 * t) * Kx
+                    + (1.0 - np.cos(0.1 + 0.05 * t)) * Kx @ Kx for t in range(T)])
+    pos = np.stack([[0.01, 0.05 + 0.003 * t, 0.18 - 0.001 * t] for t in range(T)])
+    term_rinv, term_pos = vk._term_target(spec)
+    pk = spec._replace(target_rot_inv=np.swapaxes(rot, 1, 2), target_pos=pos,
+                       term_target_rot_inv=np.asarray(term_rinv),
+                       term_target_pos=np.asarray(term_pos))
+    return pk, torch.as_tensor(pk.target_table(T, dtype), device="cuda")
+
+
+def nl7_rollout_cases(dtype, B, blown_up=False):
+    """{instance: K3's arguments} at nl 7, T=100, batch B, in every instance:
+    "sea" (DDP's, K4's gains) and "sea box gaps" (BoxFDDP's, K5's gains in
+    the sevendof_box path's box) from ndof_box_cases, "sea gaps" (FDDP's)
+    from kernel_cases, and "sea gaps target table" (its table instance, a
+    target a knot, nl7_target); with ``blown_up``, the scenarios of
+    BLOWN_UP changed in each."""
     from aslr_to_tpu_torch.measure import T_PATH
 
-    B = 4 * B_NDOF
-    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
-        for make in (lambda: kernel_cases(dtype, B, ("sea7",), T=T_PATH),
-                     lambda: ndof_box_cases(dtype, B, ("sea7",))):
-            cases = make()
-            for label, (kern, plain, *_) in cases.items():
-                if label.startswith("rollout2"):
-                    check_at_batch(label, tag, kern, plain, B)
+    cases = {}
+    for label, case in list(kernel_cases(dtype, B, ("sea7",), T=T_PATH).items()) + list(
+            ndof_box_cases(dtype, B, ("sea7",)).items()):
+        m = re.fullmatch(r"rollout2\[sea7( gaps| box gaps|)\]", label)
+        if m:
+            cases["sea" + m.group(1)] = list(case[0].args)
+    spec, tgt = nl7_target(cases["sea gaps"][0], T_PATH, dtype)
+    cases["sea gaps target table"] = [spec] + cases["sea gaps"][1:] + [tgt]
+    if blown_up:
+        lane = torch.arange(B, device="cuda") % 64
+        for args in cases.values():
+            k, K, x0 = (a.clone() for a in args[3:6])
+            k[..., lane == BLOWN_UP["nan"]] = float("nan")
+            K[..., lane == BLOWN_UP["nan"]] = float("nan")
+            x0[0, lane == BLOWN_UP["beyond"]] = BEYOND_FAST_RANGE
+            x0[1, lane == BLOWN_UP["inf"]] = -float("inf")
+            args[3:6] = [k, K, x0]
+    return cases
+
+
+def nl7_rollouts_check(batches, blown_up, only=None):
+    """A worker's: K3 and K6 at nl 7 in every instance (nl7_rollout_cases) at
+    each batch of ``batches``, T=100, in f64 and f32, to the bit against
+    their plain versions (K6 at K3's second step length against the plain
+    version's second trial); with ``blown_up``, on the batch with
+    BLOWN_UP's scenarios, which must blow up as made; ``only``: that
+    instance alone. K3's batch rule takes its wide layout at B_NDOF and its
+    general one at 4 B_NDOF."""
+    from aslr_to_tpu_torch.kernels import vsa_kernels as vk
+    from aslr_to_tpu_torch.measure import T_PATH
+
+    for B in batches:
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            cases = nl7_rollout_cases(dtype, B, blown_up)
+            for label, args in cases.items():
+                if only is not None and label != only:
+                    continue
+                want = vk.rollout2_plain(*args)
+                got = vk.rollout2(*args)
+                one = vk.rollout1(*args[:6], *args[7:])
+                torch.cuda.synchronize()
+                pairs = [(f"K3 trial {i} {f}", g, w) for i in range(2)
+                         for f, g, w in zip(want[i]._fields, got[i], want[i])]
+                pairs += [(f"K6 {f}", g, w) for f, g, w in zip(want[1]._fields, one, want[1])]
+                differ = [name for name, g, w in pairs if not same_bits(g, w)]
+                if differ:
+                    raise AssertionError(f"nl 7 {label} {tag} B={B}: {differ} differ from the "
+                                         f"plain version")
+                blown = ""
+                if blown_up:
+                    lane = torch.arange(B, device="cuda") % 64
+                    cost = got[0].cost
+                    q = got[0].xs[:, :7]
+                    if not (bool(cost[lane == BLOWN_UP["nan"]].isnan().all())
+                            and not bool(torch.isfinite(cost[lane == BLOWN_UP["inf"]]).any())
+                            and bool((q[0, 0, lane == BLOWN_UP["beyond"]].abs()
+                                      > 105615.0).all())):
+                        raise AssertionError(f"nl 7 {label} {tag} B={B}: the blown-up "
+                                             f"scenarios did not blow up as made")
+                    finite = torch.isfinite(q)
+                    blown = (f"; first trial's link angles not finite "
+                             f"{100 * float((~finite).double().mean()):.2f}%, finite beyond "
+                             f"105,615 rad {100 * float((finite & (q.abs() > 105615.0)).double().mean()):.2f}%")
+                log(f"  nl 7 {label} {tag} T={T_PATH} B={B}{' blown up' if blown_up else ''}: "
+                    f"K3 and K6 equal to the plain version to the bit{blown}")
+                del want, got, one
             del cases
             torch.cuda.empty_cache()
 
@@ -1207,7 +1298,7 @@ def ndof_box_kernels_phase(report):
     compared), its operations and the bound; K5 also on a solver iterate's
     inputs (k5_iterate) to the bit in f64 and f32, timed in f32; then at 4
     B_NDOF every new instance timed (a worker holds K3 at nl 7 to the bit
-    there, k3_batch_check: its batch rule picks the general layout). K5 at (28, 7) is the row ``riccati_boxfddp_n7``, the rest
+    there, nl7_rollouts_check: its batch rule picks the general layout). K5 at (28, 7) is the row ``riccati_boxfddp_n7``, the rest
     variants of it and of ``rollout2_n7`` and ``rollout1_n7``."""
     from aslr_to_tpu_torch.kernels import build
     from aslr_to_tpu_torch.kernels import riccati as rk
@@ -1310,7 +1401,7 @@ def ndof_box_kernels_phase(report):
             log(f"  {label} f32: kernel {t['ms']:.4f} ms")
         del args, kern, got
     # four times the batch, where K3 at nl 7 takes the general layout (a
-    # worker holds it to the bit there, k3_batch_check): every new instance
+    # worker holds it to the bit there, nl7_rollouts_check): every new instance
     # timed
     B = 4 * B_NDOF
     for label, (kern, plain, io_kw, name, ndx, nu) in ndof_box_cases(torch.float32, B).items():
@@ -1415,8 +1506,10 @@ def solve_path(name, report, card, expect, nu, n_timed, tpu=None, nx=8, first=Fa
     for i in range(n_timed):
         inputs = p.args(i, prep)
         res, t = drive(name, report, lambda: p.solve(*inputs), expect)
+        recorded = (f"; before the nl 7 rollouts' redesign {RECORDED_SOLVES_PER_S[name]}"
+                    if name in RECORDED_SOLVES_PER_S else "")
         log(f"  solve {i}: {t:.4f} s, {B / t:.2f} solves/s on {card} "
-            f"(T={T}, B={B}, f32, maxiter={p.maxiter})")
+            f"(T={T}, B={B}, f32, maxiter={p.maxiter}){recorded}")
     return setup_summ, summarize(res, B, T, nu, f"{name}, last solve, f32", tpu, nx), res
 
 
@@ -2794,7 +2887,10 @@ def per_knot_checks():
 # stopped while a phase times (quiet).
 CHECKS = {"parity double pendulum": pendulum_parity_check,
           "parity per-knot": per_knot_checks,
-          "K3 nl 7 at 4 B_NDOF": k3_batch_check,
+          "nl 7 rollouts at 4 B_NDOF": partial(nl7_rollouts_check, (4 * B_NDOF,), False),
+          "nl 7 rollouts blown up": partial(nl7_rollouts_check, (B_NDOF, 4 * B_NDOF), True),
+          "nl 7 table rollouts": partial(nl7_rollouts_check, (B_NDOF,), False,
+                                         "sea gaps target table"),
           "golden": golden_check,
           "pendulum north star": pendulum_northstar_check,
           "parity BoxDDP": partial(parity_check, "BoxDDP"),
@@ -2815,11 +2911,12 @@ CHECK_WORKERS = (("parity 7-DoF BoxFDDP fast",), ("parity per-knot",),
                  ("parity homotopy rescue", "generic 7-DoF BoxFDDP", "generic 7-DoF DDP"),
                  ("parity homotopy main", "generic BoxDDP", "pendulum north star"),
                  ("parity BoxDDP", "parity SEA FDDP", "generic SEA FDDP"),
-                 ("parity BoxFDDP", "parity double pendulum"), ("K3 nl 7 at 4 B_NDOF",))
+                 ("parity BoxFDDP", "parity double pendulum", "nl 7 table rollouts",
+                  "nl 7 rollouts blown up"), ("nl 7 rollouts at 4 B_NDOF",))
 # checks whose plain versions queue large kernels on the card: their
 # worker runs with CUDA_LAUNCH_BLOCKING=1, so that no more than one of its
 # kernels is left to run once it is stopped (quiet)
-BLOCKING_CHECKS = ("K3 nl 7 at 4 B_NDOF",)
+BLOCKING_CHECKS = ("nl 7 rollouts at 4 B_NDOF",)
 
 
 def main():

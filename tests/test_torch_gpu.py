@@ -34,7 +34,11 @@ BoxFDDP and DDP solves on the lane and fast routes against their plain
 backends; K5 at (28, 7) (its BoxQP spread over the warp) in a binding box,
 one that clamps every control and one that clamps none, warm and cold, at
 B=1, 15 and 200 to the bit, one scenario with a non-finite Quu failing
-alone, and its launch; P against its plain version:
+alone, and its launch; K3 and K6 at nl 7 in every instance with
+trajectories that blow up (NaN gains, a link angle past sinf's fast range,
+one at -inf) on ragged batches to the bit, and the rotations' sine and
+cosine (two calls, one range reduction) against torch.sin and torch.cos; P
+against its plain version:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -1182,3 +1186,69 @@ def test_ndof_box_and_ddp_solves_match_plain_on_card(cuda, family, route):
         assert torch.equal(a.isnan(), b.isnan()) if a.is_floating_point() else True, field
         assert torch.equal(a.nan_to_num(0.0) if a.is_floating_point() else a,
                            b.nan_to_num(0.0) if b.is_floating_point() else b), field
+
+
+def _nl7_blown_up_args(variant, batch, dtype, device, seed=6):
+    """K3's arguments at nl 7 in each instance ("sea", "sea box gaps" in the
+    sevendof_box path's box, "sea gaps", "sea gaps tables" with a target a
+    knot): random references and gains; scenario 3's gains NaN, scenario
+    4's first link angle at 2e5 rad (past sinf's fast range, 105,615 rad),
+    scenario 5's second at -inf (at B=1 the one scenario past the range)."""
+    from aslr_to_tpu_torch.measure import SEVENDOF_BOX
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    spec = vsa_kernels.extract_vsa_spec(seven_dof_sea(T=T, dtype=dtype, device=device).problem,
+                                        None)
+    xs = 0.1 * rng.standard_normal((T + 1, 28, batch))
+    us = 3.0 * rng.standard_normal((T, 7, batch))
+    k = 0.5 * rng.standard_normal((T, 7, batch))
+    K = 0.1 * rng.standard_normal((T, 7, 28, batch))
+    x0 = xs[0] + 0.01 * rng.standard_normal((28, batch))
+    if batch == 1:
+        x0[0, 0] = 2e5
+    else:
+        k[..., 3], K[..., 3] = np.nan, np.nan
+        x0[0, 4], x0[1, 5] = 2e5, -np.inf
+    box, gaps, tgt = [None, None], [], []
+    if variant == "sea_box_gaps":
+        top = np.repeat(np.asarray(SEVENDOF_BOX)[:, None], batch, axis=1)
+        box = [t(-top), t(top)]
+        spec = spec._replace(lb=-np.asarray(SEVENDOF_BOX), ub=np.asarray(SEVENDOF_BOX))
+    if variant != "sea":
+        gaps = [t(0.05 * rng.standard_normal((T + 1, 28, batch))), t(np.arange(batch) % 3 == 0)]
+    if variant == "sea_gaps_tables":
+        spec, table = per_knot_target(spec, T, dtype)
+        tgt = [table.to(device)]
+    return (spec, t(xs), t(us), t(k), t(K), t(x0), t(np.ones(batch)),
+            t(0.5 ** (1 + np.arange(batch) % 3)),
+            torch.full((batch,), spec.w_goal_term, dtype=dtype, device=device), *box, *gaps, *tgt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [1, 15, 1029, 4101])
+@pytest.mark.parametrize("variant", ["sea", "sea_box_gaps", "sea_gaps", "sea_gaps_tables"])
+def test_nl7_rollouts_blown_up_match_plain_version_to_the_bit(cuda, variant, batch, dtype):
+    """K3 and K6 at nl 7 in every instance (the knot's tail split over the
+    group, the rotations kept in the ring) with trajectories that blow up
+    (NaN, past sinf's fast range, -inf) equal their plain versions to the
+    bit on ragged batches (K3 wide at 1, 15 and 1029, general at 4101), and
+    K6 equals K3's first trial."""
+    args = _nl7_blown_up_args(variant, batch, dtype, cuda)
+    before = dict(build.LAUNCHES)
+    got = vsa_kernels.rollout2(*args)
+    k6 = args[:6] + args[7:]
+    one = vsa_kernels.rollout1(*k6)
+    assert build.LAUNCHES["rollout2"] == before["rollout2"] + 1
+    assert build.LAUNCHES["rollout1"] == before["rollout1"] + 1
+    _assert_all_bits(got, vsa_kernels.rollout2_plain(*args))
+    _assert_all_bits(one, vsa_kernels.rollout1_plain(*k6))
+    first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
+    _assert_all_bits(one, first)
+    assert float(got[0].xs[0, 0, 0 if batch == 1 else 4].abs()) > 105615.0
+    if batch > 1:
+        assert bool(got[0].cost[3].isnan()) and not bool(torch.isfinite(got[0].cost[5]))
+

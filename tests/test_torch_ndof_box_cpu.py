@@ -302,7 +302,9 @@ def test_nl7_rollout_variant_launches_on_cpu(roll_lib, variant, gaps):
     """The launch queries of the new 7-DoF variants: at B=1024 K6 runs 128
     blocks of 64 threads and K3 its wide layout, 128 blocks of 128; at
     B=4096 K3's general layout, 256 blocks; shared memory as the gap
-    instance's but for the gaps' 28 rows (DDP's variant has none)."""
+    instance's but for the gaps' 28 rows (DDP's variant has none): two
+    stages of the tile and, in the wide layout, each group's ring of its
+    last 8 knots' rotations (63 values a thread)."""
     size = 4
     rows = 28 + 7 + 7 + 7 * 28 + (28 if gaps else 0)
 
@@ -310,7 +312,7 @@ def test_nl7_rollout_variant_launches_on_cpu(roll_lib, variant, gaps):
         return build.launch_of(kernel, torch.float32, B, variant=variant) | dict(blocks_per_sm=0)
 
     assert launch("rollout1", 1024) == dict(grid=128, threads=64,
-                                            smem=2 * rows * (8 + 32 // size) * size,
+                                            smem=(2 * rows * (8 + 32 // size) + 64 * 63) * size,
                                             blocks_per_sm=0, layout="wide")
     assert launch("rollout2", 1024)["layout"] == "wide"
     assert launch("rollout2", 4096) == dict(grid=256, threads=128,

@@ -15,9 +15,10 @@ and the SEA arm with gaps, unbounded; step lengths 1 and below 1, and
 infeasible lanes among feasible ones. The 3-DoF SEA arm's gap instances run
 at T=6 on the same batches (and one NaN trajectory), the 7-DoF arm's at
 T=5, B=9; K6 at nl 7, whose wide layout puts a trajectory on 8 lanes in
-blocks of 8 trajectories, at B=1, 15 and 200 with and without the target
-table, with one NaN trajectory among the four of its warp, and its launch
-(grid, block, shared memory) beside K3's there. K3 at nl 7 in both of its
+blocks of 8 trajectories, with one NaN trajectory among the four of its
+warp, and its launch (grid, block, shared memory) beside K3's there (its
+cases at B=1, 15 and 200 with and without the target table sit in
+``test_torch_rollout_k6_wide_cpu.py``). K3 at nl 7 in both of its
 layouts (the SM count that the stand-in reports, ``cpu_cuda_sm_count``,
 steers its batch rule): B=1, 12 and 15 at T=5, shared and with the target
 table, and one NaN scenario in each. The per-knot tables (a
@@ -332,33 +333,6 @@ def test_ndof_rollouts_on_cpu_read_the_target_table(roll_lib, nl, batch, dtype):
     _assert_same_bits(one, first)
 
 
-@pytest.mark.parametrize("tables", [False, True], ids=["shared", "tables"])
-@pytest.mark.parametrize(**DTYPES)
-@pytest.mark.parametrize("batch", [1, 15, 200])
-def test_k6_nl7_wide_layout_on_cpu_matches_plain_and_first_trial(roll_lib, batch, dtype,
-                                                                 tables):
-    """K6 at nl 7 in its wide layout (8 lanes a trajectory: one RNEA sweep
-    and at most one feedback row a lane, 8 trajectories a block; B=1, 15,
-    200 end in a partial block), in the shared and the tables instance,
-    equals its plain version and K3's first trial (K3 there in the general
-    layout) to the bit at T=5, not a multiple of the 8 knots whose running
-    costs the group defers."""
-    T_ = 5
-    args = _ndof_args(7, batch, dtype, T_, seed=1)
-    if tables:
-        args = list(args)
-        args[0], tgt = per_knot_target(args[0], T_, dtype)
-        args = tuple(args) + (tgt,)
-    k6 = _k6_args(args)
-    before = build.LAUNCHES["rollout1"]
-    one = vsa_kernels.rollout1(*k6)
-    assert build.LAUNCHES["rollout1"] == before + 1
-    _assert_same_bits(one, vsa_kernels.rollout1_plain(*k6))
-    first, _ = vsa_kernels.rollout2(*k6[:7], 0.5 * k6[6], *k6[7:])
-    _assert_same_bits(one, first)
-    assert float(torch.isfinite(one.cost).double().mean()) >= 0.5
-
-
 def test_k6_nl7_wide_layout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib):
     """K6 at nl 7 with trajectory 25's gains NaN: it fails alone; the other
     trajectories of its warp (24, 26, 27: four a warp at 8 lanes) equal the
@@ -377,15 +351,17 @@ def test_k6_nl7_wide_layout_on_cpu_keeps_a_trajectory_in_its_group(roll_lib):
 def test_nl7_rollout_launches_on_cpu(roll_lib, dtype):
     """At nl 7 on an H100's 132 SMs, K6 runs blocks of 64 threads (8
     trajectories a block) on two stages of a 266-row tile (8 columns and 32
-    bytes), and in f64 a slot a thread for the 35 values of the knot whose
-    running cost it defers: 128 blocks at B=1024. K3 takes its wide layout
-    at B=1024, where its general one would fill 64 blocks of 16 scenarios:
-    128 blocks of 128 threads (8 scenarios, two trials; a tile row of 8
-    columns and 32 bytes, the f64 slots), and its general one at B=4096,
-    256 blocks (a row of 16 columns and 32 bytes)."""
+    bytes), in f64 a slot a thread for the 35 values of the knot whose
+    running cost it defers, and each group's ring of its last 8 knots'
+    rotations (7 matrices a knot, 63 values a thread): 128 blocks at
+    B=1024. K3 takes its wide layout at B=1024, where its general one would
+    fill 64 blocks of 16 scenarios: 128 blocks of 128 threads (8 scenarios,
+    two trials; a tile row of 8 columns and 32 bytes, the f64 slots, the
+    rings), and its general one at B=4096, 256 blocks (a row of 16 columns
+    and 32 bytes)."""
     size = torch.empty(0, dtype=dtype).element_size()
     rows = 28 + 7 + 7 + 7 * 28 + 28
-    kept = 35 if size == 8 else 0
+    kept = (35 if size == 8 else 0) + 63
 
     def launch(kernel, B):
         return build.launch_of(kernel, dtype, B) | dict(blocks_per_sm=0)
