@@ -70,7 +70,7 @@ from .workloads.presets import (
     two_dof_vsa_boxddp,
     two_dof_vsa_modified,
 )
-from .parallel.batch import convergence_summary, make_batched_solver
+from .parallel.batch import convergence_summary, make_batched_solver, sharded_solve
 from .solvers.homotopy import (
     DEFAULT_SCALES,
     homotopy_solve,

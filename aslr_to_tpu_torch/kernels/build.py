@@ -112,6 +112,8 @@ _SUFFIXES = {"aslr_probe": ("_f32",), "aslr_riccati_box_smem": ("",),
              "aslr_rollout_n7_launch": ("",), "aslr_linearize_n7_launch": ("",)}
 
 _lib = None
+_home = None            # the CUDA device whose launches _lib serves
+_copies = {}            # every other device's copy of the library
 build_log = ""
 build_seconds = {}      # each source's nvcc time in the last build
 
@@ -153,22 +155,24 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(flags=None) -> Path:
     cus, cuhs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags or NVCC_FLAGS).encode())
     for f in cus + cuhs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libaslr_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(force: bool = False) -> Path:
-    """Compile the kernels if the library for these sources is missing;
-    returns its path. Each source compiles in its own ``nvcc`` process, all
-    at once; the compilers' output (``-Xptxas -v``: registers, spills) is
-    kept in ``build_log``, and each one's seconds in ``build_seconds``."""
+def build(force: bool = False, flags=None) -> Path:
+    """Compile the kernels if the library for these sources (and ``flags``,
+    by default ``NVCC_FLAGS``) is missing; returns its path. Each source
+    compiles in its own ``nvcc`` process, all at once; the compilers'
+    output (``-Xptxas -v``: registers, spills) is kept in ``build_log``, and
+    each one's seconds in ``build_seconds``."""
     global build_log
-    out = library_path()
+    flags = flags or NVCC_FLAGS
+    out = library_path(flags)
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -180,7 +184,7 @@ def build(force: bool = False) -> Path:
     try:
         def compile_one(cu, obj):
             t0 = time.perf_counter()
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+            proc = subprocess.run([nvcc, *flags, "-c", "-o", str(obj), str(cu)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             return proc, time.perf_counter() - t0
 
@@ -208,19 +212,54 @@ def build(force: bool = False) -> Path:
     return out
 
 
+def _bind(handle):
+    for base, argtypes in _SIGNATURES.items():
+        for name in [base] + [f"{base}_n{nl}" for nl in chains(base)]:
+            for suffix in _SUFFIXES.get(base, ("_f32", "_f64")):
+                fn = getattr(handle, name + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+    return handle
+
+
+def _device():
+    """The current CUDA device, or None before CUDA is in use."""
+    import torch
+
+    return torch.cuda.current_device() if torch.cuda.is_initialized() else None
+
+
 def lib():
-    """The loaded kernel library (built at first use)."""
-    global _lib
+    """The loaded kernel library for the current CUDA device (built at first
+    use). The launchers set each kernel's shared-memory limit once a
+    library, on the device current at its first launch, so a library serves
+    one device: ``_lib`` the first device to ask (or all, when a test or a
+    variant tool put it there), and every other device a copy of its own
+    (:func:`_device_copy`)."""
+    global _lib, _home
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for base, argtypes in _SIGNATURES.items():
-            for name in [base] + [f"{base}_n{nl}" for nl in chains(base)]:
-                for suffix in _SUFFIXES.get(base, ("_f32", "_f64")):
-                    fn = getattr(handle, name + suffix)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+        import torch
+
+        _home = torch.cuda.current_device() if torch.cuda.is_available() else None
+        _lib = _bind(ctypes.CDLL(str(build())))
+    dev = _device()
+    if _home is None or dev is None or dev == _home:
+        return _lib
+    return _copies.get(dev) or _device_copy(dev)
+
+
+def _device_copy(dev):
+    """Device ``dev``'s copy of the library: a build with ``-fno-gnu-unique``
+    (so that the launchers' template statics stay each loaded copy's own),
+    loaded from a file of the device's."""
+    src = build(flags=NVCC_FLAGS + ["-Xcompiler", "-fno-gnu-unique"])
+    dst = src.with_name(f"{src.stem}.cuda{dev}.so")
+    if not dst.exists():
+        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+        shutil.copyfile(src, tmp)
+        os.replace(tmp, dst)
+    _copies[dev] = _bind(ctypes.CDLL(str(dst)))
+    return _copies[dev]
 
 
 def entry(base: str, dtype, nl: int = 2):

@@ -101,6 +101,10 @@ def build_lane_solver(
     records the ``SolveLog`` series (``[B, maxiter]``, NaN past a lane's
     last iteration; a lane's row i is written only while it is active).
     """
+    if settings.assoc_backward:
+        raise ValueError("assoc_backward runs on the generic and fast routes; the lane route "
+                         "takes its backward kernels (the JAX package ignores the setting "
+                         "there)")
     if ls_trials != 2:
         raise NotImplementedError("the rollout kernel evaluates two trials per launch")
     if settings.boxqp_alphas != 5:

@@ -26,6 +26,9 @@ path, ``SEEDS``; B=4096 unless ``--batch`` or the path says otherwise):
             settings;
   fast_sea  the sea_warm path's cold solve (seed 1, maxiter=60,
             th_stop=1e-5) through the fast path (K1, K4, K6);
+  fast_sea_assoc  fast_sea with ``assoc_backward``: the log-depth
+            backward (``solvers/assoc_riccati.py``, batched torch, no
+            kernel) in place of K4, so K1 and K6 alone;
   sevendof  FDDP on seven_dof_sea (nx=28, nu=7), B=1024, warm-started
             from the quasi-static controls, maxiter=20, th_stop=1e-5 (the
             benchmark's 7-DoF metric, bench.py:231-252): K1, K4 and K3 at
@@ -117,12 +120,12 @@ import torch
 
 SEVENDOF_PATHS = ("sevendof", "fast_sevendof", "sevendof_box", "fast_sevendof_box",
                   "sevendof_ddp", "fast_sevendof_ddp")
-PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", *SEVENDOF_PATHS,
-         "mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "homotopy", "homotopy_scales",
-         "fast_homotopy", "double_pendulum")
-SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, sevendof=3,
-             fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5, homotopy=6,
-             homotopy_scales=6, fast_homotopy=6, double_pendulum=7, sevendof_box=8,
+PATHS = ("boxddp", "sea_warm", "boxfddp", "fast_boxddp", "fast_sea", "fast_sea_assoc",
+         *SEVENDOF_PATHS, "mpc_tracking", "fast_mpc_tracking", "pk_boxddp", "homotopy",
+         "homotopy_scales", "fast_homotopy", "double_pendulum")
+SEEDS = dict(boxddp=0, sea_warm=1, boxfddp=2, fast_boxddp=0, fast_sea=1, fast_sea_assoc=1,
+             sevendof=3, fast_sevendof=3, mpc_tracking=4, fast_mpc_tracking=4, pk_boxddp=5,
+             homotopy=6, homotopy_scales=6, fast_homotopy=6, double_pendulum=7, sevendof_box=8,
              fast_sevendof_box=8, sevendof_ddp=8, fast_sevendof_ddp=8)
 HOMOTOPY_PATHS = ("homotopy", "homotopy_scales", "fast_homotopy")
 RESCUE_SIZE = 512       # bench.py's RESCUE
@@ -268,12 +271,13 @@ def build_path(name, B=None, T=None, dtype=torch.float32):
     if name in HOMOTOPY_PATHS:
         solve = homotopy_solver(name, T, dtype)
         return Path(solve, lambda: solve(x0s), lambda i, _: (x0s + WARM_OFFSET * (i + 1),), 20)
-    if name in ("sea_warm", "fast_sea"):
+    if name in ("sea_warm", "fast_sea", "fast_sea_assoc"):
         w = two_dof_sea(T=T, dtype=dtype)
-        solve = make_batched_solver(w.problem, SolverSettings(maxiter=60, th_stop=1e-5),
-                                    use_gaps=True, bounds=None,
-                                    use_fast_path=True if name == "fast_sea" else "lanes")
-        if name == "fast_sea":
+        settings = SolverSettings(maxiter=60, th_stop=1e-5,
+                                  assoc_backward=name == "fast_sea_assoc")
+        solve = make_batched_solver(w.problem, settings, use_gaps=True, bounds=None,
+                                    use_fast_path="lanes" if name == "sea_warm" else True)
+        if name != "sea_warm":
             return Path(solve, lambda: None, lambda i, _: (x0s,), 60)
         return Path(solve, lambda: solve(x0s),
                     lambda i, cold: (x0s + WARM_OFFSET * (i + 1), cold.xs, cold.us), 60)

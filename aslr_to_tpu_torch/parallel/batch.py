@@ -2,11 +2,13 @@
 
 PyTorch counterpart of ``aslr_to_tpu/parallel/batch.py``:
 ``make_batched_solver`` (the generic per-scenario solver, its fused fast
-path, and the lane solver, each also with the terminal-weight homotopy)
-and ``convergence_summary``. Sharding over several cards comes later.
+path, and the lane solver, each also with the terminal-weight homotopy),
+``sharded_solve`` (the batch split over devices, a shard a device) and
+``convergence_summary``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -16,7 +18,7 @@ from ..kernels.lane_solver import build_lane_homotopy, build_lane_solver, check_
 from ..kernels.vsa_kernels import build_fast_path
 from ..solvers.ddp import Bounds, SolveLog, SolveResult, SolverSettings, solve
 from ..solvers.homotopy import DEFAULT_SCALES, homotopy_solve
-from ..solvers.problem import ShootingProblem
+from ..solvers.problem import ShootingProblem, to_device
 
 
 def make_batched_solver(
@@ -116,6 +118,70 @@ def make_batched_solver(
         return res
 
     return solve_batch
+
+
+def sharded_solve(
+    problem: ShootingProblem,
+    x0s: torch.Tensor,
+    settings: SolverSettings = SolverSettings(),
+    use_gaps: bool = True,
+    bounds: Optional[Bounds] = None,
+    devices=None,
+    use_fast_path=False,
+    warm_start: bool = False,
+    partitioner: str = "shard_map",
+    **solver_kwargs,
+) -> SolveResult:
+    """Solve the scenarios ``x0s [B, nx]`` split over ``devices`` (default:
+    every visible CUDA device), as the JAX package's batch sharding splits
+    them over a mesh: B / len(devices) contiguous scenarios a device, each
+    shard solved by :func:`make_batched_solver` (``use_fast_path``,
+    ``warm_start`` and ``solver_kwargs`` such as ``globalization``,
+    ``scales``, ``ub_stages`` passed on) on a copy of the problem, the
+    bounds and any tensor argument on that device, and the results
+    concatenated in order on the first device. The scenarios are
+    independent, so each lane's result is the unsharded solve's. The
+    shards run one after another from this thread: a solve's host loop
+    waits on its card every pass, so the rate does not grow with the
+    cards. (Shards in threads of their own ran 4-10x slower than one card
+    solving the whole batch, the threads queueing for the interpreter
+    lock at every launch.)
+
+    ``x0s`` lies on the problem's device, as for every solve. ``mesh``
+    becomes ``devices`` (a list of devices, repeats allowed), and the mesh
+    axis name has no counterpart; ``partitioner="gspmd"`` (XLA partitioning
+    the whole program) has none either and raises."""
+    if partitioner == "gspmd":
+        raise ValueError("partitioner='gspmd' has no counterpart in the port: each device "
+                         "solves its own shard ('shard_map')")
+    if partitioner != "shard_map":
+        raise ValueError(f"partitioner must be 'shard_map', got {partitioner!r}")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("sharded_solve found no CUDA device: pass devices=[...] to "
+                               "name the devices of the shards")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("sharded_solve needs at least one device")
+    check_device(problem.x0.device, x0s=x0s)
+    B, n = x0s.shape[0], len(devices)
+    if B % n:
+        raise ValueError(f"a batch of {B} scenarios does not split into {n} equal shards")
+    per = B // n
+    parts = []
+    for i, dev in enumerate(devices):
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            fn = make_batched_solver(problem.to(dev), settings, use_gaps,
+                                     to_device(bounds, dev), warm_start=warm_start,
+                                     use_fast_path=use_fast_path,
+                                     **to_device(solver_kwargs, dev))
+            parts.append(fn(x0s[i * per:(i + 1) * per].to(dev)))
+    first = devices[0]
+    return SolveResult(*(torch.cat([getattr(r, f).to(first) for r in parts])
+                         for f in SolveResult._fields[:-1]),
+                       SolveLog(*(torch.cat([getattr(r.log, f).to(first) for r in parts])
+                                  for f in SolveLog._fields)))
 
 
 def convergence_summary(result: SolveResult):

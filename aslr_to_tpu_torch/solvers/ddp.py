@@ -76,7 +76,9 @@ class SolverSettings:
     # the backward through the Riccati kernels (K2, K4, K5) where the
     # family has one; DDP without box or gaps keeps the generic sweep
     use_pallas_backward: bool = False
-    # the log-depth associative backward: not ported yet
+    # the unbounded families' backward at log depth over the knots
+    # (solvers/assoc_riccati.py) on the generic and fast routes; a box
+    # raises, and the lane route refuses it
     assoc_backward: bool = False
 
 
@@ -165,10 +167,14 @@ def _gaps(problem: ShootingProblem, xs, xnext):
 def _backward(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, settings,
               kprev=None, fast=None) -> _Backward:
     """Riccati sweep of the family; ``kprev [B, T, nu]`` warm-starts the
-    BoxQPs. With ``use_pallas_backward`` the families that have a kernel
+    BoxQPs. ``assoc_backward`` takes the log-depth backward first, on every
+    route that reaches here (the generic one and the fast path). With
+    ``use_pallas_backward`` the families that have a kernel
     go through it (``fast.backward`` where the fast path is given); a
     per-knot ``[T, nu]`` box runs the generic sweep, as in the JAX package
     (the lane solver takes it to K2 and K5 as a table)."""
+    if settings.assoc_backward:
+        return _backward_assoc(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds)
     warm = kprev is not None
     qp_iters = settings.boxqp_warm_iters if warm else settings.boxqp_iters
     shared_box = bounds is None or bounds.lb.dim() == 1
@@ -193,6 +199,51 @@ def _backward(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, setti
                           settings, kprev, qp_iters)
 
 
+def _q_terms(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, Vx, Vxx, reg_m, eye_u):
+    """A knot's expansion (Qx, Qu, Qxx, Qxu, Quu) from its derivatives and
+    the value (Vx, Vxx) of the knot after it, over any leading dims (one
+    knot of the sweep, or every knot at once in the associative
+    backward); ``reg_m`` broadcasts over a matrix."""
+    FxT, FuT = Fx.transpose(-1, -2), Fu.transpose(-1, -2)
+    Qx = Lx + _mv(FxT, Vx)
+    Qu = Lu + _mv(FuT, Vx)
+    FxTVxx = FxT @ Vxx
+    Qxx = Lxx + FxTVxx @ Fx
+    Qxu = Lxu + FxTVxx @ Fu
+    Quu = Luu + FuT @ Vxx @ Fu + reg_m * eye_u
+    return Qx, Qu, Qxx, Qxu, Quu
+
+
+def _value(Qx, Qu, Qxx, Qxu, Quu, k, K, reg_m, eye_x):
+    """(Quu k, Vx, Vxx) of a knot from its expansion and gains, before the
+    gap deflection."""
+    Quuk = _mv(Quu, k)
+    KT = K.transpose(-1, -2)
+    Vx = Qx + _mv(KT, Quuk) - 2.0 * _mv(KT, Qu)
+    Vxx = Qxx - Qxu @ K
+    Vxx = 0.5 * (Vxx + Vxx.transpose(-1, -2)) + reg_m * eye_x
+    return Quuk, Vx, Vxx
+
+
+def _backward_assoc(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds) -> _Backward:
+    """The unbounded families' backward at log depth
+    (``solvers/assoc_riccati.py``), as the JAX package wires it: zero gaps
+    for DDP, and a box refused, never swept sequentially instead."""
+    if bounds is not None:
+        raise ValueError("assoc_backward supports the unbounded (DDP/FDDP) families only: "
+                         "the Box variants' clamped-QP recursion is not a linear-"
+                         "fractional map (see solvers/assoc_riccati.py)")
+    from .assoc_riccati import fddp_backward_assoc
+
+    fs_eff = fs if use_gaps else torch.zeros_like(fs)
+    (k, K, w, dg, dq, stop, dg_gap, dq_gap, ok, retryable) = fddp_backward_assoc(
+        *run_diff, term_diff.Lx, term_diff.Lxx, fs_eff, reg)
+    zero = torch.zeros_like(dg)
+    return _Backward(k=k, K=K, Vx=torch.zeros_like(w), w=w, dg=dg, dq=dq,
+                     dg_gap=dg_gap if use_gaps else zero, dq_gap=dq_gap if use_gaps else zero,
+                     stop=stop, ok=ok, retryable=retryable)
+
+
 def _backward_scan(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, settings,
                    kprev, qp_iters) -> _Backward:
     """The generic sweep, batched over the scenarios, one knot at a time
@@ -212,14 +263,8 @@ def _backward_scan(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, 
     zero_w = torch.zeros_like(Vx)
     outs = [None] * T
     for t in range(T - 1, -1, -1):
-        Fx, Fu = run_diff.Fx[:, t], run_diff.Fu[:, t]
-        FxT, FuT = Fx.transpose(-1, -2), Fu.transpose(-1, -2)
-        Qx = run_diff.Lx[:, t] + _mv(FxT, Vx)
-        Qu = run_diff.Lu[:, t] + _mv(FuT, Vx)
-        FxTVxx = FxT @ Vxx
-        Qxx = run_diff.Lxx[:, t] + FxTVxx @ Fx
-        Qxu = run_diff.Lxu[:, t] + FxTVxx @ Fu
-        Quu = run_diff.Luu[:, t] + FuT @ Vxx @ Fu + reg_m * eye_u
+        Qx, Qu, Qxx, Qxu, Quu = _q_terms(*(d[:, t] for d in run_diff), Vx, Vxx, reg_m,
+                                         eye_u)
         if bounds is None:
             L = cholesky_nan(Quu)
             k = cho_solve(L, Qu)
@@ -234,11 +279,7 @@ def _backward_scan(problem, run_diff, term_diff, fs, us, reg, use_gaps, bounds, 
             k = -qp.x
             K = masked_free_solve(Quu, qp.free, Qxu.transpose(-1, -2))
             ok = torch.isfinite(k).all(1) & torch.isfinite(K).flatten(1).all(1)
-        Quuk = _mv(Quu, k)
-        KT = K.transpose(-1, -2)
-        Vx = Qx + _mv(KT, Quuk) - 2.0 * _mv(KT, Qu)
-        Vxx = Qxx - Qxu @ K
-        Vxx = 0.5 * (Vxx + Vxx.transpose(-1, -2)) + reg_m * eye_x
+        Quuk, Vx, Vxx = _value(Qx, Qu, Qxx, Qxu, Quu, k, K, reg_m, eye_x)
         if use_gaps:
             w = _mv(Vxx, fs[:, t])
             Vx = Vx + w
@@ -303,8 +344,6 @@ def solve(problem: ShootingProblem, xs_init=None, us_init=None,
     The float32 products run in full float32 (no TF32), as the JAX package
     pins them: reduced-precision passes doubled the f32 divergence there.
     """
-    if settings.assoc_backward:
-        raise NotImplementedError("assoc_backward (solvers/assoc_riccati.py) is not ported yet")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

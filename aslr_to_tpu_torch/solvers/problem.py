@@ -80,6 +80,20 @@ def stack_knots(models):
     return _stack(models, like, type(models[0]).__name__)
 
 
+def to_device(obj, device):
+    """``obj`` (a tensor, or dataclasses, NamedTuples, tuples, lists and
+    dicts of them, such as a model or ``Bounds``) with every tensor moved to
+    ``device``; other leaves are kept."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    kids = _children(obj)
+    if kids is None:
+        return obj
+    return _rebuild(obj, [to_device(k, device) for k in kids])
+
+
 def _slice(obj, t):
     if isinstance(obj, torch.Tensor):
         return obj[t]
@@ -104,6 +118,11 @@ class ShootingProblem:
         if not self.per_knot:
             return (self.running,) * self.T
         return tuple(_slice(self.running, t) for t in range(self.T))
+
+    def to(self, device) -> "ShootingProblem":
+        """A copy of the problem with every tensor on ``device`` (a solve
+        runs on its problem's device and raises for inputs elsewhere)."""
+        return to_device(self, torch.device(device))
 
     def knot_model(self, t: int):
         """The action model at knot ``t`` (the per-knot leaves sliced)."""

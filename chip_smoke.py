@@ -180,7 +180,27 @@ Phases, each printed with its result and time:
      converge); the
      north-star solve (one f64 scenario from the preset's x0
      through run_workload at the reference's budget) is held to
-     docs/northstar.json's cost within rtol 1e-6.
+     docs/northstar.json's cost within rtol 1e-6;
+ 16. assoc: the log-depth backward (solvers/assoc_riccati.py, batched
+     torch, no kernel) against the generic route's sequential sweep
+     (solvers/ddp.py::_backward_scan) and K4 at (8, 4) alone, on
+     scripts/bench_assoc.py's data (ndx 8, nu 4) in f32 at T 128 and 1024,
+     B 8 and 1024 (ASSOC_T, ASSOC_B): CUDA events over ASSOC_REPS calls
+     after a warm-up, the gains of assoc and of K4 each within
+     ASSOC_GAIN_RTOL of the sequential sweep's or the phase fails;
+     fast assoc: the fast route's SEA cold solve with assoc_backward
+     (measure.py path fast_sea_assoc, T=100, B=4096, f32, maxiter 60: K1
+     and K6 launched, no backward kernel, or the phase fails) beside the
+     same route without it (fast_sea), both timed with their statistics,
+     which may part by no more than FAST_ASSOC_GAPS;
+     sharded: sharded_solve over the host's cards on the BoxDDP main path
+     (its problem, settings and x0s), equal to the lane solve to the bit;
+     entry points: aslr_to_tpu_torch/entry.py's entry() fn on its example
+     x0s and dryrun_multichip over the host's cards (the five families);
+     a worker holds the generic route's SEA FDDP with assoc_backward to the
+     sequential backward in f64 (T=20, B=64, maxiter 8: every lane's
+     iterations and flags equal, cost within rtol 1e-9, us within atol
+     1e-7), and runs each example's main at its CPU test's sizes.
 
 Phases 7, 8 and 14 (and the f64 parity of 12, of the homotopy, of the
 pendulum and of the 7-DoF routes, K3 at nl 7 held to the bit at B=4096,
@@ -380,6 +400,15 @@ F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 F64_OPS_PER_S = 34e12              # H100 SXM float64 outside the tensor cores (data sheet)
 REG = 1e-9
 B_FILL = 16384                     # the kernels' batch-filling variant
+# the associative backward's timing grid (scripts/bench_assoc.py's shape,
+# ndx 8 and nu 4) and its calls timed after a warm-up
+ASSOC_T = (128, 1024)
+ASSOC_B = (8, 1024)
+ASSOC_REPS = 3
+ASSOC_GAIN_RTOL = 1e-4
+# the most the fast SEA route with assoc_backward may part from it without
+FAST_ASSOC_GAPS = dict(converged_frac=0.02, diverged_frac=0.02, mean_iterations=1.0,
+                       max_iterations=10, median_cost=1e-3)
 # the double pendulum: the passes of the path's solve tried for K4's
 # mid-solve inputs (the first at which Quu fails to factor on some lanes
 # and factors on others), the f64 parity's batch, and the north-star record
@@ -519,6 +548,24 @@ def device_ms(fn, reps, kernel):
 _ARITH = {"add", "sub", "mul", "div", "neg", "sqrt", "sin", "cos", "atan2", "abs",
           "maximum", "minimum", "__add__", "__radd__", "__iadd__", "__sub__", "__rsub__",
           "__mul__", "__rmul__", "__truediv__", "__rtruediv__", "__neg__"}
+
+
+class _ShortQueue(TorchFunctionMode):
+    """Waits for the card every 32 torch calls, so that a worker stopped by
+    quiet() leaves at most that many of its small kernels queued (what
+    CUDA_LAUNCH_BLOCKING=1 bounded to one, at a wait a launch: 10x the time
+    of the nl 7 checks at B=4096 beside the other workers)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.calls += 1
+        if self.calls % 32 == 0:
+            torch.cuda.synchronize()
+        return out
 
 
 class _OpCount(TorchFunctionMode):
@@ -1096,25 +1143,33 @@ def nl7_rollout_cases(dtype, B, blown_up=False):
     return cases
 
 
-def nl7_rollouts_check(batches, blown_up, only=None):
+def nl7_rollouts_check(batches, blown_up, only=None, tags=("f64", "f32")):
     """A worker's: K3 and K6 at nl 7 in every instance (nl7_rollout_cases) at
-    each batch of ``batches``, T=100, in f64 and f32, to the bit against
+    each batch of ``batches``, T=100, in f64 and f32 (``tags``: those
+    alone), to the bit against
     their plain versions (K6 at K3's second step length against the plain
     version's second trial); with ``blown_up``, on the batch with
     BLOWN_UP's scenarios, which must blow up as made; ``only``: that
     instance alone. K3's batch rule takes its wide layout at B_NDOF and its
-    general one at 4 B_NDOF."""
+    general one at 4 B_NDOF. The plain version runs with its queue kept
+    short (_ShortQueue) and each kernel is waited for, so that a stopped
+    worker leaves little to run in a phase's timing."""
     from aslr_to_tpu_torch.kernels import vsa_kernels as vk
     from aslr_to_tpu_torch.measure import T_PATH
 
     for B in batches:
         for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            if tag not in tags:
+                continue
             cases = nl7_rollout_cases(dtype, B, blown_up)
             for label, args in cases.items():
                 if only is not None and label != only:
                     continue
-                want = vk.rollout2_plain(*args)
+                with _ShortQueue():
+                    want = vk.rollout2_plain(*args)
+                torch.cuda.synchronize()
                 got = vk.rollout2(*args)
+                torch.cuda.synchronize()
                 one = vk.rollout1(*args[:6], *args[7:])
                 torch.cuda.synchronize()
                 pairs = [(f"K3 trial {i} {f}", g, w) for i in range(2)
@@ -2440,11 +2495,8 @@ def start_checks():
     pool = ThreadPoolExecutor(max_workers=len(CHECK_WORKERS))
     running = []
     for names in CHECK_WORKERS:
-        blocking = any(name in BLOCKING_CHECKS for name in names)
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--check", *names],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                                env=dict(os.environ, CUDA_LAUNCH_BLOCKING="1") if blocking
-                                else None)
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((names, proc, pool.submit(proc.communicate)))
     pool.shutdown(wait=False)
     return running
@@ -2878,16 +2930,220 @@ def per_knot_checks():
         lanes_equal(f"{label} lanes against generic", res["lanes"], res[False], Bg, x0s)
 
 
+def assoc_inputs(T, B, dtype, seed):
+    """scripts/bench_assoc.py's backward inputs (ndx 8, nu 4), batch-first on
+    the card: near-identity dynamics, SPD cost blocks, gaps 0.05 randn;
+    drawn in f64 from a seeded CUDA generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ndx, nu = 8, 4
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=torch.float64)
+
+    def spd(*lead, m):
+        W = 0.3 * n(*lead, m, m)
+        return W @ W.mT + 0.5 * torch.eye(m, device="cuda", dtype=torch.float64)
+
+    Fx = torch.eye(ndx, device="cuda", dtype=torch.float64) + 0.02 * n(B, T, ndx, ndx)
+    out = (Fx, 0.1 * n(B, T, ndx, nu), n(B, T, ndx), n(B, T, nu), spd(B, T, m=ndx),
+           0.05 * n(B, T, ndx, nu), spd(B, T, m=nu), n(B, ndx), spd(B, m=ndx),
+           0.05 * n(B, T + 1, ndx))
+    return tuple(a.to(dtype) for a in out)
+
+
+@phase("assoc")
+def assoc_phase(smi):
+    """The log-depth backward (solvers/assoc_riccati.py, batched torch)
+    against the sequential sweep of the generic route (solvers/ddp.py::
+    _backward_scan, a loop over the knots) and K4 at (8, 4) (the kernel
+    alone, on the same inputs in its lane layout), f32, at each
+    (T, B) of ASSOC_T x ASSOC_B: CUDA events over ASSOC_REPS calls after a
+    warm-up; the gains of assoc and K4 each held to the sequential sweep's
+    within ASSOC_GAIN_RTOL (normwise a lane: f32 reassociation gave
+    2.98e-7 to 5.69e-7)."""
+    import types
+
+    from aslr_to_tpu_torch.kernels.riccati import riccati_fddp_backward
+    from aslr_to_tpu_torch.models.integrator import ActionDerivs
+    from aslr_to_tpu_torch.solvers.assoc_riccati import fddp_backward_assoc
+    from aslr_to_tpu_torch.solvers.ddp import SolverSettings, _backward_scan
+
+    problem = types.SimpleNamespace(state=types.SimpleNamespace(ndx=8), nu=4)
+    rows = []
+    for T in ASSOC_T:
+        for B in ASSOC_B:
+            args = assoc_inputs(T, B, torch.float32, T + B)
+            reg = torch.full((B,), 1e-6, device="cuda")
+            run = ActionDerivs(*args[:7])
+            term = ActionDerivs(None, None, args[7], None, args[8], None, None)
+            us = torch.zeros(B, T, 4, device="cuda")
+            lanes = [a.movedim(0, -1).contiguous() for a in args] + [reg]
+            fns = dict(
+                assoc=lambda: fddp_backward_assoc(*args, reg)[0],
+                sequential=lambda: _backward_scan(problem, run, term, args[9], us, reg, True,
+                                                  None, SolverSettings(), None, 0).k,
+                K4=lambda: riccati_fddp_backward(*lanes).k)
+            k = {name: fn().float() for name, fn in fns.items()}
+            k["K4"] = k["K4"].movedim(-1, 0)
+            ms = {name: cuda_ms(fn, ASSOC_REPS) for name, fn in fns.items()}
+            diff = {f"{a}-{b}": rel_err(k[a].flatten(1).T, k[b].flatten(1).T)[0]
+                    for a, b in (("assoc", "sequential"), ("K4", "sequential"))}
+            if not all(bool(torch.isfinite(v).all()) for v in k.values()):
+                raise AssertionError(f"assoc T={T} B={B}: non-finite gains")
+            if max(diff.values()) > ASSOC_GAIN_RTOL:
+                raise AssertionError(f"assoc T={T} B={B}: the gains part by {diff}, over "
+                                     f"{ASSOC_GAIN_RTOL}")
+            rows.append(dict(T=T, B=B, **{f"{n}_ms": v for n, v in ms.items()}))
+            log(f"  T={T} B={B} f32: assoc {ms['assoc']:.4f} ms, sequential "
+                f"{ms['sequential']:.4f} ms, K4 {ms['K4']:.4f} ms; assoc / sequential "
+                f"{ms['sequential'] / ms['assoc']:.2f}x, K4 / assoc "
+                f"{ms['assoc'] / ms['K4']:.2f}x; gains' relative difference {diff} ({smi})")
+            del args, run, term, lanes, k
+            torch.cuda.empty_cache()
+    log(json.dumps({"assoc": rows}))
+
+
+@phase("fast assoc")
+def fast_assoc_phase(report, card):
+    """The fast route's SEA cold solve with assoc_backward (measure.py path
+    fast_sea_assoc: K1 and K6, the backward in batched torch, no backward
+    kernel) beside the same route without it (fast_sea), T=100, B=4096,
+    f32, maxiter 60, on the same inputs. The gap in their statistics is
+    printed; f32 reassociation on long suffixes may move it a little
+    (0.004 mean iterations, median costs 3e-7 apart), so only a gap past
+    FAST_ASSOC_GAPS fails, as a wrong backward would."""
+    from aslr_to_tpu_torch.kernels import build
+
+    summ = solve_path("fast_sea", report, card, ("linearize", "riccati_fddp", "rollout1"),
+                      2, 1)[1]
+    assoc = solve_path("fast_sea_assoc", report, card, ("linearize", "rollout1"), 2, 2)[1]
+    backward = {k: v for k, v in build.LAUNCHES.items() if k.startswith("riccati")}
+    if any(backward.values()):
+        raise AssertionError(f"fast_sea_assoc launched a backward kernel: {backward}")
+    gaps = {k: assoc[k] - summ[k] for k in ("converged_frac", "diverged_frac",
+                                            "mean_iterations", "max_iterations")}
+    gaps["median_cost"] = assoc["median_cost"] / summ["median_cost"] - 1
+    log(f"  fast SEA with assoc_backward minus without: {gaps}")
+    over = {k: v for k, v in gaps.items() if abs(v) > FAST_ASSOC_GAPS[k]}
+    if over:
+        raise AssertionError(f"fast_sea_assoc parts from fast_sea by {over}, over "
+                             f"{FAST_ASSOC_GAPS}")
+
+
+@phase("sharded")
+def sharded_phase(report):
+    """sharded_solve over every card of the host on the BoxDDP main path's
+    problem, settings and x0s (measure.py path boxddp): equal to the lane
+    solve of the same x0s to the bit."""
+    from aslr_to_tpu_torch import (SolverSettings, make_batched_solver, sharded_solve,
+                                   two_dof_vsa_boxddp)
+    from aslr_to_tpu_torch.measure import B_PATH, SEEDS, T_PATH, x0_batch
+
+    w = two_dof_vsa_boxddp(T=T_PATH, dtype=torch.float32)
+    settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
+    x0s = x0_batch(B_PATH, torch.float32, SEEDS["boxddp"])
+    lanes = make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+                                use_fast_path="lanes")(x0s)
+    res, t = drive("sharded", report,
+                   lambda: sharded_solve(w.problem, x0s, settings, use_gaps=False,
+                                         bounds=w.bounds, use_fast_path="lanes"),
+                   ("linearize", "riccati_box", "rollout2"))
+    differ = [f for f in res._fields[:-1] if not same_bits(getattr(res, f), getattr(lanes, f))]
+    if differ:
+        raise AssertionError(f"sharded_solve differs from the lane solve in {differ}")
+    log(f"  sharded_solve over {torch.cuda.device_count()} device(s), B={B_PATH}: {t:.4f} s, "
+        f"equal to the lane solve to the bit")
+
+
+@phase("entry points")
+def entry_phase(report):
+    """aslr_to_tpu_torch/entry.py on the card: entry()'s fn on its example
+    x0s (the generic and lane BoxDDP solves, T=20, f32) and
+    dryrun_multichip over every card of the host."""
+    from aslr_to_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry()
+    (cost, gen_us, lane_us), t = drive("entry", report, lambda: fn(*args),
+                                       ("linearize", "riccati_box", "rollout2"))
+    if not (cost.shape == (4,) and gen_us.shape == lane_us.shape == (4, 20, 4)
+            and bool(torch.isfinite(cost).all())):
+        raise AssertionError(f"entry(): {cost}, {gen_us.shape}, {lane_us.shape}")
+    log(f"  entry(): cost_sum {cost.tolist()} in {t:.4f} s")
+    n = torch.cuda.device_count()
+    _, t = drive("dryrun_multichip", report, lambda: dryrun_multichip(n),
+                 ("linearize", "riccati_box", "rollout2", "riccati_fddp"))
+    log(f"  dryrun_multichip({n}): {t:.4f} s")
+
+
+def assoc_parity_check():
+    """A worker's: the generic route's SEA FDDP solve (T=20, B=64, f64,
+    maxiter 8, th_stop 1e-9) with assoc_backward against the sequential
+    backward on every lane: iterations and flags equal, cost within rtol
+    1e-9, us within atol 1e-7 (the CPU test's criterion)."""
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_sea
+    from aslr_to_tpu_torch.measure import SEEDS, x0_batch
+
+    w = two_dof_sea(T=20)
+    x0s = x0_batch(64, torch.float64, SEEDS["sea_warm"])
+    res = {}
+    for assoc in (False, True):
+        fn = make_batched_solver(w.problem, SolverSettings(maxiter=8, th_stop=1e-9,
+                                                           assoc_backward=assoc))
+        res[assoc] = fn(x0s)
+    seq, par = res[False], res[True]
+    ok = ((seq.iterations == par.iterations) & (seq.converged == par.converged)
+          & (seq.diverged == par.diverged)
+          & ((par.cost - seq.cost).abs() <= 1e-9 * seq.cost.abs())
+          & ((par.us - seq.us).abs().flatten(1).amax(1) <= 1e-7))
+    worst = float(((par.cost - seq.cost).abs() / seq.cost.abs()).max())
+    log(f"  assoc against the sequential backward, generic SEA FDDP f64 T=20 B=64: "
+        f"{int(ok.sum())}/64 lanes agree; largest cost difference {worst:.3e} relative; "
+        f"iterations {seq.iterations.min().item()}-{seq.iterations.max().item()}")
+    if not bool(ok.all()):
+        raise AssertionError(f"assoc parity: lanes {torch.nonzero(~ok).flatten().tolist()} "
+                             f"part from the sequential backward")
+
+
+def examples_check():
+    """A worker's: each example of aslr_to_tpu_torch/examples/ through its
+    main on the card at the test's sizes (tests/test_torch_examples.py)."""
+    import tempfile
+
+    from aslr_to_tpu_torch.examples import (batched_sweep, double_pendulum, mpc_resolve,
+                                            mpc_tracking, seven_dof_sea, two_dof_sea,
+                                            two_dof_vsa_boxddp, two_dof_vsa_modified)
+
+    def finite(res):
+        if not bool(torch.isfinite(res.cost).all()):
+            raise AssertionError(f"an example's cost is not finite: {res.cost}")
+
+    for module, T in ((two_dof_sea, 10), (seven_dof_sea, 5), (double_pendulum, 5),
+                      (two_dof_vsa_modified, 10)):
+        finite(module.main(T=T, maxiter=3).result)
+    with tempfile.TemporaryDirectory() as d:
+        for homotopy in (False, True):
+            finite(two_dof_vsa_boxddp.main(T=10, maxiter=4, homotopy=homotopy,
+                                           out=os.path.join(d, "vsa.mat")).result)
+    finite(batched_sweep.main(batch=4, T=10, maxiter=3, dtype="float64")[0])
+    finite(mpc_resolve.main(T=10, maxiter=20)[1])
+    finite(mpc_tracking.main(T=10, maxiter=10)[0])
+    finite(mpc_tracking.main(T=10, batch=4, reps=1)[0])
+    log("  the 8 examples ran on the card")
+
+
 # the checks that solve on the plain backend or the generic route, each a
 # worker process's: those solves run thousands of small kernels a loop
 # pass, so each waits on its host and leaves the card idle, and side by
-# side they take the time of the longest. The tuples are the workers, one
-# a core of the card's host (8 on the H100 machine), below this process in
-# priority; they start once the build is done and run beside every phase,
-# stopped while a phase times (quiet).
+# side they take the time of the longest. The tuples are the workers (ten,
+# on the H100 machine's 8 cores), below this process in priority; they
+# start once the build is done and run beside every phase, stopped while a
+# phase times (quiet). The nl 7 rollouts at 4 B_NDOF, the longest check,
+# run a dtype a worker.
 CHECKS = {"parity double pendulum": pendulum_parity_check,
           "parity per-knot": per_knot_checks,
-          "nl 7 rollouts at 4 B_NDOF": partial(nl7_rollouts_check, (4 * B_NDOF,), False),
+          **{f"nl 7 rollouts at 4 B_NDOF {tag}": partial(nl7_rollouts_check, (4 * B_NDOF,),
+                                                          False, None, (tag,))
+             for tag in ("f64", "f32")},
           "nl 7 rollouts blown up": partial(nl7_rollouts_check, (B_NDOF, 4 * B_NDOF), True),
           "nl 7 table rollouts": partial(nl7_rollouts_check, (B_NDOF,), False,
                                          "sea gaps target table"),
@@ -2904,7 +3160,9 @@ CHECKS = {"parity double pendulum": pendulum_parity_check,
              for family in NDOF_FAMILIES for route in ("lanes", "fast")
              for at, T in (("", T_NDOF_PARITY), (" T=100", 100))},
           "generic 7-DoF BoxFDDP": partial(ndof_generic_check, "BoxFDDP"),
-          "generic 7-DoF DDP": partial(ndof_generic_check, "DDP")}
+          "generic 7-DoF DDP": partial(ndof_generic_check, "DDP"),
+          "parity assoc": assoc_parity_check,
+          "examples": examples_check}
 CHECK_WORKERS = (("parity 7-DoF BoxFDDP fast",), ("parity per-knot",),
                  ("parity 7-DoF BoxFDDP lanes", "parity 7-DoF DDP lanes", "parity 7-DoF DDP fast",
                   "golden"),
@@ -2912,11 +3170,8 @@ CHECK_WORKERS = (("parity 7-DoF BoxFDDP fast",), ("parity per-knot",),
                  ("parity homotopy main", "generic BoxDDP", "pendulum north star"),
                  ("parity BoxDDP", "parity SEA FDDP", "generic SEA FDDP"),
                  ("parity BoxFDDP", "parity double pendulum", "nl 7 table rollouts",
-                  "nl 7 rollouts blown up"), ("nl 7 rollouts at 4 B_NDOF",))
-# checks whose plain versions queue large kernels on the card: their
-# worker runs with CUDA_LAUNCH_BLOCKING=1, so that no more than one of its
-# kernels is left to run once it is stopped (quiet)
-BLOCKING_CHECKS = ("nl 7 rollouts at 4 B_NDOF",)
+                  "nl 7 rollouts blown up"), ("nl 7 rollouts at 4 B_NDOF f64",),
+                 ("nl 7 rollouts at 4 B_NDOF f32",), ("parity assoc", "examples"))
 
 
 def main():
@@ -2945,6 +3200,10 @@ def main():
         homotopy_phase(report, smi)
         pendulum_phase(report, smi)
         generic_timed_phase(smi)
+        assoc_phase(smi)
+        fast_assoc_phase(report, smi)
+        sharded_phase(report)
+        entry_phase(report)
         finish_checks(WORKERS)
     finally:
         stop_checks(WORKERS)

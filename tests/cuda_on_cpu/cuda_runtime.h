@@ -1,20 +1,23 @@
 // Enough of the CUDA runtime to compile a kernel source of
 // aslr_to_tpu_torch/csrc with g++ and run it on the CPU, for the tests:
 // the execution-space keywords vanish, a launch runs the blocks one after
-// another with one std::thread per CUDA thread, __syncthreads meets at a
-// std::barrier over the block and the warp primitives (__syncwarp, votes,
-// shuffles) at one over the warp. That is exact only for kernels in which
-// every thread of a block reaches the same __syncthreads, and every thread
-// of a warp the same warp primitives, in the same order, as the box
-// kernel's and the rollout's do (a warp may branch where the others do
-// not, as long as all its lanes branch alike).
+// another, each CUDA thread of a block as a fiber (a stack of its own,
+// switched to by hand on one OS thread, runtime.cpp), __syncthreads meets at
+// a barrier over the block and the warp primitives (__syncwarp, votes,
+// shuffles) at one over the warp. A fiber runs until it waits at a barrier;
+// the scheduler then runs the next one, sweeping the block's threads in
+// increasing and decreasing order by turns, so a read of shared memory that
+// a missing barrier leaves racing sees the other thread's write before it
+// in one phase or the next. That is exact only for kernels in which every
+// thread of a block reaches the same __syncthreads, and every thread of a
+// warp the same warp primitives, in the same order, as the box kernel's and
+// the rollout's do (a warp may branch where the others do not, as long as
+// all its lanes branch alike).
 #pragma once
 
-#include <barrier>
 #include <cmath>
 #include <cstring>
-#include <memory>
-#include <thread>
+#include <functional>
 #include <vector>
 
 using std::isfinite;
@@ -52,18 +55,35 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int
 }
 
 struct dim3_ { unsigned x, y, z; };
-extern thread_local dim3_ threadIdx;
+extern dim3_ threadIdx;  // the running fiber's, set by the scheduler
 extern dim3_ blockIdx, blockDim;
 
 namespace cpu_cuda {
-extern std::barrier<>* block_barrier;
-extern std::vector<std::barrier<>*> warp_barriers;
+struct Barrier {
+  int expected, count;
+  unsigned phase;
+};
+extern Barrier block_barrier;
+extern std::vector<Barrier> warp_barriers;
 extern std::vector<double> slots;
 extern unsigned char* shared_memory;  // the kernel's dynamic shared memory, defined with it
 constexpr size_t kSharedBytes = 1 << 20;
 
-inline void sync() { block_barrier->arrive_and_wait(); }
-inline void warp_sync() { warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
+void yield();  // back to the scheduler, which runs the next fiber
+// runs body once for each thread of a block of `block`, as fibers
+void run_block(int block, const std::function<void()>& body);
+
+inline void arrive_and_wait(Barrier& b) {
+  const unsigned phase = b.phase;
+  if (++b.count == b.expected) {
+    b.count = 0;
+    ++b.phase;
+    return;
+  }
+  while (b.phase == phase) yield();
+}
+inline void sync() { arrive_and_wait(block_barrier); }
+inline void warp_sync() { arrive_and_wait(warp_barriers[threadIdx.x / 32]); }
 
 // every thread posts v; returns the slots of its own warp
 template <class F>
@@ -80,23 +100,13 @@ void launch(int grid, int block, size_t, cudaStream_t, F* kernel, A... args) {
   for (int b = 0; b < grid; ++b) {
     blockIdx.x = b;
     blockDim.x = block;
-    std::barrier<> bar(block);
-    block_barrier = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    block_barrier = Barrier{block, 0, 0};
     warp_barriers.clear();
-    for (int w = 0; w * 32 < block; ++w) {
-      warps.push_back(std::make_unique<std::barrier<>>(block - w * 32 < 32 ? block - w * 32 : 32));
-      warp_barriers.push_back(warps.back().get());
-    }
+    for (int w = 0; w * 32 < block; ++w)
+      warp_barriers.push_back(Barrier{block - w * 32 < 32 ? block - w * 32 : 32, 0, 0});
     slots.assign(block, 0.0);
     std::memset(shared_memory, 0xff, kSharedBytes);  // NaN where nothing was staged
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([=] {
-        threadIdx.x = t;
-        kernel(args...);
-      });
-    for (auto& th : threads) th.join();
+    run_block(block, [&] { kernel(args...); });
   }
 }
 }  // namespace cpu_cuda

@@ -72,8 +72,8 @@ def gxx_library(d, sources, smem_name, bases):
         (src_dir / (f.stem + (".cpp" if f.suffix == ".cu" else f.suffix))).write_text(text)
     (d / "smem.cpp").write_text(SMEM.replace("roll_smem", smem_name))
     lib = d / "libkernels.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-builtin", "-fPIC",
-                    "-shared", "-pthread", f"-I{HERE}", f"-I{src_dir}",
+    subprocess.run([gxx, "-std=c++20", "-O0", "-ffp-contract=off", "-fno-builtin", "-fPIC",
+                    "-shared", f"-I{HERE}", f"-I{src_dir}",
                     "-o", str(lib), *(str(src_dir / (Path(f).stem + ".cpp")) for f in sources),
                     str(d / "smem.cpp"), str(HERE / "runtime.cpp")], check=True)
     handle = ctypes.CDLL(str(lib))

@@ -7,6 +7,7 @@ sets agree to 1e-12 and match scipy's L-BFGS-B optimum to 1e-6. An
 indefinite free block gives NaN (the regularization retry reads it), not
 an exception.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

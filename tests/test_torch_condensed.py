@@ -20,6 +20,7 @@ numpy inputs through both packages and against the port's
   equal to the per-row ones;
 - ``utils/numdiff.py::assert_numdiff`` with the reference's tolerance.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -31,6 +31,7 @@ Seeded numpy inputs go through the JAX function and the port's:
   effort rtol 1e-8; the ``"auto"`` route's warning on a problem the fast
   path refuses.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 import functools
 import warnings

@@ -12,6 +12,7 @@
   with equal iterations and flags, cost rtol 1e-8 and us atol 1e-8, as
   ``tests/test_vsa_fast_path.py:75-105`` does for BoxDDP and SEA FDDP.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

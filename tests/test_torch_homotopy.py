@@ -24,6 +24,7 @@ within the budget). The JAX references take the problem, the initial
 states and the schedule as arguments: one compile for each schedule shape
 (4 stages without boxes, 5 and 7 with).
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 import functools
 

@@ -1,5 +1,6 @@
 """The port imports without JAX, and on CPU tensors its kernel wrappers
 take their plain versions without launching (or building) anything."""
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import ast
 import subprocess
 import sys

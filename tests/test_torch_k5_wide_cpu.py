@@ -23,6 +23,7 @@ three boxes:
 Then one scenario whose Quu is not finite at a knot fails alone in its block,
 not retryable, beside the retryable failures of the negative reg.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

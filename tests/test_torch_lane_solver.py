@@ -9,6 +9,7 @@ equal iteration counts and flags. The single-scenario case is held
 against the golden fixture ``tests/golden/vsa_boxddp_T30.npz`` at
 ``tests/test_golden.py``'s tolerances.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import os
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ infeasibility-resolving rollout is chaotic), at
 with xs and us atol 1e-6, as there: the masked BoxQP under the gap
 deflection is ill-conditioned at reg=1e-9.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax.numpy as jnp
 import pytest
 import torch

@@ -11,6 +11,7 @@ and holds them to the tolerances of ``tests/test_lane_solver.py::_check``
 case is held against the golden fixture ``tests/golden/sea_T40.npz`` at
 ``tests/test_golden.py:31-37``'s tolerances.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import os
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ port follows the Pallas kernel's route (dual-number seeds, closed-form
 2x2 inverse). The two agree to rounding: tolerance 1e-10 relative to
 each tensor's largest entry.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ and atan2 and a correctly rounded square root in place of PyTorch's CPU
 kernels, whose vectorized loops round some results differently in the last
 bit.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import math
 
 import numpy as np

@@ -5,6 +5,7 @@ A random trajectory from a seeded numpy generator (float64) goes through
 the JAX models' ``calc`` and the port's; tolerance 1e-12 relative to each
 quantity's scale.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

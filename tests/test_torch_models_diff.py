@@ -14,6 +14,7 @@ target near pi: there the log's Jacobian moves by 1e-8 when the frame's
 rotation moves by one unit in the last place (the JAX package's own
 ``jlog6`` does), and the two packages' forward kinematics differ by that.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

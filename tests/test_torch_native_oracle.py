@@ -11,6 +11,7 @@ oracle's library is built by g++ into the git-ignored ``build/`` directory;
 ``native/librbd_oracle.so`` is read by neither package's call here and
 keeps its bytes.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import hashlib
 from pathlib import Path
 

@@ -30,6 +30,7 @@ Seeded numpy inputs (float64) go through the JAX function and the port's:
 Each JAX reference is compiled once (one compiled function per test, the
 solves' in a fixture).
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@ reg=1e-9, as in ``test_torch_lane_solver_boxfddp.py``). The 7-DoF BoxFDDP
 case is in ``test_torch_ndof_box_seven.py``, so that another worker
 compiles it. The helpers are in ``torch_ndof_support.py``.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

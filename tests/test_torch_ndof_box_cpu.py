@@ -24,6 +24,7 @@ their plain versions to the bit in f64 and f32, NaNs and flags included:
   and the refusals: K2 above ndx 8, a box without gaps at nl 3 and 7, and
   box tables there, each naming the instances that are built.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import ctypes
 
 import numpy as np

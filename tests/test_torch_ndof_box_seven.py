@@ -10,6 +10,7 @@ with the same ``Bounds``: iterations and flags equal, cost rtol 1e-10, xs
 and us atol 1e-6 (as ``test_torch_ndof_box.py``). A file of its own, so
 that another worker compiles its reference (45-65 s at the 7-DoF shapes).
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ the warm lanes of one call). Tolerances as ``tests/test_lane_solver.py:
 equal. The helpers are in ``torch_ndof_support.py``, the 3-DoF solves in
 ``test_torch_ndof.py``.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import pytest
 
 from torch_ndof_support import check_solve, jax_reference, one_thread  # noqa: F401

@@ -4,6 +4,7 @@ Inputs come from a seeded numpy generator in float64 and go to both
 implementations; tolerances are 1e-12 (absolute, on quantities of order 1)
 unless a comment says why not.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ us; they then part in the JAX package too (its lane solver against its
 generic one), and the port's lane route stays equal to the JAX lane
 solver's.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 from functools import partial
 

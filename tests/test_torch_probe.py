@@ -11,6 +11,7 @@ product and sum rounded once to float32) to the bit; the mul+add mode
 stays within 1e-5 relative at these chain lengths, and equals the same
 recurrence restated in numpy float32 to the bit.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import functools
 import importlib.util
 import os

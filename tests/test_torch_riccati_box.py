@@ -9,6 +9,7 @@ reference factors with LAPACK and its BoxQP stops iterating once converged;
 the port follows the Pallas kernel (unrolled Cholesky, fixed iterations):
 tolerance 1e-9 relative to each tensor's largest entry, flags equal.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -27,6 +27,7 @@ kernel builds with -ffp-contract=off, and the plain versions run here with
 a correctly rounded square root (``torch.sqrt`` on the CPU is not, for
 longer tensors).
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ stops iterating once converged; the port follows the Pallas kernel
 (unrolled Cholesky, fixed iterations): tolerance 1e-9 relative to each
 tensor's largest entry, flags equal.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ side runs the generic models (SE(3) ``log6``, dense solves), the port the
 Pallas kernel's lane formulation: tolerance 1e-12 relative to each
 tensor's largest entry.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

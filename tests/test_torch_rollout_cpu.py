@@ -32,6 +32,7 @@ library's sin, cos and atan2 (and a correctly rounded square root) in place
 of PyTorch's CPU kernels, whose vectorized loops round some results
 differently in the last bit.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import ctypes
 
 import numpy as np

@@ -5,6 +5,7 @@ the other rollout files). The CUDA sources compile with g++ against the
 stand-ins of ``tests/cuda_on_cpu``, as ``test_torch_rollout_cpu.py`` says,
 whose fixture and helpers it takes.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import pytest
 import torch
 

@@ -23,6 +23,7 @@ one whose first link angle starts at 2e5 rad, past the 105,615 rad where
 sinf and cosf leave their fast range reduction, and one whose second link
 angle starts at -inf; at B=1 the one scenario starts past the fast range.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ inputs (x0 and the cold solve's xs, us) and the card's results. Made with
   float32 solve stalls on some of the lanes that stalled on the card, and
   both solvers converge every lane that converged there.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 import functools
 import os

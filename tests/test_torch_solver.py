@@ -16,6 +16,7 @@ generic route's line search, every step length in one batched rollout,
 equals one trial a round with early exit to the bit (the double pendulum,
 BoxFDDP in the tight box, DDP).
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 import os
 

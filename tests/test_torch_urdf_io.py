@@ -10,6 +10,7 @@ urdf.py``, ``io.py``), float64 on the CPU.
 - ``save_solution`` / ``load_solution`` round trip (tensors back, the bits
   kept) and ``export_mat`` (read back with scipy).
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ package, float64 on the CPU.
 - ``PRESETS["double_pendulum"]`` builds the swing-up, and an unknown name
   raises ``KeyError`` naming the presets.
 """
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import functools
 
 import numpy as np
