@@ -23,6 +23,7 @@ raises (:func:`require`) and names them.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -169,13 +170,26 @@ def build(force: bool = False, flags=None) -> Path:
     by default ``NVCC_FLAGS``) is missing; returns its path. Each source
     compiles in its own ``nvcc`` process, all at once; the compilers'
     output (``-Xptxas -v``: registers, spills) is kept in ``build_log``, and
-    each one's seconds in ``build_seconds``."""
-    global build_log
+    each one's seconds in ``build_seconds``. Processes that call it at once
+    for the same library compile it once: the build holds an exclusive
+    ``flock`` on ``<library>.lock`` beside it, and a process that waited
+    for the lock loads what the first one built."""
     flags = flags or NVCC_FLAGS
     out = library_path(flags)
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # processes that ask at once (a rank a card) build once: the first to
+    # take the lock compiles, the others wait on it and find the library
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists() and not force:
+            return out
+        return _compile(out, flags)
+
+
+def _compile(out: Path, flags) -> Path:
+    global build_log
     cus, _ = _sources()
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``aslr_to_tpu/parallel/batch.py``:
 ``make_batched_solver`` (the generic per-scenario solver, its fused fast
 path, and the lane solver, each also with the terminal-weight homotopy),
-``sharded_solve`` (the batch split over devices, a shard a device) and
+``sharded_solve`` (the batch split over devices, a shard a device: in
+series in this process, or a rank a device through :mod:`.spmd`) and
 ``convergence_summary``.
 """
 from __future__ import annotations
@@ -130,32 +131,49 @@ def sharded_solve(
     use_fast_path=False,
     warm_start: bool = False,
     partitioner: str = "shard_map",
+    mesh=None,
     **solver_kwargs,
 ) -> SolveResult:
-    """Solve the scenarios ``x0s [B, nx]`` split over ``devices`` (default:
-    every visible CUDA device), as the JAX package's batch sharding splits
-    them over a mesh: B / len(devices) contiguous scenarios a device, each
-    shard solved by :func:`make_batched_solver` (``use_fast_path``,
-    ``warm_start`` and ``solver_kwargs`` such as ``globalization``,
-    ``scales``, ``ub_stages`` passed on) on a copy of the problem, the
-    bounds and any tensor argument on that device, and the results
-    concatenated in order on the first device. The scenarios are
-    independent, so each lane's result is the unsharded solve's. The
-    shards run one after another from this thread: a solve's host loop
-    waits on its card every pass, so the rate does not grow with the
-    cards. (Shards in threads of their own ran 4-10x slower than one card
-    solving the whole batch, the threads queueing for the interpreter
-    lock at every launch.)
+    """Solve the scenarios ``x0s [B, nx]`` a shard a device, B / n
+    contiguous scenarios each, as the JAX package's batch sharding splits
+    them over a mesh, by one of two routes:
 
-    ``x0s`` lies on the problem's device, as for every solve. ``mesh``
-    becomes ``devices`` (a list of devices, repeats allowed), and the mesh
-    axis name has no counterpart; ``partitioner="gspmd"`` (XLA partitioning
-    the whole program) has none either and raises."""
+    - ``mesh`` (a :class:`.mesh.BatchMesh`, from ``distributed_init`` in
+      each of a process a device): every rank solves its shard at the same
+      time as the others and returns the whole result, gathered in rank
+      order (:func:`.spmd.make_shard_map_solver`); PERF.md gives its rates
+      over the cards.
+    - ``devices`` (default: every visible CUDA device; repeats allowed), in
+      this one process: each shard solved by :func:`make_batched_solver`
+      on a copy of the problem, the bounds and any tensor argument on its
+      device, one shard after another from this thread, the results
+      concatenated in order on the first device. A solve's host loop waits
+      on its card every pass, so this route's rate does not grow with the
+      cards: on four NVIDIA H100 80GB HBM3 (700 W) it gave 0.26-0.37x one
+      card's rate at B=4096 and 0.60-0.62x at B=16384 (PERF.md);
+      shards in threads of their own ran 4-10x slower than one card, the
+      threads queueing for the interpreter lock at every launch.
+
+    Either way ``use_fast_path``, ``warm_start`` and ``solver_kwargs`` (such
+    as ``globalization``, ``scales``, ``ub_stages``) pass on, and each
+    lane's result is the unsharded solve's. On the ``devices`` route
+    ``x0s`` lies on the problem's device, as for every solve; on the
+    ``mesh`` route every rank passes the same global ``x0s``. The mesh axis
+    name has no counterpart; ``partitioner="gspmd"`` (XLA partitioning the
+    whole program) has none either and raises."""
     if partitioner == "gspmd":
         raise ValueError("partitioner='gspmd' has no counterpart in the port: each device "
                          "solves its own shard ('shard_map')")
     if partitioner != "shard_map":
         raise ValueError(f"partitioner must be 'shard_map', got {partitioner!r}")
+    if mesh is not None:
+        if devices is not None:
+            raise ValueError("sharded_solve takes devices (the shards in series in this "
+                             "process) or mesh (a rank a device), not both")
+        from .spmd import make_shard_map_solver
+
+        return make_shard_map_solver(problem, settings, use_gaps, bounds, warm_start,
+                                     use_fast_path, mesh=mesh, **solver_kwargs)(x0s)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("sharded_solve found no CUDA device: pass devices=[...] to "

@@ -194,13 +194,28 @@ Phases, each printed with its result and time:
      same route without it (fast_sea), both timed with their statistics,
      which may part by no more than FAST_ASSOC_GAPS;
      sharded: sharded_solve over the host's cards on the BoxDDP main path
-     (its problem, settings and x0s), equal to the lane solve to the bit;
+     (its problem, settings and x0s), the shards in series in this
+     process, equal to the lane solve to the bit;
      entry points: aslr_to_tpu_torch/entry.py's entry() fn on its example
-     x0s and dryrun_multichip over the host's cards (the five families);
+     x0s and dryrun_multichip over the host's cards (the five families,
+     the shards in series);
      a worker holds the generic route's SEA FDDP with assoc_backward to the
      sequential backward in f64 (T=20, B=64, maxiter 8: every lane's
      iterations and flags equal, cost within rtol 1e-9, us within atol
      1e-7), and runs each example's main at its CPU test's sizes.
+
+The spmd phase runs first after the build, as the check workers start:
+the sharded solve across processes (aslr_to_tpu_torch/parallel/spmd.py),
+a rank a card over NCCL on a host with several cards, else 2 ranks on card
+0 over Gloo, started by aslr_to_tpu_torch/parallel/launch.py as
+``python3 chip_smoke.py --spmd-rank DIR``; each runs the BoxDDP main
+path's problem, settings and x0s through shard_map_solve on the lane
+route, a warm-up solve, then one solve timed from a barrier to a barrier
+after the gathered result with the check workers stopped. Every rank must
+launch K1, K2 and K3 from its own card's library (no _device_copy), its
+gathered result must equal this process's lane solve of the same x0s to
+the bit, and the global statistics (n_conv, mean_cost) must agree on
+every rank and equal those computed in the same way from the lane solve.
 
 Phases 7, 8 and 14 (and the f64 parity of 12, of the homotopy, of the
 pendulum and of the 7-DoF routes, K3 at nl 7 held to the bit at B=4096,
@@ -426,6 +441,10 @@ PENDULUM_PROFILED = 10             # the passes traced for K4's device time
 # generic route's launches on an H100, with the workers stopped)
 PENDULUM_TIMED = 1
 NORTHSTAR = os.path.join("docs", "northstar.json")
+# the spmd phase's ranks: each one's start-up, warm-up solve and timed solve
+# (the library is built by then), in seconds
+SPMD_TIMEOUT_S = 300
+SPMD_KERNELS = ("linearize", "riccati_box", "rollout2")
 
 
 def log(msg):
@@ -3055,11 +3074,161 @@ def sharded_phase(report):
         f"equal to the lane solve to the bit")
 
 
+def spmd_rank(out_dir):
+    """A rank of the spmd phase (``chip_smoke.py --spmd-rank DIR``, started
+    by spmd_phase through aslr_to_tpu_torch/parallel/launch.py): the BoxDDP
+    main path's problem, settings and x0s through shard_map_solve on the
+    lane route, a warm-up solve, then, once the parent writes a line (its
+    check workers stopped), one solve timed from a barrier before it to a
+    barrier after the gathered result, its launches counted. Saves the
+    gathered result and the statistics to DIR/rank<r>.pt and prints a JSON
+    line "SPMD RANK {...}"."""
+    import torch.distributed as dist
+
+    from aslr_to_tpu_torch import SolverSettings, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.kernels import build
+    from aslr_to_tpu_torch.measure import B_PATH, SEEDS, T_PATH, x0_batch
+    from aslr_to_tpu_torch.parallel.mesh import distributed_init
+    from aslr_to_tpu_torch.parallel.spmd import shard_map_solve
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: this script measures the port on a GPU only")
+        sys.exit(2)
+    mesh = distributed_init()
+    try:
+        w = two_dof_vsa_boxddp(T=T_PATH, dtype=torch.float32)
+        settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
+        x0s = x0_batch(B_PATH, torch.float32, SEEDS["boxddp"])
+
+        def solve():
+            return shard_map_solve(w.problem, x0s, settings, use_gaps=False, bounds=w.bounds,
+                                   use_fast_path="lanes", mesh=mesh)
+
+        solve()
+        torch.cuda.synchronize()
+        log("SPMD READY")
+        sys.stdin.readline()
+        mesh.barrier()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res, (n_conv, mean_cost) = solve()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        log(f"SPMD TIMED {seconds!r}")
+        torch.save(dict(result={f: getattr(res, f).cpu() for f in res._fields[:-1]},
+                        log={f: getattr(res.log, f).cpu() for f in res.log._fields},
+                        stats=torch.stack([n_conv, mean_cost]).cpu()),
+                   os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+        log("SPMD RANK " + json.dumps(dict(
+            rank=mesh.rank, size=mesh.size, device=str(mesh.device), backend=mesh.backend,
+            seconds=seconds, launches=launches, n_conv=float(n_conv),
+            mean_cost=float(mean_cost), home=build._home, copies=sorted(build._copies))))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@phase("spmd")
+def spmd_phase(report, card):
+    """The sharded solve across processes: a rank a card over NCCL where
+    the host has several, else 2 ranks on card 0 over Gloo (so that a
+    collective really crosses processes), each running the BoxDDP main
+    path's problem, settings and x0s (measure.py path boxddp) through
+    shard_map_solve on the lane route (spmd_rank). Every rank must launch
+    K1, K2 and K3 in the timed solve, from a library of its own card's (no
+    _device_copy); every rank's gathered result must equal this process's
+    single lane solve of the same x0s to the bit in every field; the global
+    statistics must be equal on every rank and equal to those computed in
+    the same way from that lane solve (n_conv exactly; mean_cost to the bit
+    with two ranks, else within the float32 rounding of the sums' other
+    order). A rank that fails or overruns SPMD_TIMEOUT_S fails the phase.
+    The ranks start beside the check workers; their timed solve runs with
+    the workers stopped."""
+    import tempfile
+
+    from aslr_to_tpu_torch import SolverSettings, make_batched_solver, two_dof_vsa_boxddp
+    from aslr_to_tpu_torch.measure import B_PATH, SEEDS, T_PATH, x0_batch
+    from aslr_to_tpu_torch.parallel import launch
+    from aslr_to_tpu_torch.parallel.spmd import stats_of
+    from aslr_to_tpu_torch.solvers.ddp import SolveLog, SolveResult
+
+    cards = torch.cuda.device_count()
+    n = cards if cards > 1 else 2
+    with tempfile.TemporaryDirectory() as d:
+        with launch.Ranks(n, [os.path.abspath(__file__), "--spmd-rank", d], SPMD_TIMEOUT_S,
+                          stdin=True) as ranks:
+            # this process's lane solve of the same x0s, while the ranks start
+            w = two_dof_vsa_boxddp(T=T_PATH, dtype=torch.float32)
+            settings = SolverSettings(maxiter=20, th_stop=1e-5, boxqp_warm_iters=2)
+            x0s = x0_batch(B_PATH, torch.float32, SEEDS["boxddp"])
+            lanes = make_batched_solver(w.problem, settings, use_gaps=False, bounds=w.bounds,
+                                        use_fast_path="lanes")(x0s)
+            torch.cuda.synchronize()
+            ranks.wait_for("SPMD READY")
+            with quiet():
+                ranks.send("go\n")
+                ranks.wait_for("SPMD TIMED")
+            texts = ranks.wait()
+        saved = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(n)]
+    infos = []
+    for r, text in enumerate(texts):
+        for line in text.splitlines():
+            log(f"  [rank {r}] {line}")
+            if line.startswith("SPMD RANK "):
+                infos.append(json.loads(line.removeprefix("SPMD RANK ")))
+    if [i["rank"] for i in infos] != list(range(n)):
+        raise AssertionError(f"spmd: the ranks' records {infos}")
+    for i in infos:
+        missing = [k for k in SPMD_KERNELS if i["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"spmd: rank {i['rank']} launched no {missing}")
+        if i["copies"] or f"cuda:{i['home']}" != i["device"]:
+            raise AssertionError(f"spmd: rank {i['rank']} on {i['device']} launched from the "
+                                 f"library of cuda:{i['home']} and the copies {i['copies']}")
+    names = SolveResult._fields[:-1] + SolveLog._fields
+    want_leaves = [t.cpu() for t in (*lanes[:-1], *lanes.log)]
+    for r, got in enumerate(saved):
+        got_leaves = [got["result"].get(f, got["log"].get(f)) for f in names]
+        differ = [f for f, a, b in zip(names, got_leaves, want_leaves)
+                  if not (a.dtype == b.dtype and a.shape == b.shape and same_bits(a, b))]
+        if differ:
+            raise AssertionError(f"spmd: rank {r}'s gathered result differs from the lane "
+                                 f"solve in {differ}")
+    stats = [got["stats"] for got in saved]
+    if not all(same_bits(st, stats[0]) for st in stats):
+        raise AssertionError(f"spmd: the ranks' global statistics differ: {stats}")
+    want = torch.stack(stats_of(lanes, n)).cpu()
+    n_conv, mean_cost = stats[0].tolist()
+    rounding = n * torch.finfo(torch.float32).eps * abs(float(want[1]))
+    exact = same_bits(stats[0], want)
+    if not (exact or (n > 2 and n_conv == float(want[0])
+                      and abs(mean_cost - float(want[1])) <= rounding)):
+        raise AssertionError(f"spmd: the global statistics {stats[0].tolist()} against "
+                             f"{want.tolist()} from the lane solve")
+    seconds = max(i["seconds"] for i in infos)
+    for row, path in ROW_PATH.items():
+        if path == "boxddp":
+            report[row].setdefault("launches_by_path", {})["spmd"] = sum(
+                i["launches"][ROW_KERNEL[row]] for i in infos)
+    log(f"  shard_map_solve over {n} ranks ({infos[0]['backend']}, devices "
+        f"{[i['device'] for i in infos]}), B={B_PATH}: {seconds:.4f} s from barrier to "
+        f"barrier, {B_PATH / seconds:.2f} solves/s on {card}; launches a rank "
+        f"{[{k: i['launches'][k] for k in SPMD_KERNELS} for i in infos]}; global statistics "
+        f"n_conv {n_conv!r}, mean_cost {mean_cost!r} on every rank, "
+        f"{'to the bit' if exact else 'within float32 rounding'} those of the lane solve; "
+        f"every gathered result equal to the lane solve to the bit; no rank took "
+        f"_device_copy")
+
+
 @phase("entry points")
 def entry_phase(report):
     """aslr_to_tpu_torch/entry.py on the card: entry()'s fn on its example
     x0s (the generic and lane BoxDDP solves, T=20, f32) and
-    dryrun_multichip over every card of the host."""
+    dryrun_multichip over every card of the host, the shards in series in
+    this process (its launches counted here; the process route is the spmd
+    phase's)."""
     from aslr_to_tpu_torch.entry import dryrun_multichip, entry
 
     fn, args = entry()
@@ -3070,9 +3239,9 @@ def entry_phase(report):
         raise AssertionError(f"entry(): {cost}, {gen_us.shape}, {lane_us.shape}")
     log(f"  entry(): cost_sum {cost.tolist()} in {t:.4f} s")
     n = torch.cuda.device_count()
-    _, t = drive("dryrun_multichip", report, lambda: dryrun_multichip(n),
+    _, t = drive("dryrun_multichip", report, lambda: dryrun_multichip(n, route="series"),
                  ("linearize", "riccati_box", "rollout2", "riccati_fddp"))
-    log(f"  dryrun_multichip({n}): {t:.4f} s")
+    log(f"  dryrun_multichip({n}, route='series'): {t:.4f} s")
 
 
 def assoc_parity_check():
@@ -3125,6 +3294,7 @@ def examples_check():
             finite(two_dof_vsa_boxddp.main(T=10, maxiter=4, homotopy=homotopy,
                                            out=os.path.join(d, "vsa.mat")).result)
     finite(batched_sweep.main(batch=4, T=10, maxiter=3, dtype="float64")[0])
+    finite(batched_sweep.main(batch=4, T=10, maxiter=3, dtype="float64", spmd=True)[0])
     finite(mpc_resolve.main(T=10, maxiter=20)[1])
     finite(mpc_tracking.main(T=10, maxiter=10)[0])
     finite(mpc_tracking.main(T=10, batch=4, reps=1)[0])
@@ -3183,6 +3353,7 @@ def main():
     # of them times (quiet)
     WORKERS.extend(start_checks())
     try:
+        spmd_phase(report, smi)
         kernels_phase(report)
         stage_box_kernels_phase(report)
         probe_phase(report)
@@ -3221,5 +3392,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--check"]:
         run_checks(sys.argv[2:])
+    elif sys.argv[1:2] == ["--spmd-rank"]:
+        spmd_rank(sys.argv[2])
     else:
         main()

@@ -2,11 +2,12 @@
 counterparts of ``__graft_entry__.py``: ``entry()``'s contract, which
 ``tests/test_graft_entry.py`` pins for the JAX package, held to the JAX
 package's ``entry()`` in f64 on the CPU, and ``dryrun_multichip`` over two
-CPU devices.
+CPU ranks (a process each), over two CPU devices in series, and on one.
 """
 import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from aslr_to_tpu.parallel.batch import make_batched_solver as jax_batched_solver
@@ -63,5 +64,27 @@ def test_entry_runs_both_routes_and_they_agree():
 
 
 def test_dryrun_multichip_on_two_cpu_devices():
-    """The five families through ``sharded_solve`` over two devices."""
+    """The five families through ``shard_map_solve`` over two ranks on the
+    CPU (Gloo), started by the port's launcher, each rank's global
+    statistics finite and equal to those of the gathered result."""
     dryrun_multichip(2, device_type="cpu", dtype=torch.float64)
+
+
+def test_dryrun_multichip_shards_in_series():
+    """The five families through ``sharded_solve`` over two CPU devices in
+    this process, the shards one after another."""
+    dryrun_multichip(2, device_type="cpu", dtype=torch.float64, route="series")
+
+
+def test_dryrun_multichip_on_one_device_runs_here(monkeypatch):
+    """One device needs no launch: the families run in this process on a
+    one-rank mesh; a route that does not exist raises."""
+    from aslr_to_tpu_torch.parallel import launch
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("dryrun_multichip(1) started processes")
+
+    monkeypatch.setattr(launch, "run", refuse)
+    dryrun_multichip(1, device_type="cpu", dtype=torch.float64)
+    with pytest.raises(ValueError, match="route must be"):
+        dryrun_multichip(2, device_type="cpu", route="threads")

@@ -92,6 +92,36 @@ def test_batched_sweep_example_over_two_devices(capsys):
         np.testing.assert_allclose(summary[k], jsum[k], rtol=1e-8, err_msg=k)
 
 
+def test_batched_sweep_example_spmd_over_two_ranks(capsys):
+    """The sweep's process route (``--spmd``) over two CPU ranks started by
+    the port's launcher: each rank prints the rate over the ranks and the
+    global statistics, equal on both and, to every digit, to those computed
+    in the same way from the series route's result on the same states; run
+    alone, the route is one rank, equal to the series route to the bit."""
+    from aslr_to_tpu_torch.parallel import launch
+    from aslr_to_tpu_torch.parallel.spmd import stats_of
+
+    sizes = ["--batch", "4", "--T", "10", "--maxiter", "3", "--dtype", "float64"]
+    outs = launch.run(2, ["-m", "aslr_to_tpu_torch.examples.batched_sweep", "--spmd",
+                          "--devices", "cpu", *sizes], timeout=180)
+    series, _ = batched_sweep.main(batch=4, T=10, maxiter=3, devices="cpu,cpu",
+                                   dtype="float64")
+    n_conv, mean_cost = stats_of(series, 2)
+    want = f"global statistics: n_converged {float(n_conv)!r}, mean_cost {float(mean_cost)!r}"
+    for rank, out in enumerate(outs):
+        assert want in out.splitlines(), out
+        assert (f"solves/s over 2 rank(s), a shard each at the same time (rank {rank} on "
+                f"cpu, backend gloo)") in out
+    alone, summary = batched_sweep.main(batch=4, T=10, maxiter=3, devices="cpu",
+                                        dtype="float64", spmd=True)
+    assert "over 1 rank(s)" in capsys.readouterr().out
+    for name in ("xs", "us", "cost", "iterations", "converged", "diverged"):
+        assert torch.equal(getattr(alone, name), getattr(series, name)), name
+    assert summary["n"] == 4
+    with pytest.raises(ValueError, match="--spmd runs each rank on its card"):
+        batched_sweep.main(batch=4, devices="cpu,cpu", spmd=True)
+
+
 def test_mpc_resolve_example():
     """The cold solve and the warm re-solve from one knot into the plan,
     with the plan shifted by a knot as the warm start, against the JAX
